@@ -1,0 +1,217 @@
+"""Weighted heavy hitters on the resident incremental runner (a lean
+port of `mastic_tpu/drivers/heavy_hitters.py`).
+
+Per level: one incremental round for both aggregators (kernel K3 for
+the level, K1 for the binders and the eval proof), the FLP weight check
+on level 0, the accept-mask combine and the masked aggregation, all on
+the device; then one sync, the unshard and the threshold pruning on the
+host.  The padded node width grows on demand.
+
+Reports whose XOF rejection sampling fired (`ok` False, about 2^-32 per
+sampled Field64 element) are excluded from both aggregates from the
+round where it fired on, and counted: the JAX package recomputes them
+through its scalar layer (`splice_rejected`), which the port has not
+brought over yet.  The AOT programs, the pipeline, metrics and
+checkpointing are left for later slices.
+
+Thresholds: a dict mapping prefix tuples to ints with a "default" key;
+a prefix takes the threshold of its longest strict ancestor present in
+the dict, else the default.
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..backend.incremental import (Carry, IncrementalMastic, RoundPlan,
+                                   round_inputs)
+from ..backend.mastic import BatchedMastic, MasticCount, ReportBatch
+
+
+def get_threshold(thresholds: dict, prefix: tuple) -> int:
+    """Longest-strict-ancestor threshold lookup."""
+    for level in reversed(range(len(prefix) - 1)):
+        if prefix[:level + 1] in thresholds:
+            return thresholds[prefix[:level + 1]]
+    return thresholds["default"]
+
+
+def _pad_nodes(x: torch.Tensor, dim: int, pad: int) -> torch.Tensor:
+    """Zero-pad the node axis `dim` of a carry tensor by `pad`."""
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+class IncrementalRunner:
+    """Drives backend/incremental.py across the collector loop: keeps
+    both aggregators' carries on the device, grows the padded width on
+    demand, and folds the level-0 FLP weight check into the accept
+    mask."""
+
+    def __init__(self, bm: BatchedMastic, verify_key: bytes, ctx: bytes,
+                 batch: ReportBatch, valid: Optional[torch.Tensor] = None,
+                 width: int = 8):
+        self.bm = bm
+        self.verify_key = verify_key
+        self.ctx = ctx
+        self.batch = batch
+        self.device = batch.nonces.device
+        self.num_reports = int(batch.nonces.shape[0])
+        # Reports excluded from every aggregate: rejected at shard time
+        # (`valid` False) or at a round's rejection sampling.
+        self.excluded = torch.zeros(self.num_reports, dtype=torch.bool,
+                                    device=self.device)
+        if valid is not None:
+            self.excluded |= ~valid
+        self.width = max(4, width)
+        self.engine = IncrementalMastic(bm, self.width)
+        self.layouts: list = []
+        (self.ext_rk, self.conv_rk) = bm.vidpf.roundkeys(ctx, batch.nonces)
+        self.carries = [self.engine.init_carry(self.num_reports,
+                                               batch.keys[:, a], a)
+                        for a in range(2)]
+        self.max_width = self.width
+
+    def _grow(self, width: int) -> None:
+        pad = width - self.width
+        self.carries = [
+            Carry(w=_pad_nodes(c.w, 2, pad), proof=_pad_nodes(c.proof, 2, pad),
+                  seed=_pad_nodes(c.seed, 1, pad),
+                  ctrl=_pad_nodes(c.ctrl, 1, pad))
+            for c in self.carries]
+        self.width = width
+        self.max_width = max(self.max_width, width)
+        self.engine = IncrementalMastic(self.bm, width)
+
+    def _plan(self, prefixes, level: int) -> RoundPlan:
+        while True:
+            try:
+                return RoundPlan(prefixes, level, self.bm.m.bits,
+                                 self.width, self.layouts)
+            except ValueError as err:
+                if "exceeds padded width" not in str(err):
+                    raise
+                self._grow(self.width * 2)
+
+    def round_stage(self, agg_param) -> dict:
+        """Dispatch one round without blocking: both aggregators' tree
+        step, the level-0 weight check, the accept combine and the
+        masked aggregates.  Returns the handle `round_collect` reads."""
+        (level, prefixes, do_weight_check) = agg_param
+        plan = self._plan(prefixes, level)
+        rnd = round_inputs(plan, self.device)
+        (c0, proof0, out0, ok0) = self.engine.agg_round(
+            0, self.verify_key, self.ctx, self.carries[0], rnd,
+            self.ext_rk, self.conv_rk, self.batch.cws)
+        (c1, proof1, out1, ok1) = self.engine.agg_round(
+            1, self.verify_key, self.ctx, self.carries[1], rnd,
+            self.ext_rk, self.conv_rk, self.batch.cws)
+        self.carries = [c0, c1]
+        accept = torch.all(proof0 == proof1, dim=-1)
+        ok = ok0 & ok1
+        if do_weight_check:
+            (checks, wc_ok) = self.bm.weight_check_device(
+                self.verify_key, self.ctx, level, self.batch,
+                c0.w[:, 0, :2], c1.w[:, 0, :2])
+            accept = accept & checks["weight_check"]
+            ok = ok & wc_ok
+        self.excluded |= ~ok
+        accept = accept & ~self.excluded
+        agg = (self.bm.aggregate(out0, accept), self.bm.aggregate(out1, accept))
+        self.layouts.append(plan.layout_new)
+        return {"agg_param": agg_param, "agg": agg}
+
+    def round_collect(self, handle: dict) -> list:
+        """The blocking half: one sync, the unshard.  Returns one
+        weighted count per prefix."""
+        (_level, prefixes, _wc) = handle["agg_param"]
+        rows = len(prefixes) * (1 + self.bm.m.valid.OUTPUT_LEN)
+        shares = [self.bm.agg_share_to_host(a[:rows]) for a in handle["agg"]]
+        return self.bm.m.unshard(shares)
+
+
+class HeavyHittersRun:
+    """A heavy-hitters collection over a device-resident report batch:
+    one `step()` per tree level."""
+
+    def __init__(self, mastic: MasticCount, ctx: bytes, thresholds: dict,
+                 verify_key: bytes, batch: ReportBatch,
+                 valid: Optional[torch.Tensor] = None, device="cuda"):
+        dev = resolve_device(device)
+        if batch.nonces.device.type != dev.type:
+            raise ValueError(f"the report batch is not on {dev}")
+        self.mastic = mastic
+        self.ctx = ctx
+        self.thresholds = thresholds
+        self.verify_key = verify_key
+        self.bm = BatchedMastic(mastic)
+        self.runner = IncrementalRunner(self.bm, verify_key, ctx, batch,
+                                        valid)
+        self.level = 0
+        self.prefixes: list = [(False,), (True,)]
+        self.prev_agg_params: list = []
+        self.heavy_hitters: list = []
+        # Per completed level: (prefixes, weighted counts).
+        self.level_results: list = []
+        self.done = False
+
+    def step(self) -> bool:
+        """Run one level's round.  Returns True while more remain."""
+        handle = self.step_begin()
+        if handle is None:
+            return False
+        return self.step_finish(handle)
+
+    def step_begin(self) -> Optional[dict]:
+        """Dispatch one level's round without blocking; None when no
+        rounds remain.  Every handle goes to `step_finish`."""
+        if self.done:
+            return None
+        if not self.prefixes:
+            self.done = True
+            return None
+        agg_param = (self.level, tuple(self.prefixes), self.level == 0)
+        if not self.mastic.is_valid(agg_param, self.prev_agg_params):
+            raise ValueError("invalid aggregation parameter sequence")
+        return self.runner.round_stage(agg_param)
+
+    def step_finish(self, handle: dict) -> bool:
+        """Collect the staged round, prune at the threshold, and
+        advance the frontier.  Returns True while more rounds remain."""
+        counts = self.runner.round_collect(handle)
+        (level, prefixes, _wc) = handle["agg_param"]
+        self.prev_agg_params.append(handle["agg_param"])
+        self.level_results.append((list(prefixes), counts))
+        survivors = [p for (p, c) in zip(prefixes, counts)
+                     if c >= get_threshold(self.thresholds, p)]
+        if level < self.mastic.bits - 1:
+            self.prefixes = [p + (bit,) for p in survivors
+                             for bit in (False, True)]
+        else:
+            self.heavy_hitters = survivors
+        self.level += 1
+        if self.level >= self.mastic.bits or not self.prefixes:
+            self.done = True
+        return not self.done
+
+    def result(self) -> list:
+        return self.heavy_hitters
+
+    def excluded(self) -> np.ndarray:
+        """Reports excluded from the aggregates so far (bool (R,))."""
+        return self.runner.excluded.cpu().numpy()
+
+
+def compute_heavy_hitters(mastic: MasticCount, ctx: bytes, thresholds: dict,
+                          verify_key: bytes, batch: ReportBatch,
+                          valid: Optional[torch.Tensor] = None,
+                          device="cuda") -> list:
+    """The full collector loop over a sharded report batch."""
+    run = HeavyHittersRun(mastic, ctx, thresholds, verify_key, batch,
+                          valid, device)
+    while run.step():
+        pass
+    return run.result()

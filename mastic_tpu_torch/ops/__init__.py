@@ -1,0 +1,1 @@
+"""Array primitives and the hand-written CUDA kernels of the PyTorch port."""

@@ -1,0 +1,121 @@
+"""The PyTorch port's boundaries: import hygiene (no jax, nothing of
+mastic_tpu), devices (CUDA by default, no silent CPU fallback), and the
+kernel wrappers' CPU routing and argument checks."""
+
+import importlib
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mastic_tpu_torch
+from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
+from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
+from mastic_tpu_torch.ops import kernels, level
+from mastic_tpu_torch.ops.keccak import turbo_shake128
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import mastic_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(mastic_tpu_torch.__path__,
+                                               "mastic_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "mastic_tpu" or m.startswith("mastic_tpu.")]
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_mastic_tpu():
+    """In a fresh interpreter (this session has jax loaded): importing
+    every module of the port loads neither jax nor mastic_tpu."""
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split(None, 1)
+    assert int(out[0]) >= 20
+    assert out[1].strip() == "[]"
+
+
+def test_every_module_imports_here():
+    names = [m.name for m in pkgutil.walk_packages(
+        mastic_tpu_torch.__path__, "mastic_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    assert "mastic_tpu_torch.ops.level" in names
+
+
+def test_cuda_default_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mastic_tpu_torch.resolve_device("cuda")
+    bm = BatchedMastic(MasticCount(4))
+    with pytest.raises(RuntimeError):
+        bm.encode_measurements([((True,) * 4, 1)])
+    assert mastic_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_run_defaults_to_cuda(monkeypatch):
+    """HeavyHittersRun's device defaults to "cuda": a CPU batch is
+    refused rather than run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    bm = BatchedMastic(MasticCount(4))
+    (alphas, betas) = bm.encode_measurements([((True,) * 4, 1)] * 2, "cpu")
+    rng = np.random.default_rng(0)
+    nonces = torch.from_numpy(rng.integers(0, 256, (2, 16), dtype=np.uint8))
+    rand = torch.from_numpy(rng.integers(0, 256, (2, 96), dtype=np.uint8))
+    (batch, _ok) = bm.shard_device(b"ctx", alphas, betas, nonces, rand)
+    with pytest.raises(ValueError, match="not on cuda"):
+        HeavyHittersRun(MasticCount(4), b"ctx", {"default": 1}, bytes(32),
+                        batch)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """A CPU tensor never reaches a kernel: nothing is built or counted."""
+    before = dict(kernels.launches)
+    out = turbo_shake128(torch.zeros((3, 10), dtype=torch.uint8), 1, 32)
+    assert out.shape == (3, 32)
+    assert kernels.launches == before
+
+
+def test_kernel_argument_checks():
+    t = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.check_cuda(t, torch.int32, "x")
+    assert level.supports(2, 28, 36)
+    assert not level.supports(9, 28, 36)
+    assert not level.supports(2, 28, 124)
+    with pytest.raises(ValueError, match="binder_len"):
+        level.level_step(None, 2, 2, None, None, None, None, None,
+                         bytes(28), torch.zeros((2, 4), dtype=torch.uint8),
+                         6)
+
+
+def test_kernel_build_is_keyed_by_every_source():
+    """The build directory sits under build/ (listed in .gitignore) and
+    its name changes with any source or header."""
+    assert kernels.BUILD_ROOT == REPO / "build" / "kernels"
+    for name in kernels.SOURCES:
+        assert (kernels.CSRC / f"{name}.cu").exists()
+    for name in kernels.HEADERS:
+        assert (kernels.CSRC / name).exists()
+    assert len(kernels._digest()) == 16
+    assert "/build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    sys.path.insert(0, str(REPO))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(REPO))
+    assert smoke.main() == 2
+    assert '"ok"' not in capsys.readouterr().out
