@@ -37,8 +37,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 bytes/s,
-# and int32 logic ops/s = 132 SMs x 64 INT32 lanes x 1.98 GHz boost.
+# H100 SXM peaks: HBM3 bytes/s (NVIDIA data sheet), and 32-bit integer
+# logic and shift instructions/s = 132 SMs x 64 results per clock (the
+# CUDA C++ Programming Guide's throughput table, compute capability 9.0)
+# x 1.98 GHz boost; the data sheet gives no integer rate outside the
+# tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
@@ -49,11 +52,20 @@ PER_PLANTED = 64
 THRESHOLD = 48
 CTX = b"mastic chip smoke"
 
-# Operation counts (32-bit integer instructions of the algorithm, as
-# the kernels run it) used for the bounds below.
-KECCAK_PERM_OPS = 12 * 2 * (20 + 10 + 25 + 24 + 75 + 1)   # 155 64-bit ops/round
+# Operation counts for the bounds, in 32-bit instructions as the card
+# issues them: one LOP3 computes any function of three words, and a
+# 64-bit rotate is two funnel shifts (SHF).
+# Keccak round: theta parities 5 columns x 2 halves x 2 LOP3, their
+# rotations 5 x 2 SHF, theta applied 25 x 2 LOP3 (a ^ c[x-1] ^ rot
+# c[x+1]), rho 24 x 2 SHF, chi 25 x 2 LOP3 (b ^ (~c & d)), iota 2.
+KECCAK_PERM_OPS = 12 * (20 + 10 + 50 + 48 + 50 + 2)
+KECCAK_ABSORB_OPS = 42          # one rate block: 21 lanes x 2 XOR
+# AES over one column of 32 blocks (a 32-bit word per state bit), in
+# 2-input gates: 11 round keys x 128 XOR, 10 x 16 tower S-boxes of 195
+# gates, 9 x 16 MixColumns bytes of 35 XOR; charged at two gates per
+# LOP3, the most an LOP3 takes from an XOR tree.
 SBOX_GATES = 195
-AES_BLOCK_OPS = 11 * 128 + 10 * 16 * SBOX_GATES + 9 * 16 * 35  # 32 blocks
+AES_BLOCK_OPS = (11 * 128 + 10 * 16 * SBOX_GATES + 9 * 16 * 35) / 2
 
 
 def _bound(nbytes: float, ops: float) -> tuple:
@@ -89,9 +101,11 @@ def _max_err(got, want) -> int:
 
 def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
     """Each kernel against its plain version at main-path shapes."""
+    from mastic_tpu_torch.backend.mastic import MasticCount
     from mastic_tpu_torch.backend.vidpf import BatchedVidpf
     from mastic_tpu_torch.backend.xof import ts_prefix
-    from mastic_tpu_torch.dst import USAGE_NODE_PROOF, dst
+    from mastic_tpu_torch.dst import (USAGE_NODE_PROOF, USAGE_ONEHOT_CHECK,
+                                      dst, dst_alg)
     from mastic_tpu_torch.ops import aes, keccak, level
     from mastic_tpu_torch.ops.field import FIELD64
 
@@ -120,30 +134,39 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
         raise AssertionError("K1 permutation disagrees with its plain version")
     del lo, hi
 
-    # K1, sponge over a level-255 onehot binder: 256 depths x 64 nodes x
-    # 32-byte proofs behind the 14-byte XofTurboShake128 empty-seed prefix.
-    length = 14 + 256 * 64 * 32
+    # K1, sponge over a level-255 onehot binder (256 depths x 64 nodes x
+    # 32-byte proofs) read in place behind its XofTurboShake128
+    # empty-seed prefix, as the eval proof hashes it; and without a
+    # prefix over a short length of the same rows.
+    prefix = ts_prefix(dst_alg(CTX, USAGE_ONEHOT_CHECK, MasticCount.ID), 0)
+    length = 256 * 64 * 32
     msg = rand_u8(R, length)
-    got = keccak.turbo_shake128_dynamic(msg, length, 1, 32)
-    want = keccak.turbo_shake128_dynamic_plain(msg, length, 1, 32)
+    got = keccak.turbo_shake128_dynamic(msg, length, 1, 32, prefix=prefix)
+    want = keccak.turbo_shake128_dynamic_plain(msg, length, 1, 32,
+                                               prefix=prefix)
     err1 = _max_err([got], [want])
-    ms = _time(lambda: keccak.turbo_shake128_dynamic(msg, length, 1, 32), 3)
+    short = [f(msg, 1000, 1, 200) for f in (keccak.turbo_shake128_dynamic,
+                                           keccak.turbo_shake128_dynamic_plain)]
+    err1 = max(err1, _max_err(short[:1], short[1:]))
+    ms = _time(lambda: keccak.turbo_shake128_dynamic(msg, length, 1, 32,
+                                                     prefix=prefix), 3)
     t0 = time.perf_counter()
-    keccak.turbo_shake128_dynamic_plain(msg, length, 1, 32)
+    keccak.turbo_shake128_dynamic_plain(msg, length, 1, 32, prefix=prefix)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    blocks = length // 168 + 1
-    (bound, by) = _bound(R * (length + 32.0),
-                         R * blocks * (KECCAK_PERM_OPS + 42.0))
+    blocks = (len(prefix) + length) // 168 + 1
+    (bound, by) = _bound(R * (length + 32.0) + len(prefix),
+                         R * blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
     rows.append({"name": "keccak_turboshake", "route": "cuda",
                  "source": "mastic_tpu_torch/csrc/keccak.cu",
                  "replaces": "mastic_tpu/ops/keccak_pallas.py:72",
-                 "max_abs_err": max(err, err1), "ms": ms,
+                 "max_abs_err": max(err, err1), "kernel_ms": ms, "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                  "library_ms": None,
-                 "shape": f"{R} messages x {length} B (+ permutation "
-                          f"{states} states: {perm_ms:.4f} ms)"})
-    del msg, got, want
+                 "shape": f"{R} messages x ({len(prefix)} + {length}) B "
+                          f"(+ permutation {states} states: "
+                          f"{perm_ms:.4f} ms, bound {perm_bound:.4f} ms)"})
+    del msg, got, want, short
 
     # K2 at the client sharding's extend shape: both parties' seeds, 2
     # blocks each, 4096 reports = 128 packed words.
@@ -162,9 +185,9 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
     rows.append({"name": "aes128_bitsliced", "route": "cuda",
                  "source": "mastic_tpu_torch/csrc/aes.cu",
                  "replaces": "mastic_tpu/ops/aes_pallas.py:149",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound, "bound_by": by, "library_ms": None,
-                 "shape": f"planes (8, 16, 2, 2, {R // 32})"})
+                 "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                 "library_ms": None, "shape": f"planes (8, 16, 2, 2, {R // 32})"})
 
     # K3 with a level-255 node binder, at the main path's R x 32 parents
     # (padded width 64) and at R x 64 parents.
@@ -189,16 +212,18 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
         in_bytes = 2 * 11 * 16 * R + R * parents * 17 \
             + R * (16 + 2 + 32 + 32) + len(prefix) + binder.numel()
         out_bytes = R * 2 * parents * (16 + 1 + 32 + 1 + 32)
-        ops = pairs * (6 * AES_BLOCK_OPS + 2 * 2 * 16 * 8 * 3 * 32
-                       + 64 * (KECCAK_PERM_OPS + 3 * 168))
+        # Per (packed word x parent): 2 extend and 2 x 2 convert AES
+        # columns, and 64 one-block node-proof sponges.
+        ops = pairs * (6 * AES_BLOCK_OPS
+                       + 64 * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
         (bound, by) = _bound(float(in_bytes + out_bytes), float(ops))
         level_rows[parents] = {
             "name": "level_step", "route": "cuda",
             "source": "mastic_tpu_torch/csrc/level.cu",
             "replaces": "mastic_tpu/ops/level_pallas.py:521",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "shape": f"{R} reports x {parents} parents"}
+            "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "shape": f"{R} reports x {parents} parents"}
     wide = level_rows[64]
     print(f"K3 at {wide['shape']}: {wide['ms']:.4f} ms (plain "
           f"{wide['plain_ms']:.3f} ms, bound {wide['bound_ms']:.4f} ms by "

@@ -309,11 +309,8 @@ class IncrementalMastic:
 def _binder_check(binder: torch.Tensor, ctx: bytes, usage: int,
                   alg_id: int) -> torch.Tensor:
     """XofTurboShake128 with an empty seed over one binder row per
-    report (the payload and onehot checks)."""
+    report (the payload and onehot checks).  The sponge reads the
+    binder in place behind the XOF's prefix: it is never copied."""
     prefix = ts_prefix(dst_alg(ctx, usage, alg_id), 0)
-    msg = torch.empty((binder.shape[0], len(prefix) + binder.shape[1]),
-                      dtype=torch.uint8, device=binder.device)
-    msg[:, :len(prefix)] = torch.as_tensor(
-        np.frombuffer(prefix, np.uint8).copy(), device=binder.device)
-    msg[:, len(prefix):] = binder
-    return turbo_shake128_dynamic(msg, msg.shape[1], 1, PROOF_SIZE)
+    return turbo_shake128_dynamic(binder, binder.shape[1], 1, PROOF_SIZE,
+                                  prefix=prefix)

@@ -21,7 +21,6 @@ from ..ops.aes import bitslice_keys, bitslice_pack, bitslice_unpack, \
     pack_mask, unpack_mask
 from ..ops.field import FIELD64, FieldSpec
 from ..ops.keccak import turbo_shake128_dynamic
-from ..ops.level import level_step, supports
 from ..vidpf import KEY_SIZE, PROOF_SIZE
 from .xof import (fixed_key_blocks, fixed_key_blocks_planes,
                   fixed_key_schedule, sample_vec, ts_prefix)
@@ -68,7 +67,7 @@ def pack_path_bits(bits_arr: torch.Tensor) -> torch.Tensor:
 def level_core(spec: FieldSpec, convert_blocks: int, value_len: int,
                ext_rk: torch.Tensor, conv_rk: torch.Tensor,
                parent_seed: torch.Tensor, parent_ctrl: torch.Tensor,
-               cw_slice, plain: bool = False) -> tuple:
+               cw_slice) -> tuple:
     """extend + correct + convert for one level (everything but the
     node proof), in the bitsliced plane domain: one bitslice_pack of
     the parent seeds in, one unpack of the next seeds and payload out,
@@ -76,7 +75,7 @@ def level_core(spec: FieldSpec, convert_blocks: int, value_len: int,
     multiple of 32 with zero lanes.  Returns (next_seed (R, 2N, 16), ct
     (R, 2N) bool, w plain limbs (R, 2N, VL, n), ok (R, 2N)); children
     interleave (left0, right0, left1, ...), i.e. lexicographic order.
-    `plain` keeps the AES on its plain version (K3's plain version)."""
+    It runs the AES on its plain version: this is K3's plain version."""
     (seed_cw, ctrl_cw, w_cw, _proof_cw) = cw_slice
     (num_reports, num_parents) = parent_ctrl.shape
     pad = (-num_reports) % 32
@@ -91,7 +90,7 @@ def level_core(spec: FieldSpec, convert_blocks: int, value_len: int,
     sp = bitslice_pack(padded(parent_seed))               # (8,16,N,W)
     pctrl = pack_mask(padded(parent_ctrl))                # (N, W)
 
-    ext = fixed_key_blocks_planes(ext_kp, sp, 2, plain)        # (8,16,N,2,W)
+    ext = fixed_key_blocks_planes(ext_kp, sp, 2)        # (8,16,N,2,W)
     s_l = ext[..., 0, :].clone()
     s_r = ext[..., 1, :].clone()
     # Control bits are plane (0, byte 0); clear them in the seeds.
@@ -112,7 +111,7 @@ def level_core(spec: FieldSpec, convert_blocks: int, value_len: int,
         (8, 16, 2 * num_parents) + sp.shape[-1:])
     ct_words = torch.stack([t_l, t_r], dim=1).reshape(2 * num_parents, -1)
 
-    stream = fixed_key_blocks_planes(conv_kp, cs, convert_blocks, plain)
+    stream = fixed_key_blocks_planes(conv_kp, cs, convert_blocks)
     next_seed = bitslice_unpack(stream[..., 0, :])[:num_reports]
     tail = stream[..., 1:, :]
     tail = bitslice_unpack(
@@ -264,25 +263,3 @@ class BatchedVidpf:
             seed=torch.stack(cw_seed, dim=1), ctrl=torch.stack(cw_ctrl, dim=1),
             w=torch.stack(cw_w, dim=1), proof=torch.stack(cw_proof, dim=1))
         return (cws, keys, ok)
-
-    # -- evaluation (aggregator side) ------------------------------
-
-    def eval_step(self, ext_rk: torch.Tensor, conv_rk: torch.Tensor,
-                  parents: EvalState, cw_slice, ctx: bytes,
-                  node_binder: torch.Tensor) -> tuple:
-        """One level of the tree: extend every parent, correct, convert
-        and hash both children.  node_binder (2N, B) uint8 is hashed
-        whole.  Returns (EvalState for the children, ok (R,)).  Goes
-        through kernel K3 (ops/level.py) on CUDA tensors."""
-        prefix = ts_prefix(dst(ctx, USAGE_NODE_PROOF), KEY_SIZE)
-        blen = node_binder.shape[-1]
-        if not supports(self.convert_blocks, len(prefix), blen):
-            raise NotImplementedError(
-                "level shapes outside the fused level step are not "
-                "ported yet")
-        (next_seed, ct, w, ok, proof) = level_step(
-            self.spec, self.convert_blocks, self.VALUE_LEN, ext_rk, conv_rk,
-            parents.seed, parents.ctrl, cw_slice, prefix, node_binder,
-            blen)
-        child = EvalState(seed=next_seed, ctrl=ct, w=w, proof=proof)
-        return (child, torch.all(ok, dim=-1))

@@ -99,13 +99,13 @@ def fixed_key_blocks(round_keys: torch.Tensor, seeds: torch.Tensor,
 
 
 def fixed_key_blocks_planes(key_planes: torch.Tensor,
-                            seed_planes: torch.Tensor, num_blocks: int,
-                            plain: bool = False) -> torch.Tensor:
+                            seed_planes: torch.Tensor,
+                            num_blocks: int) -> torch.Tensor:
     """XofFixedKeyAes128 blocks entirely in the bitsliced plane domain.
 
     key_planes (11, 8, 16, W); seed_planes (8, 16, N..., W).  Returns
-    stream planes (8, 16, N..., num_blocks, W).  `plain` runs the plain
-    version of the AES in place of kernel K2 (for K3's plain version)."""
+    stream planes (8, 16, N..., num_blocks, W).  The AES is its plain
+    version: this serves K3's plain version, which runs no kernel."""
     idx = torch.as_tensor(block_index_planes(num_blocks),
                           device=seed_planes.device)       # (m, 8, 16)
     extra = seed_planes.ndim - 3
@@ -115,9 +115,7 @@ def fixed_key_blocks_planes(key_planes: torch.Tensor,
     lo = x[:, :8]
     hi = x[:, 8:]
     sigma = torch.cat([hi, hi ^ lo], dim=1).contiguous()
-    encrypt = (aes128_encrypt_bitsliced_plain if plain
-               else aes128_encrypt_bitsliced)
-    return encrypt(key_planes, sigma) ^ sigma
+    return aes128_encrypt_bitsliced_plain(key_planes, sigma) ^ sigma
 
 
 def _encrypt_bitsliced_reports(round_keys: torch.Tensor,

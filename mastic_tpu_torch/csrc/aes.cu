@@ -8,11 +8,11 @@
 // threads run along W, so every plane load and store is coalesced, and the
 // key planes (11 * 128, W) are shared by all M blocks of a word.
 //
-// What bounds it on the H100: integer issue.  One bitsliced block is about
-// 10 * (16 * 195 S-box gates + ~350 MixColumns XORs + 128 key XORs) ~ 37k
-// logic instructions for 32 blocks of 16 bytes, ~72 instructions per byte,
-// against 128 * 4 * 2 bytes moved per column: compute-bound by a wide
-// margin.  The 128 state words plus the S-box temporaries sit at the edge of
+// What bounds it on the H100: integer issue.  One bitsliced column is about
+// 10 * 16 * 195 S-box gates + 9 * 16 * 35 MixColumns XORs + 11 * 128 key
+// XORs ~ 37.6k 2-input gates, at least ~18.8k instructions with two gates
+// per LOP3, for 32 blocks of 16 bytes (~37 instructions per byte), against
+// 128 * 4 * 2 bytes moved per column: compute-bound by a wide margin.  The 128 state words plus the S-box temporaries sit at the edge of
 // the 255-register limit: ptxas (CUDA 12.8, -Xptxas -v, printed by
 // chip_smoke.py) reports 255 registers and 104 bytes of spill stores and
 // loads (a 112-byte stack frame) for this first version.

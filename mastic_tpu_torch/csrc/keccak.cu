@@ -6,15 +6,16 @@
 //     uint32 halves in, (..., 25) lo/hi, as the JAX package lays them out);
 //   turboshake: the whole sponge, one thread per message: absorbs a runtime
 //     number of rate blocks in one launch (pad10*1 at a runtime `length`
-//     shared by the batch) and squeezes out_len bytes.  It reads each message
-//     in place, so the binder sponges, whose messages grow with the tree depth
-//     (about 2 KiB per level per report at a 64-node frontier), never build a
-//     padded copy.
+//     shared by the batch) and squeezes out_len bytes.  The message is a
+//     short prefix shared by the batch followed by each row of msg, which
+//     is read in place, so the binder sponges, whose messages grow with the
+//     tree depth (about 2 KiB per level per report at a 64-node frontier),
+//     never build a padded copy or a copy behind their dst prefix.
 //
 // What bounds it on the H100: integer issue.  A 12-round permutation is about
-// 12 * 200 64-bit logic ops (two 32-bit instructions each) for 168 bytes
-// absorbed, roughly 30 instructions per byte, far above the ~4 bytes per
-// instruction slot at which HBM would bind.  Each sponge is sequential, so
+// 2160 32-bit instructions as issued (180 per round: LOP3s for theta and chi,
+// two funnel shifts per 64-bit rotate) for 168 bytes absorbed, ~13
+// instructions per byte, above the ~5 per byte at which HBM would bind.  Each sponge is sequential, so
 // parallelism is the batch: a short batch (4096 reports) fills only a few
 // warps per SM and the long deep-level binders run latency-bound.  The design
 // keeps the whole state in registers (no shared memory, no local memory) and
@@ -46,7 +47,8 @@ keccak_permute_kernel(const uint32_t* __restrict__ lo_in,
 }
 
 __global__ void __launch_bounds__(128)
-turboshake_kernel(const uint8_t* __restrict__ msg, long long stride,
+turboshake_kernel(const uint8_t* __restrict__ pre, int plen,
+                  const uint8_t* __restrict__ msg, long long stride,
                   long long length, int domain, uint8_t* __restrict__ out,
                   int out_len, int batch, int aligned) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
@@ -54,7 +56,7 @@ turboshake_kernel(const uint8_t* __restrict__ msg, long long stride,
   uint64_t a[25];
 #pragma unroll
   for (int l = 0; l < 25; ++l) a[l] = 0;
-  turboshake_absorb(a, msg + i * stride, length, domain, aligned != 0);
+  turboshake_absorb(a, pre, plen, msg + i * stride, length, domain, aligned != 0);
   turboshake_squeeze(a, out + i * out_len, out_len);
 }
 
@@ -70,13 +72,15 @@ extern "C" int keccak_permute(const void* lo, const void* hi, void* lo_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int turboshake(const void* msg, long long stride, long long length,
-                          int domain, void* out, int out_len, int batch,
-                          int aligned, void* stream) {
+extern "C" int turboshake(const void* pre, int plen, const void* msg,
+                          long long stride, long long length, int domain,
+                          void* out, int out_len, int batch, int aligned,
+                          void* stream) {
   const int threads = 128;
   const int blocks = (batch + threads - 1) / threads;
   turboshake_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(msg), stride, length, domain,
+      static_cast<const uint8_t*>(pre), plen, static_cast<const uint8_t*>(msg),
+      stride, length, domain,
       static_cast<uint8_t*>(out), out_len, batch, aligned);
   return static_cast<int>(cudaGetLastError());
 }

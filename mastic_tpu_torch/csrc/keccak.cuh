@@ -89,29 +89,50 @@ __device__ __forceinline__ uint64_t load_lane(const uint8_t* p, bool aligned) {
   return v;
 }
 
-// Absorb `length` bytes of m into the zero state a, with TurboSHAKE's
-// pad10*1: the domain byte at position `length`, 0x80 on the last byte of
-// the final block.  The message is read in place; only the final block is
-// assembled byte by byte.  `aligned` says m is 8-byte aligned.
-__device__ __forceinline__ void turboshake_absorb(uint64_t a[25], const uint8_t* m,
+// Byte q of the message pre[0:plen] || m.
+__device__ __forceinline__ uint32_t msg_byte(const uint8_t* pre, int plen,
+                                             const uint8_t* m, long long q) {
+  return q < plen ? pre[q] : m[q - plen];
+}
+
+// Absorb the `length` bytes of pre[0:plen] || m into the zero state a, with
+// TurboSHAKE's pad10*1: the domain byte at position `length`, 0x80 on the
+// last byte of the final block.  m is read in place (a short prefix, such as
+// an XOF's dst, never has to be copied in front of a long binder); only the
+// blocks that hold prefix bytes and the final block are assembled byte by
+// byte.  `aligned` says m + (k * KECCAK_RATE - plen) is 8-byte aligned.
+__device__ __forceinline__ void turboshake_absorb(uint64_t a[25], const uint8_t* pre,
+                                                  int plen, const uint8_t* m,
                                                   long long length, int domain,
                                                   bool aligned) {
   const long long full = length / KECCAK_RATE;
   for (long long blk = 0; blk < full; ++blk) {
-    const uint8_t* p = m + blk * KECCAK_RATE;
+    const long long q0 = blk * KECCAK_RATE;
+    if (q0 >= plen) {
+      const uint8_t* p = m + (q0 - plen);
 #pragma unroll
-    for (int l = 0; l < 21; ++l) a[l] ^= load_lane(p + 8 * l, aligned);
+      for (int l = 0; l < 21; ++l) a[l] ^= load_lane(p + 8 * l, aligned);
+    } else {
+#pragma unroll
+      for (int l = 0; l < 21; ++l) {
+        uint64_t v = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          v |= static_cast<uint64_t>(msg_byte(pre, plen, m, q0 + 8 * l + k)) << (8 * k);
+        a[l] ^= v;
+      }
+    }
     keccak_p1600(a, 12);
   }
-  const int rem = static_cast<int>(length - full * KECCAK_RATE);
-  const uint8_t* p = m + full * KECCAK_RATE;
+  const long long q0 = full * KECCAK_RATE;
+  const int rem = static_cast<int>(length - q0);
 #pragma unroll
   for (int l = 0; l < 21; ++l) {
     uint64_t v = 0;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int pos = 8 * l + k;
-      uint32_t byte = pos < rem ? p[pos] : 0u;
+      uint32_t byte = pos < rem ? msg_byte(pre, plen, m, q0 + pos) : 0u;
       if (pos == rem) byte ^= static_cast<uint32_t>(domain);
       if (pos == KECCAK_RATE - 1) byte ^= 0x80u;
       v |= static_cast<uint64_t>(byte) << (8 * k);

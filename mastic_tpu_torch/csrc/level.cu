@@ -24,8 +24,8 @@
 // registers and shared memory.
 //
 // What bounds it on the H100: integer issue.  Per 32 reports and one parent:
-// 6 bitsliced AES blocks (~37k logic instructions each) plus 64 Keccak-p
-// permutations (~4.8k each), ~0.5M instructions for 64 node evals, against
+// 6 bitsliced AES columns (~18.8k instructions each) plus 64 Keccak-p
+// permutations (~2.2k each), ~0.25M instructions for 64 node evals, against
 // ~150 bytes of input and output per node eval: compute-bound by two orders
 // of magnitude.  At 4096 reports x 64 parents the grid is 8192 pairs, 128
 // blocks of 64 threads: one block per SM, so this first version runs at low

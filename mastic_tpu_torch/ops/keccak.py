@@ -12,10 +12,11 @@ Kernel K1 (`csrc/keccak.cu`) replaces the Pallas permutation
 entry points: the bare permutation behind `keccak_p1600`, and a sponge
 that absorbs a runtime number of rate blocks in one launch behind
 `turbo_shake128_dynamic` and `turbo_shake128`, reading the message in
-place (no padded copy).  Both count as kernel "keccak" in
+place (no padded copy, and no copy behind a short shared prefix).  Both count as kernel "keccak" in
 `ops.kernels.launches`.
 """
 
+import numpy as np
 import torch
 
 from ..keccak import RHO_OFFSETS, ROUND_CONSTANTS
@@ -131,21 +132,22 @@ def _bytes_lane64(data: torch.Tensor) -> torch.Tensor:
 
 
 def turbo_shake128_dynamic(msg: torch.Tensor, length: int, domain: int,
-                           out_len: int, num_rounds: int = 12
-                           ) -> torch.Tensor:
-    """TurboSHAKE128 over the first `length` bytes of every row of
-    `msg` (uint8 (..., max_len)); bytes at positions >= length are
-    ignored.  `length` is shared by the whole batch (in Mastic every
-    runtime-varying message length is public protocol data).  K1's
-    sponge on a CUDA tensor, the plain version on a CPU tensor."""
+                           out_len: int, num_rounds: int = 12,
+                           prefix: bytes = b"") -> torch.Tensor:
+    """TurboSHAKE128 over `prefix` followed by the first `length` bytes
+    of every row of `msg` (uint8 (..., max_len)); bytes at positions >=
+    length are ignored.  `length` and `prefix` are shared by the whole
+    batch (in Mastic every runtime-varying message length is public
+    protocol data).  K1's sponge on a CUDA tensor, the plain version on
+    a CPU tensor."""
     if not 0x01 <= domain <= 0x7F:
         raise ValueError("domain byte out of range")
     if not 0 <= length <= msg.shape[-1]:
         raise ValueError("length exceeds the message capacity")
     if msg.is_cuda:
-        return _sponge_cuda(msg, length, domain, out_len, num_rounds)
+        return _sponge_cuda(msg, length, domain, out_len, num_rounds, prefix)
     return turbo_shake128_dynamic_plain(msg, length, domain, out_len,
-                                        num_rounds)
+                                        num_rounds, prefix)
 
 
 def turbo_shake128(msg: torch.Tensor, domain: int, out_len: int,
@@ -158,14 +160,20 @@ def turbo_shake128(msg: torch.Tensor, domain: int, out_len: int,
 
 def turbo_shake128_dynamic_plain(msg: torch.Tensor, length: int,
                                  domain: int, out_len: int,
-                                 num_rounds: int = 12) -> torch.Tensor:
-    """The plain version: pad10*1 into a padded copy, absorb block by
-    block, squeeze (the keccak_jax.py:167 loop)."""
+                                 num_rounds: int = 12,
+                                 prefix: bytes = b"") -> torch.Tensor:
+    """The plain version: prefix and message and pad10*1 into a padded
+    copy, absorb block by block, squeeze (the keccak_jax.py:167 loop)."""
     batch = msg.shape[:-1]
+    plen = len(prefix)
+    length += plen
     num_blocks = length // RATE + 1
     buf = torch.zeros(batch + (num_blocks * RATE,), dtype=torch.uint8,
                       device=msg.device)
-    buf[..., :length] = msg[..., :length]
+    if plen:
+        buf[..., :plen] = torch.as_tensor(
+            np.frombuffer(bytes(prefix), np.uint8).copy(), device=msg.device)
+    buf[..., plen:length] = msg[..., :length - plen]
     buf[..., length] ^= domain
     buf[..., -1] ^= 0x80
     a = torch.zeros((25,) + batch, dtype=I64, device=msg.device)
@@ -187,10 +195,13 @@ def turbo_shake128_dynamic_plain(msg: torch.Tensor, length: int,
 
 
 def _sponge_cuda(msg: torch.Tensor, length: int, domain: int,
-                 out_len: int, num_rounds: int) -> torch.Tensor:
+                 out_len: int, num_rounds: int, prefix: bytes) -> torch.Tensor:
     if num_rounds != 12:
         raise ValueError("the sponge kernel runs Keccak-p[1600, 12]")
     kernels.check_cuda(msg, torch.uint8, "msg")
+    plen = len(prefix)
+    pre = torch.as_tensor(np.frombuffer(bytes(prefix) or b"\0", np.uint8).copy(),
+                          device=msg.device)
     batch_shape = msg.shape[:-1]
     batch = 1
     for d in batch_shape:
@@ -199,8 +210,10 @@ def _sponge_cuda(msg: torch.Tensor, length: int, domain: int,
                       device=msg.device)
     if batch and out_len:
         stride = msg.shape[-1]
-        aligned = int(msg.data_ptr() % 8 == 0 and stride % 8 == 0)
-        kernels.launch("keccak", "turboshake", msg.data_ptr(), stride,
-                       length, domain, out.data_ptr(), out_len, batch,
-                       aligned, kernels.stream_ptr(msg.device))
+        aligned = int(msg.data_ptr() % 8 == 0 and stride % 8 == 0
+                      and plen % 8 == 0)
+        kernels.launch("keccak", "turboshake", pre.data_ptr(), plen,
+                       msg.data_ptr(), stride, plen + length, domain,
+                       out.data_ptr(), out_len, batch, aligned,
+                       kernels.stream_ptr(msg.device))
     return out

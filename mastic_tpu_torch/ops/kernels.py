@@ -45,7 +45,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "keccak": {
         "keccak_permute": (_P, _P, _P, _P, _I, _I, _P),
-        "turboshake": (_P, _L, _L, _I, _P, _I, _I, _I, _P),
+        "turboshake": (_P, _I, _P, _L, _L, _I, _P, _I, _I, _I, _P),
     },
     "aes": {
         "aes_bitsliced": (_P, _P, _P, _I, _I, _P),

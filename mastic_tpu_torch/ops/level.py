@@ -20,6 +20,7 @@ the plain TurboSHAKE sponge.
 import numpy as np
 import torch
 
+from ..backend.vidpf import level_core
 from . import kernels
 from .aes import bitslice_keys, bitslice_pack, pack_mask
 from .bits import I32
@@ -71,12 +72,9 @@ def level_step_plain(spec, convert_blocks: int, value_len: int,
                      binder_len: int) -> tuple:
     """The plain version of K3: level_core then the node-proof sponge,
     in plain PyTorch only (no kernel), on any device."""
-    # Deferred: backend.vidpf imports this module.
-    from ..backend.vidpf import level_core
-
     (next_seed, ct, w, ok) = level_core(
         spec, convert_blocks, value_len, ext_rk, conv_rk, parent_seed,
-        parent_ctrl, cw_slice, plain=True)
+        parent_ctrl, cw_slice)
     (num_reports, num_children) = ct.shape
     shape = (num_reports, num_children)
     msg = torch.cat([

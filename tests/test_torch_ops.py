@@ -78,6 +78,21 @@ def test_turbo_shake128_dynamic_matches_jax(length):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("plen,length", [(14, 0), (14, 154), (14, 505),
+                                         (170, 3), (170, 400)])
+def test_turbo_shake128_dynamic_prefix_matches_jax(plen, length):
+    """A shared prefix in front of the rows, also one that spans a
+    block, hashes as the prefix and row concatenated."""
+    rng = np.random.default_rng(plen + length)
+    prefix = rng.integers(0, 256, plen, dtype=np.uint8)
+    msg = rng.integers(0, 256, (3, 2, 505), dtype=np.uint8)
+    whole = np.concatenate([np.broadcast_to(prefix, (3, 2, plen)), msg], -1)
+    want = _JAX_SPONGE(jnp.asarray(whole), jnp.int32(plen + length))
+    got = tkeccak.turbo_shake128_dynamic(torch.from_numpy(msg), length, 1,
+                                         200, prefix=prefix.tobytes())
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 def test_turbo_shake128_static_matches_jax():
     rng = np.random.default_rng(9)
     msg = rng.integers(0, 256, (5, 80), dtype=np.uint8)

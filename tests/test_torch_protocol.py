@@ -178,14 +178,15 @@ def test_level_step_matches_eval_step(num_reports, num_parents):
     tvid = BatchedVidpf(BITS, 2)
     (text, tconv) = tvid.roundkeys(CTX, torch.from_numpy(nonces))
     assert np.array_equal(text.numpy(), np.asarray(jext))
-    tparents = EvalState(seed=torch.from_numpy(pseed),
-                         ctrl=torch.from_numpy(pctrl), w=None, proof=None)
     tcw = tuple(convert.to_tensor(x, "cpu") for x in cw)
-    (tchild, tok) = tvid.eval_step(text, tconv, tparents, tcw, CTX,
-                                   torch.from_numpy(binder))
-    for (got, want) in zip(tchild, jchild):
+    prefix = ts_prefix(dst(CTX, USAGE_NODE_PROOF), 16)
+    (next_seed, ct, w, ok, proof) = level_step(
+        tvid.spec, tvid.convert_blocks, tvid.VALUE_LEN, text, tconv,
+        torch.from_numpy(pseed), torch.from_numpy(pctrl), tcw, prefix,
+        torch.from_numpy(binder), binder.shape[-1])
+    for (got, want) in zip((next_seed, ct, w, proof), jchild):
         assert np.array_equal(got.numpy(), np.asarray(want))
-    assert np.array_equal(tok.numpy(), np.asarray(jok))
+    assert np.array_equal(torch.all(ok, dim=-1).numpy(), np.asarray(jok))
 
 
 def test_level_step_matches_eval_step_dynamic():
