@@ -7,18 +7,23 @@
    prints nvcc's time, the libraries and ptxas's register/spill lines.
 2. Holds each kernel bit-exact against its plain PyTorch version on the
    card at the main path's shapes, and times both: K1 (Keccak) as the
-   bare permutation over R x 2W node-proof states and as the sponge
-   over a level-255 onehot binder; K2 (bitsliced AES) at the client
-   sharding's shape; K3 (the fused level step) at R = 4096 reports x 32
-   parents (the main path's widest level) and x 64 parents.
+   eval proof's gathered binder sponge over two aggregators' distinct
+   level-255 carries (both checks of both aggregators in one launch,
+   payloads holding values >= p; also at depth 64 behind a 35-byte
+   prefix), as the bare permutation over R x 2W node-proof states and
+   as the in-place sponge; K2 (bitsliced AES) at the client
+   sharding's shape; K3 (the level step) at R = 4096 reports x 32
+   parents (the main path's widest level), x 64 parents, and x 32
+   parents with a 150-byte ctx (a node proof over two rate blocks).
 3. Runs the main path at real size: MasticCount(256) over Field64 with
    R = 4096 reports (32 planted 256-bit strings x 64 reports each plus
    2048 uniform ones, weights 0/1, all from --seed), sharded on the
    card, then the whole 256-level heavy-hitters collection at threshold
    48, with every launch counter set to 0 just before and read just
-   after.  The aggregates of every level must equal a numpy plaintext
-   count over the reports that were not rejected, and the heavy hitters
-   must be the planted strings.  `--levels L` stops after L levels (a
+   after (K1's binder sponge counts apart from its in-place sponge, and
+   each must have launched).  The aggregates of every level must equal
+   a numpy plaintext count over the reports that were not rejected, and
+   the heavy hitters must be the planted strings.  `--levels L` stops after L levels (a
    cut of depth, printed on its own line).
 4. Prints the `kernels` JSON line, the card, the run's figures, and
    last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
@@ -51,6 +56,7 @@ PLANTED = 32
 PER_PLANTED = 64
 THRESHOLD = 48
 CTX = b"mastic chip smoke"
+LONG_CTX = bytes(range(150))
 
 # Operation counts for the bounds, in 32-bit instructions as the card
 # issues them: one LOP3 computes any function of three words, and a
@@ -60,6 +66,11 @@ CTX = b"mastic chip smoke"
 # c[x+1]), rho 24 x 2 SHF, chi 25 x 2 LOP3 (b ^ (~c & d)), iota 2.
 KECCAK_PERM_OPS = 12 * (20 + 10 + 50 + 48 + 50 + 2)
 KECCAK_ABSORB_OPS = 42          # one rate block: 21 lanes x 2 XOR
+# The payload check's arithmetic per Field64 element: 3 values from 4
+# limbs (4 each: two halves of one LOP3 and one SHF), the add (2 IADD,
+# 2 for the compare and the conditional subtract) and the sub (2 IADD,
+# 2 for the borrow's conditional add of p).
+PAYLOAD_ELEM_OPS = 3 * 4 + 4 + 4
 # AES over one column of 32 blocks (a 32-bit word per state bit), in
 # 2-input gates: 11 round keys x 128 XOR, 10 x 16 tower S-boxes of 195
 # gates, 9 x 16 MixColumns bytes of 35 XOR; charged at two gates per
@@ -86,6 +97,24 @@ def _time(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, names: tuple, reps: int) -> dict:
+    """Mean device milliseconds per call of fn() in each kernel whose
+    name contains one of `names`, from a torch.profiler trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for event in prof.key_averages():
+        for name in names:
+            if name in event.key:
+                out[name] += event.self_device_time_total / 1e3 / reps
+    return out
 
 
 def _max_err(got, want) -> int:
@@ -119,6 +148,10 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
 
     rows = []
 
+    # K1's gathered binder sponge at a level-255 carry (W = 64: 32
+    # parents per depth), index lists shaped like RoundPlan's.
+    k1 = check_binder_sponge(dev, gen)
+
     # K1, bare permutation over R x 2W node-proof states.
     states = R * 256
     lo = rand_i32(states, 25)
@@ -134,39 +167,31 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
         raise AssertionError("K1 permutation disagrees with its plain version")
     del lo, hi
 
-    # K1, sponge over a level-255 onehot binder (256 depths x 64 nodes x
-    # 32-byte proofs) read in place behind its XofTurboShake128
-    # empty-seed prefix, as the eval proof hashes it; and without a
-    # prefix over a short length of the same rows.
+    # K1, the in-place sponge (the eval-proof XOF's and the shard's) over
+    # 4096 messages behind a dst prefix, and without one with a
+    # multi-block squeeze.
     prefix = ts_prefix(dst_alg(CTX, USAGE_ONEHOT_CHECK, MasticCount.ID), 0)
-    length = 256 * 64 * 32
+    length = 4096
     msg = rand_u8(R, length)
     got = keccak.turbo_shake128_dynamic(msg, length, 1, 32, prefix=prefix)
     want = keccak.turbo_shake128_dynamic_plain(msg, length, 1, 32,
                                                prefix=prefix)
-    err1 = _max_err([got], [want])
+    err_s = _max_err([got], [want])
     short = [f(msg, 1000, 1, 200) for f in (keccak.turbo_shake128_dynamic,
                                            keccak.turbo_shake128_dynamic_plain)]
-    err1 = max(err1, _max_err(short[:1], short[1:]))
-    ms = _time(lambda: keccak.turbo_shake128_dynamic(msg, length, 1, 32,
-                                                     prefix=prefix), 3)
-    t0 = time.perf_counter()
-    keccak.turbo_shake128_dynamic_plain(msg, length, 1, 32, prefix=prefix)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    blocks = (len(prefix) + length) // 168 + 1
-    (bound, by) = _bound(R * (length + 32.0) + len(prefix),
-                         R * blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
-    rows.append({"name": "keccak_turboshake", "route": "cuda",
-                 "source": "mastic_tpu_torch/csrc/keccak.cu",
-                 "replaces": "mastic_tpu/ops/keccak_pallas.py:72",
-                 "max_abs_err": max(err, err1), "kernel_ms": ms, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                 "library_ms": None,
-                 "shape": f"{R} messages x ({len(prefix)} + {length}) B "
-                          f"(+ permutation {states} states: "
-                          f"{perm_ms:.4f} ms, bound {perm_bound:.4f} ms)"})
+    err_s = max(err_s, _max_err(short[:1], short[1:]))
+    sponge_ms = _time(lambda: keccak.turbo_shake128_dynamic(
+        msg, length, 1, 32, prefix=prefix), 5)
+    print(f"K1 in-place sponge: {R} messages x ({len(prefix)} + {length}) B, "
+          f"{sponge_ms:.4f} ms, max_abs_err {err_s}")
+    if err_s:
+        raise AssertionError("K1's sponge disagrees with its plain version")
     del msg, got, want, short
+    k1["max_abs_err"] = max(k1["max_abs_err"], err, err_s)
+    k1["shape"] += (f"; permutation {states} states: {perm_ms:.4f} ms, bound "
+                    f"{perm_bound:.4f} ms; in-place sponge {R} x "
+                    f"{len(prefix) + length} B: {sponge_ms:.4f} ms")
+    rows.append(k1)
 
     # K2 at the client sharding's extend shape: both parties' seeds, 2
     # blocks each, 4096 reports = 128 packed words.
@@ -190,12 +215,13 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
                  "library_ms": None, "shape": f"planes (8, 16, 2, 2, {R // 32})"})
 
     # K3 with a level-255 node binder, at the main path's R x 32 parents
-    # (padded width 64) and at R x 64 parents.
+    # (padded width 64), at R x 64 parents, and at R x 32 parents with a
+    # 150-byte ctx, whose node-proof message takes two rate blocks.
     nonces = rand_u8(R, 16)
-    (ext_rk, conv_rk) = vid.roundkeys(CTX, nonces)
-    prefix = ts_prefix(dst(CTX, USAGE_NODE_PROOF), 16)
     level_rows = {}
-    for parents in (64, 32):
+    for (parents, ctx) in ((64, CTX), (32, LONG_CTX), (32, CTX)):
+        (ext_rk, conv_rk) = vid.roundkeys(ctx, nonces)
+        prefix = ts_prefix(dst(ctx, USAGE_NODE_PROOF), 16)
         pseed = rand_u8(R, parents, 16)
         pctrl = rand_u8(R, parents) >= 128
         cw = (rand_u8(R, 16), rand_u8(R, 2) >= 128,
@@ -206,37 +232,200 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
         args = (FIELD64, vid.convert_blocks, 2, ext_rk, conv_rk, pseed, pctrl,
                 cw, prefix, binder, 36)
         err = _max_err(level.level_step(*args), level.level_step_plain(*args))
+        # The whole call by CUDA events (what the main path pays: the
+        # wrapper's template and copies, and the kernels), as in PR 1;
+        # the kernels' own device time from a profiler trace beside it.
+        split = _device_ms(lambda: level.level_step(*args),
+                           ("level_kernel", "node_proof_kernel"), 5)
         ms = _time(lambda: level.level_step(*args), 5)
         plain_ms = _time(lambda: level.level_step_plain(*args), 1)
         pairs = (R // 32) * parents
+        nb = (len(prefix) + 16 + 36) // 168 + 1
         in_bytes = 2 * 11 * 16 * R + R * parents * 17 \
             + R * (16 + 2 + 32 + 32) + len(prefix) + binder.numel()
         out_bytes = R * 2 * parents * (16 + 1 + 32 + 1 + 32)
         # Per (packed word x parent): 2 extend and 2 x 2 convert AES
-        # columns, and 64 one-block node-proof sponges.
+        # columns, and 64 node-proof sponges of nb blocks each.
         ops = pairs * (6 * AES_BLOCK_OPS
-                       + 64 * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
+                       + 64 * nb * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
         (bound, by) = _bound(float(in_bytes + out_bytes), float(ops))
-        level_rows[parents] = {
+        level_rows[(parents, len(ctx))] = {
             "name": "level_step", "route": "cuda",
             "source": "mastic_tpu_torch/csrc/level.cu",
             "replaces": "mastic_tpu/ops/level_pallas.py:521",
             "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+            "device_ms": sum(split.values()),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "shape": f"{R} reports x {parents} parents"}
-    wide = level_rows[64]
-    print(f"K3 at {wide['shape']}: {wide['ms']:.4f} ms (plain "
-          f"{wide['plain_ms']:.3f} ms, bound {wide['bound_ms']:.4f} ms by "
-          f"{wide['bound_by']}), max_abs_err {wide['max_abs_err']}")
-    rows.append(level_rows[32])
-    if wide["max_abs_err"]:
-        raise AssertionError("K3 disagrees with its plain version at 64 "
-                             "parents")
+            "library_ms": None,
+            "shape": f"{R} reports x {parents} parents, ctx {len(ctx)} B "
+                     f"(node proof {nb} block{'s' if nb > 1 else ''}): "
+                     f"level_kernel {split['level_kernel']:.4f} ms + "
+                     f"node_proof_kernel {split['node_proof_kernel']:.4f} ms"
+                     f" device time"}
+    for ((parents, ctx_len), row) in level_rows.items():
+        print(f"K3: whole call {row['ms']:.4f} ms, kernels "
+              f"{row['device_ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
+              f"{row['shape']}, max_abs_err {row['max_abs_err']}")
+        if row["max_abs_err"]:
+            raise AssertionError(f"K3 disagrees with its plain version at "
+                                 f"{row['shape']}")
+    threads = 8 * 32 * (R // 32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"K3 grid at {R} reports x 32 parents: level kernel "
+          f"{threads // 128} blocks of 128 threads (four per (child, packed "
+          f"word)) on {sms} SMs; node proofs {R * 64 // 128} blocks of 128 "
+          f"threads (one per (report, child))")
+    main = level_rows[(32, len(CTX))]
+    long_row = level_rows[(32, len(LONG_CTX))]
+    main["max_abs_err"] = max(r["max_abs_err"] for r in level_rows.values())
+    wide = level_rows[(64, len(CTX))]
+    main["shape"] += (f"; x 64 parents: whole call {wide['ms']:.4f} ms, "
+                      f"kernels {wide['device_ms']:.4f} ms; ctx "
+                      f"{len(LONG_CTX)} B: whole call {long_row['ms']:.4f} ms,"
+                      f" kernels {long_row['device_ms']:.4f} ms, bound "
+                      f"{long_row['bound_ms']:.4f} ms")
+    rows.append(main)
     for row in rows:
         if row["max_abs_err"]:
             raise AssertionError(f"{row['name']} disagrees with its plain "
                                  f"version: {row['max_abs_err']}")
     return rows
+
+
+def _binder_indices(gen_np: np.random.Generator, dev: torch.device,
+                    bits: int) -> tuple:
+    """onehot / payload row lists of a level-(bits-1) round at width 64
+    with 32 parents per depth, as RoundPlan lays them out: per depth the
+    nodes sit at creation-order positions (here a random permutation),
+    onehot lists both children of every depth-(d-1) ancestor, payload
+    every ancestor with its two children."""
+    width = 64
+    pos = [gen_np.permutation(width) for _ in range(bits)]
+    anc = [min(2 ** (d + 1), PLANTED) for d in range(bits)]
+    onehot = [d * width + pos[d][i] for d in range(bits)
+              for i in range(2 if d == 0 else 2 * anc[d - 1])]
+    (par, left, right) = ([], [], [])
+    for d in range(bits - 1):
+        for i in range(anc[d]):
+            par.append(d * width + pos[d][i])
+            left.append((d + 1) * width + pos[d + 1][2 * i])
+            right.append((d + 1) * width + pos[d + 1][2 * i + 1])
+    return tuple(torch.as_tensor(np.array(x, np.int64), device=dev)
+                 for x in (onehot, par, left, right))
+
+
+def _binder_carries(dev: torch.device, gen: torch.Generator,
+                    bits: int) -> tuple:
+    """Two independent random carries, one per aggregator, at width 64:
+    ((w0, w1), (proof0, proof1)).  Every 97th element of w holds a value
+    >= p (p, p + 1, 2^64 - 1 in turn), from a different first element in
+    each carry."""
+    from mastic_tpu_torch.ops.field import FIELD64
+
+    p = FIELD64.modulus
+    (ws, proofs) = ([], [])
+    for first in (0, 41):
+        w = torch.randint(0, 1 << 16, (R, bits, 64, 2, 4), dtype=torch.int32,
+                          device=dev, generator=gen)
+        flat = w.view(-1, 4)
+        for (i, v) in enumerate((p, p + 1, 2 ** 64 - 1)):
+            flat[first + i::3 * 97] = torch.as_tensor(FIELD64.int_to_limbs(v),
+                                                      device=dev)
+        ws.append(w)
+        proofs.append(torch.randint(0, 256, (R, bits, 64, 32),
+                                    dtype=torch.uint8, device=dev,
+                                    generator=gen))
+    return (tuple(ws), tuple(proofs))
+
+
+def binder_inputs(dev: torch.device, gen: torch.Generator, bits: int,
+                  ctx: bytes) -> tuple:
+    """The arguments of `binder_checks` for two aggregators' distinct
+    carries at depth `bits` with RoundPlan-shaped index lists."""
+    from mastic_tpu_torch.backend.mastic import MasticCount
+    from mastic_tpu_torch.backend.xof import ts_prefix
+    from mastic_tpu_torch.dst import (USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK,
+                                      dst_alg)
+    from mastic_tpu_torch.ops.field import FIELD64
+
+    (ws, proofs) = _binder_carries(dev, gen, bits)
+    idx = _binder_indices(np.random.default_rng(int(torch.randint(
+        0, 2 ** 31, (1,), generator=gen, device=dev))), dev, bits)
+    pre = tuple(ts_prefix(dst_alg(ctx, usage, MasticCount.ID), 0)
+                for usage in (USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK))
+    return (FIELD64, ws, proofs, *idx, *pre)
+
+
+def _binder_compare(dev: torch.device, gen: torch.Generator, bits: int,
+                    ctx: bytes) -> tuple:
+    """The binder sponge against its plain version on two aggregators'
+    distinct carries at depth `bits`: (max_abs_err, plain ms, the
+    inputs of the launch).  Fails unless the two aggregators' outputs
+    differ at every report, so a kernel that read one aggregator's rows
+    for the other's could not agree."""
+    from mastic_tpu_torch.ops import binder
+
+    args = binder_inputs(dev, gen, bits, ctx)
+    pre = args[-2:]
+    got = binder.binder_checks(*args)
+    t0 = time.perf_counter()
+    want = binder.binder_checks_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _max_err(got, want)
+    for (check, out) in zip(("onehot", "payload"), got):
+        if not (out[0] != out[1]).any(dim=-1).all():
+            raise AssertionError(f"K1 binder sponge: the two aggregators' "
+                                 f"{check} checks agree at some report")
+    print(f"K1 binder sponge, depth {bits}, prefix {len(pre[0])} B "
+          f"({len(pre[0]) % 8} past a lane), 2 aggregators' distinct carries "
+          f"(values >= p in both): max_abs_err {err}")
+    return (err, plain_ms, args)
+
+
+def check_binder_sponge(dev: torch.device, gen: torch.Generator) -> dict:
+    """K1's gathered binder sponge against its plain version at a
+    level-255 carry (prefix 32 B) and at depth 64 with a 20-byte ctx
+    (prefix 35 B: every message word straddles two rate lanes); times
+    the first in the main path's form (both checks of both aggregators,
+    one launch)."""
+    from mastic_tpu_torch.ops import binder
+
+    (err_odd, _ms, _args) = _binder_compare(dev, gen, 64, bytes(range(20)))
+    (err, plain_ms, args) = _binder_compare(dev, gen, BITS, CTX)
+    err = max(err, err_odd)
+    ms = _time(lambda: binder.binder_checks(*args), 3)
+    (_spec, ws, _proofs, *idx, prefix_onehot, _prefix_payload) = args
+    (onehot_rows, payload_rows) = (idx[0].numel(), idx[1].numel())
+    plen = len(prefix_onehot)
+    blocks = ((plen + 32 * onehot_rows) // 168 + 1
+              + (plen + 16 * payload_rows) // 168 + 1)
+    # Each input read once: the onehot proof rows and the distinct w rows
+    # (2 elements x 16 B) the payload check names, per aggregator and
+    # report, and the index lists.
+    payload_nodes = torch.unique(torch.cat(idx[1:])).numel()
+    in_bytes = 2 * R * 32.0 * (onehot_rows + payload_nodes) \
+        + 8.0 * (onehot_rows + 3 * payload_rows)
+    out_bytes = 2 * 2 * R * 32.0
+    ops = 2 * R * (blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS)
+                   + 2 * payload_rows * PAYLOAD_ELEM_OPS)
+    (bound, by) = _bound(in_bytes + out_bytes, float(ops))
+    print(f"K1 binder sponge: 2 aggregators x {R} reports x (onehot "
+          f"{onehot_rows} rows, payload {payload_rows} rows), {ms:.4f} ms "
+          f"(plain {plain_ms:.1f} ms; bound {bound:.4f} ms by "
+          f"{by}), max_abs_err {err}")
+    del args, ws, _proofs
+    return {"name": "keccak_binder_sponge", "route": "cuda",
+            "source": "mastic_tpu_torch/csrc/keccak.cu",
+            "replaces": "mastic_tpu/ops/keccak_pallas.py:72",
+            "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+            "shape": f"binder sponge, 2 aggregators x {R} reports x (prefix "
+                     f"{plen} B + onehot {onehot_rows} x 32 B, + payload "
+                     f"{payload_rows} x 2 x 8 B); also checked at depth 64 "
+                     f"with a 35-byte prefix"}
 
 
 def measurements(seed: int) -> tuple:
@@ -361,9 +550,12 @@ def main() -> int:
           f"{', '.join(str(p) for p in paths.values())}")
     for name in kernels.SOURCES:
         log = (paths[name].parent / f"{name}.ptxas.txt").read_text()
+        func = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                func = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {name} {func}: {line.strip()}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -379,9 +571,11 @@ def main() -> int:
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated(dev)
     for row in rows:
-        key = {"keccak_turboshake": "keccak", "aes128_bitsliced": "aes",
-               "level_step": "level"}[row["name"]]
+        key = {"keccak_binder_sponge": "keccak_binder",
+               "aes128_bitsliced": "aes", "level_step": "level"}[row["name"]]
         row["launches"] = counts[key]
+    # K1's in-place sponge (the shard's and the eval-proof XOF's).
+    rows[0]["launches_turboshake"] = counts["keccak"]
     idle = [name for (name, n) in counts.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")

@@ -5,10 +5,12 @@ Each aggregator carries, per tree depth, the payload and node-proof
 tensors of every node materialised so far, plus the seed/ctrl state of
 the newest depth.  A round at level L gathers the surviving depth-(L-1)
 parents and runs one level step (kernel K3) for them; the eval-proof
-binders cover the full ancestor tree byte-exactly, assembled from the
-carried tensors with host-computed index lists and hashed with the
-runtime-length sponge (kernel K1).  Per-depth tensors are padded to a
-fixed node width W and the depth axis to BITS.
+binders cover the full ancestor tree byte-exactly, defined by the
+carried tensors and host-computed index lists: on the card kernel K1's
+binder sponge reads the rows where they lie in the carry and computes
+the payload difference in registers (`ops/binder.py`), for both
+aggregators in one launch (`agg_rounds`).  Per-depth tensors are
+padded to a fixed node width W and the depth axis to BITS.
 
 `RoundPlan` is host code, a copy of the JAX package's.
 """
@@ -21,7 +23,7 @@ import torch
 from ..common import to_le_bytes
 from ..dst import (USAGE_EVAL_PROOF, USAGE_NODE_PROOF, USAGE_ONEHOT_CHECK,
                    USAGE_PAYLOAD_CHECK, dst, dst_alg)
-from ..ops.keccak import turbo_shake128_dynamic
+from ..ops.binder import binder_checks
 from ..ops.level import level_step
 from ..vidpf import KEY_SIZE, PROOF_SIZE, encode_path
 from .mastic import BatchedMastic
@@ -212,7 +214,7 @@ class IncrementalMastic:
                                PROOF_SIZE), dtype=torch.uint8, device=dev),
             seed=seed, ctrl=ctrl)
 
-    # -- one aggregator's round ------------------------------------
+    # -- one round ---------------------------------------------------
 
     def agg_round(self, agg_id: int, verify_key: bytes, ctx: bytes,
                   carry: Carry, rnd: IncrementalRound,
@@ -225,33 +227,50 @@ class IncrementalMastic:
         place (the JAX package donates the carry to the same effect).
         Returns (carry', eval_proof (R, 32), out_share (R,
         capOut*(1+OUTPUT_LEN), n), ok (R,))."""
+        return self.agg_rounds((agg_id,), verify_key, ctx, (carry,), rnd,
+                               ext_rk, conv_rk, cws)[0]
+
+    def agg_rounds(self, agg_ids: tuple, verify_key: bytes, ctx: bytes,
+                   carries: tuple, rnd: IncrementalRound,
+                   ext_rk: torch.Tensor, conv_rk: torch.Tensor,
+                   cws) -> list:
+        """`agg_round` for each aggregator in `agg_ids` with its carry:
+        the level steps one after another, then every aggregator's
+        binder checks in one sponge launch.  Returns one agg_round
+        result per aggregator."""
         bm = self.bm
         spec = bm.spec
-        num_reports = carry.w.shape[0]
-        n = spec.num_limbs
-        parents = EvalState(seed=carry.seed[:, rnd.parent_idx],
-                            ctrl=carry.ctrl[:, rnd.parent_idx],
-                            w=None, proof=None)
         cw_slice = tuple(x[:, rnd.level] for x in
                          (cws.seed, cws.ctrl, cws.w, cws.proof))
-        (child, ok) = self._eval_step_dynamic(ext_rk, conv_rk, parents,
-                                              cw_slice, ctx, rnd)
-        carry.w[:, rnd.level] = child.w
-        carry.proof[:, rnd.level] = child.proof
+        steps = []
+        for carry in carries:
+            parents = EvalState(seed=carry.seed[:, rnd.parent_idx],
+                                ctrl=carry.ctrl[:, rnd.parent_idx],
+                                w=None, proof=None)
+            (child, ok) = self._eval_step_dynamic(ext_rk, conv_rk, parents,
+                                                  cw_slice, ctx, rnd)
+            carry.w[:, rnd.level] = child.w
+            carry.proof[:, rnd.level] = child.proof
+            steps.append((child, ok))
 
-        eval_proof = self._eval_proof(agg_id, verify_key, ctx, carry.w,
-                                      carry.proof, rnd)
+        eval_proofs = self._eval_proofs(
+            agg_ids, verify_key, ctx, tuple(c.w for c in carries),
+            tuple(c.proof for c in carries), rnd)
 
-        out_w = child.w[:, rnd.out_idx]
-        if agg_id == 1:
-            out_w = spec.neg(out_w)
-        counter = out_w[..., :1, :]
-        trunc = bm.truncate(out_w[..., 1:, :])
-        out_share = torch.cat([counter, trunc], dim=-2).reshape(
-            num_reports, -1, n)
-        carry = Carry(w=carry.w, proof=carry.proof, seed=child.seed,
-                      ctrl=child.ctrl)
-        return (carry, eval_proof, out_share, ok)
+        out = []
+        for (agg_id, carry, (child, ok), eval_proof) in zip(
+                agg_ids, carries, steps, eval_proofs):
+            num_reports = carry.w.shape[0]
+            out_w = child.w[:, rnd.out_idx]
+            if agg_id == 1:
+                out_w = spec.neg(out_w)
+            counter = out_w[..., :1, :]
+            trunc = bm.truncate(out_w[..., 1:, :])
+            out_share = torch.cat([counter, trunc], dim=-2).reshape(
+                num_reports, -1, spec.num_limbs)
+            out.append((Carry(w=carry.w, proof=carry.proof, seed=child.seed,
+                              ctrl=child.ctrl), eval_proof, out_share, ok))
+        return out
 
     def _eval_step_dynamic(self, ext_rk: torch.Tensor,
                            conv_rk: torch.Tensor, parents: EvalState,
@@ -274,43 +293,35 @@ class IncrementalMastic:
     def _eval_proof(self, agg_id: int, verify_key: bytes, ctx: bytes,
                     w_all: torch.Tensor, proof_all: torch.Tensor,
                     rnd: IncrementalRound) -> torch.Tensor:
-        """The three checks over the carried tree, hashed with their
-        runtime-length binders; only the live rows are gathered."""
+        """The three checks over one aggregator's carried tree, hashed
+        with their runtime-length binders."""
+        return self._eval_proofs((agg_id,), verify_key, ctx, (w_all,),
+                                 (proof_all,), rnd)[0]
+
+    def _eval_proofs(self, agg_ids: tuple, verify_key: bytes, ctx: bytes,
+                     ws: tuple, proofs: tuple,
+                     rnd: IncrementalRound) -> list:
+        """`_eval_proof` for each aggregator: the onehot and payload
+        checks of all of them in one `binder_checks` call (kernel K1
+        reads the live rows where they lie in the carry; the plain
+        version gathers them), then the counter check and the
+        eval-proof XOF per aggregator."""
         bm = self.bm
         spec = bm.spec
-        (num_reports, bits, width, value_len, n) = w_all.shape
-        w_flat = w_all.reshape(num_reports, bits * width, value_len, n)
-        proof_flat = proof_all.reshape(num_reports, bits * width,
-                                       PROOF_SIZE)
-
-        diff = spec.sub(w_flat[:, rnd.payload_parent],
-                        spec.add(w_flat[:, rnd.payload_left],
-                                 w_flat[:, rnd.payload_right]))
-        payload_check = _binder_check(
-            spec.plain_to_le_bytes(diff).reshape(num_reports, -1), ctx,
-            USAGE_PAYLOAD_CHECK, bm.m.ID)
-        onehot_check = _binder_check(
-            proof_flat[:, rnd.onehot_idx].reshape(num_reports, -1), ctx,
-            USAGE_ONEHOT_CHECK, bm.m.ID)
-
-        counter = spec.add(w_all[:, 0, 0, 0], w_all[:, 0, 1, 0])
-        if agg_id == 1:
-            one = np.zeros(n, np.int64)
-            one[0] = 1
-            counter = spec.add(counter, one)
-        counter_check = spec.plain_to_le_bytes(counter)
-
-        return turboshake_xof(
-            dst_alg(ctx, USAGE_EVAL_PROOF, bm.m.ID), verify_key,
-            (onehot_check, counter_check, payload_check), PROOF_SIZE,
-            (num_reports,), w_all.device)
-
-
-def _binder_check(binder: torch.Tensor, ctx: bytes, usage: int,
-                  alg_id: int) -> torch.Tensor:
-    """XofTurboShake128 with an empty seed over one binder row per
-    report (the payload and onehot checks).  The sponge reads the
-    binder in place behind the XOF's prefix: it is never copied."""
-    prefix = ts_prefix(dst_alg(ctx, usage, alg_id), 0)
-    return turbo_shake128_dynamic(binder, binder.shape[1], 1, PROOF_SIZE,
-                                  prefix=prefix)
+        (onehot, payload) = binder_checks(
+            spec, ws, proofs, rnd.onehot_idx, rnd.payload_parent,
+            rnd.payload_left, rnd.payload_right,
+            ts_prefix(dst_alg(ctx, USAGE_ONEHOT_CHECK, bm.m.ID), 0),
+            ts_prefix(dst_alg(ctx, USAGE_PAYLOAD_CHECK, bm.m.ID), 0))
+        out = []
+        for (i, (agg_id, w_all)) in enumerate(zip(agg_ids, ws)):
+            counter = spec.add(w_all[:, 0, 0, 0], w_all[:, 0, 1, 0])
+            if agg_id == 1:
+                one = np.zeros(spec.num_limbs, np.int64)
+                one[0] = 1
+                counter = spec.add(counter, one)
+            out.append(turboshake_xof(
+                dst_alg(ctx, USAGE_EVAL_PROOF, bm.m.ID), verify_key,
+                (onehot[i], spec.plain_to_le_bytes(counter), payload[i]),
+                PROOF_SIZE, (w_all.shape[0],), w_all.device))
+        return out

@@ -1,5 +1,5 @@
-// Bitsliced AES-128 encryption as device code, shared by aes.cu (kernel K2)
-// and level.cu (kernel K3's extend and convert).
+// Bitsliced AES-128 encryption as device code for aes.cu (kernel K2); K3
+// splits the same state across four threads (aes_column.cuh).
 //
 // One thread holds one AES state for 32 reports: s[b * 16 + k] is the bit
 // plane of bit b of state byte k, bit j of each word belonging to report

@@ -81,6 +81,11 @@ __device__ __forceinline__ void keccak_p1600(uint64_t a[25], int num_rounds) {
   }
 }
 
+// A read-only 64-bit load (__ldg's overload is the unsigned long long one).
+__device__ __forceinline__ uint64_t ldg64(const uint64_t* p) {
+  return __ldg(reinterpret_cast<const unsigned long long*>(p));
+}
+
 __device__ __forceinline__ uint64_t load_lane(const uint8_t* p, bool aligned) {
   if (aligned) return *reinterpret_cast<const uint64_t*>(p);
   uint64_t v = 0;

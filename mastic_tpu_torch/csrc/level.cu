@@ -1,253 +1,277 @@
-// Kernel K3: one whole VIDPF tree level (Field64 payloads) in one launch.
+// Kernel K3: one whole VIDPF tree level (Field64 payloads), two kernels
+// behind one launch function.
 //
 // Replaces the TPU kernel mastic_tpu/ops/level_pallas.py:level_step_pallas
 // (the 39-stage fused level over a (report tile x parent tile) grid).  Per
 // parent and 32 reports it computes what mastic_tpu/backend/vidpf_jax.py
 // level_core plus the node-proof sponge compute:
-//   extend: 2 Davies-Meyer fixed-key AES blocks per parent (K2's round code);
+//   extend: 2 Davies-Meyer fixed-key AES blocks per parent;
 //   correct: ctrl-bit extraction, seed and ctrl correction by packed masks;
 //   convert: `convert_blocks` AES blocks per child -> next seed, payload limbs
 //     with the in-range mask and w_cw added mod p where the child holds ctrl;
-//   node proof: one-block TurboSHAKE128 over prefix | next seed | binder (K1's
-//     permutation), XORed with proof_cw where the child holds ctrl.
-// Unlike the TPU kernel, the binder length is a runtime argument, so the
-// incremental round (whose binder grows with the level) goes through it too.
-//
-// Design: a block of LEVEL_THREADS threads owns LEVEL_THREADS (packed word w,
-// parent p) pairs.  Phase 1, one thread per pair: the six AES blocks in
-// bitsliced form (one child at a time; the corrected child seed waits in
-// shared memory while its convert blocks run), and the bit transposes that
-// write next seed, ctrl, payload and ok straight into the report-major
-// outputs.  Phase 2, after __syncthreads: the block's 64 * LEVEL_THREADS node
-// proofs, one thread per (report, child) per pair, reading the next seeds the
-// block just wrote.  Sigma, the AES planes and the Keccak state stay in
-// registers and shared memory.
+//   node proof: TurboSHAKE128 over prefix | next seed | binder, over as many
+//     rate blocks as the message needs, XORed with proof_cw where the child
+//     holds ctrl.
+// Unlike the TPU kernel, the binder length and the prefix length are runtime
+// arguments, so the incremental round (whose binder grows with the level) and
+// any ctx go through it.
 //
 // What bounds it on the H100: integer issue.  Per 32 reports and one parent:
 // 6 bitsliced AES columns (~18.8k instructions each) plus 64 Keccak-p
 // permutations (~2.2k each), ~0.25M instructions for 64 node evals, against
 // ~150 bytes of input and output per node eval: compute-bound by two orders
-// of magnitude.  At 4096 reports x 64 parents the grid is 8192 pairs, 128
-// blocks of 64 threads: one block per SM, so this first version runs at low
-// occupancy and leans on instruction-level parallelism.  Registers are the
-// other limit: ptxas (CUDA 12.8, -Xptxas -v) reports 255 registers, a
-// 4008-byte stack frame and 4676 bytes of spill stores per thread.
+// of magnitude.
+//
+// Design.  level_kernel: four adjacent lanes own one (child node, packed
+// word w) pair, one AES column each (aes_column.cuh): 32 state planes per
+// thread in registers and its 32 sigma planes in shared memory, so nothing
+// spills (the earlier one-thread-per-pair form held all 128 planes plus the
+// S-box temporaries: 255 registers and 4676 bytes of spill stores).  The group
+// runs the child's extend block, the correction, then its convert blocks,
+// keeping the corrected child seed only as its sigma.  Inputs and outputs
+// stay report-major (the layouts of the JAX package's level step): 32 x 32
+// bit transposes in the thread turn each report's 32-bit word into the
+// thread's planes and back, so the wrapper packs nothing (in PyTorch the
+// packing took ~5 ms a call, 20 times the kernel), and the two halves of a
+// Field64 element meet by one shuffle.  The round keys are transposed anew
+// for each AES round: no room to keep 11 x 32 planes per thread.  At 4096
+// reports x 32 parents that is 8192 groups, 256 blocks of 128 threads: all
+// 132 SMs, about eight warps each.
+// node_proof_kernel: one thread per (report, child), reading the seed that
+// level_kernel wrote.  The public part of every message (prefix, binder,
+// padding) arrives as a per-node template of rate-block lanes that the
+// wrapper builds once per call; the thread XORs its 16-byte seed into the
+// template lanes it straddles and absorbs block by block.
 #include <cuda_runtime.h>
 
-#include "aes_bitsliced.cuh"
+#include "aes_column.cuh"
+#include "field64.cuh"
 #include "keccak.cuh"
 
 using namespace mtk;
 
-constexpr int LEVEL_THREADS = 64;
-constexpr uint64_t F64_P = 0xFFFFFFFF00000001ull;  // 2^64 - 2^32 + 1
+constexpr int LEVEL_THREADS = 128;
 
-// sigma(x) for x = seed ^ le128(blk), on planes: sigma(lo || hi) = hi || hi ^ lo.
-// le128(blk) for blk < 256 only touches byte 0, which lands in sigma byte 8.
-// Plane i of the seed is seed[i * stride].  With `into`, XOR sigma into s
-// (the Davies-Meyer feed-forward) instead of writing it.
-__device__ __forceinline__ void dm_sigma(uint32_t s[128], const uint32_t* seed,
-                                         size_t stride, int blk, bool into) {
+// sigma(x ^ le128(blk)) into s from the sigma of x, which waits in shared
+// memory (sigma[i][threadIdx.x]: in registers it pushed level_kernel into
+// spills): le128(blk), blk < 256, only touches byte 0 of x, which lands in
+// sigma byte 8 (thread 2, q = 0).  With `into`, XOR (the Davies-Meyer
+// feed-forward).
+__device__ __forceinline__ void dm_input(uint32_t s[32], uint32_t (*sigma)[LEVEL_THREADS],
+                                         int blk, int t, bool into) {
 #pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const uint32_t flip = ((blk >> b) & 1) ? 0xFFFFFFFFu : 0u;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t lo = seed[(b * 16 + j) * stride];
-      const uint32_t hi = seed[(b * 16 + 8 + j) * stride];
-      const uint32_t mixed = hi ^ lo ^ (j == 0 ? flip : 0u);
-      if (into) {
-        s[b * 16 + j] ^= hi;
-        s[b * 16 + 8 + j] ^= mixed;
-      } else {
-        s[b * 16 + j] = hi;
-        s[b * 16 + 8 + j] = mixed;
-      }
-    }
+  for (int i = 0; i < 32; ++i) {
+    uint32_t v = sigma[i][threadIdx.x];
+    if (i < 8 && t == 2 && ((blk >> i) & 1)) v = ~v;
+    s[i] = into ? s[i] ^ v : v;
   }
 }
 
-// Byte k (bits from planes b * 16 + k) of report j out of 32.
-__device__ __forceinline__ uint32_t plane_byte(const uint32_t s[128], int k, int j) {
-  uint32_t v = 0;
+// The 32-bit mask of a per-report flag (bool bytes `stride` apart) over the
+// reports 32w .. 32w+31: each of the four threads reads 8, shuffles merge.
+__device__ __forceinline__ uint32_t load_mask(const uint8_t* __restrict__ flags, size_t stride,
+                                              int R, int w, int t) {
+  uint32_t m = 0;
 #pragma unroll
-  for (int b = 0; b < 8; ++b) v |= ((s[b * 16 + k] >> j) & 1u) << b;
-  return v;
-}
-
-__device__ __forceinline__ uint64_t limbs_value(const int32_t* l) {
-  return static_cast<uint64_t>(l[0] & 0xFFFF) |
-         (static_cast<uint64_t>(l[1] & 0xFFFF) << 16) |
-         (static_cast<uint64_t>(l[2] & 0xFFFF) << 32) |
-         (static_cast<uint64_t>(l[3] & 0xFFFF) << 48);
-}
-
-// FieldSpec.add as the JAX package computes it: the 65-bit sum, one
-// conditional subtraction of p, the low 64 bits (also for inputs >= p).
-__device__ __forceinline__ uint64_t f64_add(uint64_t a, uint64_t b) {
-  const uint64_t s = a + b;
-  const bool carry = s < a;
-  return (carry || s >= F64_P) ? s - F64_P : s;
+  for (int jj = 0; jj < 8; ++jj) {
+    const int j = 8 * t + jj;
+    const int r = 32 * w + j;
+    if (r < R && flags[r * stride]) m |= 1u << j;
+  }
+  m |= __shfl_xor_sync(FULL_WARP, m, 1, 4);
+  return m | __shfl_xor_sync(FULL_WARP, m, 2, 4);
 }
 
 __global__ void __launch_bounds__(LEVEL_THREADS)
-level_kernel(const uint32_t* __restrict__ ekp, const uint32_t* __restrict__ ckp,
-             const uint32_t* __restrict__ pseed, const uint32_t* __restrict__ pctrl,
-             const uint32_t* __restrict__ cwsd, const uint32_t* __restrict__ cwct,
-             const int32_t* __restrict__ wcw, const uint8_t* __restrict__ pcw,
-             const uint8_t* __restrict__ prefix, int prefix_len,
-             const uint8_t* __restrict__ binder, int binder_stride, int binder_len,
-             uint8_t* __restrict__ next_seed, uint8_t* __restrict__ ct,
-             int32_t* __restrict__ w_out, uint8_t* __restrict__ ok,
-             uint8_t* __restrict__ proof, int W, int N, int convert_blocks,
-             int value_len) {
-  __shared__ uint32_t child_seed[128 * LEVEL_THREADS];
-  const int tid = threadIdx.x;
-  const long long pairs = static_cast<long long>(W) * N;
-  const long long pair = static_cast<long long>(blockIdx.x) * LEVEL_THREADS + tid;
+level_kernel(const uint8_t* __restrict__ ext_rk, const uint8_t* __restrict__ conv_rk,
+             const uint8_t* __restrict__ pseed, const uint8_t* __restrict__ pctrl,
+             const uint8_t* __restrict__ seed_cw, const uint8_t* __restrict__ ctrl_cw,
+             const int32_t* __restrict__ wcw, uint8_t* __restrict__ next_seed,
+             uint8_t* __restrict__ ct, int32_t* __restrict__ w_out,
+             uint8_t* __restrict__ ok, int R, int N, int convert_blocks, int value_len) {
+  const int t = threadIdx.x & 3;
+  const int W = (R + 31) / 32;
   const int n2 = 2 * N;
+  const long long groups = static_cast<long long>(n2) * W;
+  long long g = (static_cast<long long>(blockIdx.x) * LEVEL_THREADS + threadIdx.x) >> 2;
+  // Groups past the end run on a copy of the last one and store nothing:
+  // every lane has to reach the shuffles.
+  const bool live = g < groups;
+  if (!live) g = groups - 1;
+  // Nodes run fastest, so the groups of a warp share their reports' rows.
+  const int w = static_cast<int>(g / n2);
+  const int node = static_cast<int>(g % n2);
+  const int p = node >> 1;
+  const int c = node & 1;
 
-  // -- phase 1: extend, correct, convert for pair (w, p) ------------------
-  if (pair < pairs) {
-    const int w = static_cast<int>(pair % W);
-    const int p = static_cast<int>(pair / W);
-    const uint32_t pc = pctrl[static_cast<size_t>(p) * W + w];
-    const uint32_t* seed_planes = pseed + static_cast<size_t>(p) * 128 * W + w;
-    uint32_t* mine = child_seed + tid;
-    for (int c = 0; c < 2; ++c) {
-      uint32_t s[128];
-      dm_sigma(s, seed_planes, W, c, false);
-      aes_encrypt_planes(s, ekp, W, w);
-      dm_sigma(s, seed_planes, W, c, true);
-      // Control bit: plane (bit 0, byte 0); cleared in the seed.  Corrections
-      // are mask ANDs: where the parent holds ctrl, XOR the correction words.
-      uint32_t t = s[0];
-      s[0] = 0;
+  __shared__ uint32_t sigma[32][LEVEL_THREADS];
+  // sigma of the parent seed: byte k < 8 is seed[k + 8]; byte k >= 8 is
+  // seed[k] ^ seed[k - 8].  As 32-bit words: word t | 2, XOR word t & 1
+  // for t >= 2; transposed to planes (the transpose is linear).
+  uint32_t planes[32];
 #pragma unroll
-      for (int i = 0; i < 128; ++i)
-        s[i] ^= cwsd[static_cast<size_t>(i) * W + w] & pc;
-      t ^= pc & cwct[static_cast<size_t>(c) * W + w];
+  for (int j = 0; j < 32; ++j) {
+    const int r = 32 * w + j;
+    uint32_t v = 0;
+    if (r < R) {
+      const uint32_t* row = reinterpret_cast<const uint32_t*>(
+          pseed + (static_cast<size_t>(r) * N + p) * 16);
+      v = __ldg(row + (t | 2));
+      if (t >= 2) v ^= __ldg(row + (t & 1));
+    }
+    planes[j] = v;
+  }
+  transpose32(planes);
 #pragma unroll
-      for (int i = 0; i < 128; ++i) mine[i * LEVEL_THREADS] = s[i];
-      const int node = 2 * p + c;
-      for (int j = 0; j < 32; ++j)
-        ct[(static_cast<size_t>(32 * w + j)) * n2 + node] = (t >> j) & 1u;
+  for (int i = 0; i < 32; ++i) sigma[i][threadIdx.x] = planes[i];
 
-      uint32_t okmask = 0xFFFFFFFFu;
-      for (int blk = 0; blk < convert_blocks; ++blk) {
-        dm_sigma(s, mine, LEVEL_THREADS, blk, false);
-        aes_encrypt_planes(s, ckp, W, w);
-        dm_sigma(s, mine, LEVEL_THREADS, blk, true);
-        if (blk == 0) {
-          for (int j = 0; j < 32; ++j) {
-            uint32_t word[4];
+  // -- extend child c, correct ---------------------------------------------
+  uint32_t s[32];
+  dm_input(s, sigma, c, t, false);
+  col_aes_encrypt(s, ext_rk, R, w, t);
+  dm_input(s, sigma, c, t, true);
+  // Control bit: plane (bit 0, byte 0), thread 0's s[0]; cleared in the seed.
+  // Corrections are mask ANDs: where the parent holds ctrl, XOR the words.
+  const uint32_t pc = load_mask(pctrl + p, N, R, w, t);
+  uint32_t tb = __shfl_sync(FULL_WARP, s[0], 0, 4);
+  if (t == 0) s[0] = 0;
+  load_planes(planes, seed_cw, 16, R, w, t);
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-              word[q] = plane_byte(s, 4 * q, j) | (plane_byte(s, 4 * q + 1, j) << 8) |
-                        (plane_byte(s, 4 * q + 2, j) << 16) |
-                        (plane_byte(s, 4 * q + 3, j) << 24);
-            uint32_t* dst = reinterpret_cast<uint32_t*>(
-                next_seed + (static_cast<size_t>(32 * w + j) * n2 + node) * 16);
+  for (int i = 0; i < 32; ++i) s[i] ^= planes[i] & pc;
+  tb ^= pc & load_mask(ctrl_cw + c, 2, R, w, t);
+  if (live) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) dst[q] = word[q];
-          }
-          continue;
-        }
-        // Payload: this block holds elements 2 * (blk - 1) and 2 * (blk - 1) + 1.
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 2 * (blk - 1) + h;
-          if (e >= value_len) continue;
-          for (int j = 0; j < 32; ++j) {
-            uint64_t v = 0;
-#pragma unroll
-            for (int q = 0; q < 8; ++q)
-              v |= static_cast<uint64_t>(plane_byte(s, 8 * h + q, j)) << (8 * q);
-            if (v >= F64_P) okmask &= ~(1u << j);
-            const size_t r = static_cast<size_t>(32 * w + j);
-            if ((t >> j) & 1u)
-              v = f64_add(v, limbs_value(wcw + (r * value_len + e) * 4));
-            int32_t* dst = w_out + ((r * n2 + node) * value_len + e) * 4;
-#pragma unroll
-            for (int l = 0; l < 4; ++l)
-              dst[l] = static_cast<int32_t>((v >> (16 * l)) & 0xFFFF);
-          }
-        }
-      }
-      for (int j = 0; j < 32; ++j)
-        ok[(static_cast<size_t>(32 * w + j)) * n2 + node] = (okmask >> j) & 1u;
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * t + jj;
+      if (32 * w + j < R) ct[static_cast<size_t>(32 * w + j) * n2 + node] = (tb >> j) & 1u;
     }
   }
-  __syncthreads();
 
-  // -- phase 2: node proofs, one thread per (report, child) per pair ------
-  const int j = tid >> 1;
-  const int c = tid & 1;
-  const int msg_len = prefix_len + 16 + binder_len;
-  for (int k = 0; k < LEVEL_THREADS; ++k) {
-    const long long pk = static_cast<long long>(blockIdx.x) * LEVEL_THREADS + k;
-    if (pk >= pairs) break;
-    const int w = static_cast<int>(pk % W);
-    const int node = 2 * static_cast<int>(pk / W) + c;
-    const size_t r = static_cast<size_t>(32 * w + j);
-    const size_t slot = r * n2 + node;
-    const uint8_t* seed = next_seed + slot * 16;
-    const uint8_t* bnd = binder + static_cast<size_t>(node) * binder_stride;
-    uint64_t a[25];
+  // sigma of the corrected child seed: the partner column t ^ 2 holds the
+  // other half.
 #pragma unroll
-    for (int l = 0; l < 25; ++l) a[l] = 0;
+  for (int i = 0; i < 32; ++i) {
+    const uint32_t other = __shfl_xor_sync(FULL_WARP, s[i], 2, 4);
+    sigma[i][threadIdx.x] = t >= 2 ? other ^ s[i] : other;
+  }
+
+  // -- convert ---------------------------------------------------------------
+  uint32_t okmask = 0xFFFFFFFFu;
+  const int odd = t & 1;
+#pragma unroll 1
+  for (int blk = 0; blk < convert_blocks; ++blk) {
+    dm_input(s, sigma, blk, t, false);
+    col_aes_encrypt(s, conv_rk, R, w, t);
+    dm_input(s, sigma, blk, t, true);
+    transpose32(s);  // s[j]: bytes 4t .. 4t+3 of this block for report j
+    if (blk == 0) {
+      if (live) {
 #pragma unroll
-    for (int l = 0; l < 21; ++l) {
-      uint64_t v = 0;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int pos = 8 * l + q;
-        uint32_t byte = 0;
-        if (pos < prefix_len)
-          byte = prefix[pos];
-        else if (pos < prefix_len + 16)
-          byte = seed[pos - prefix_len];
-        else if (pos < msg_len)
-          byte = bnd[pos - prefix_len - 16];
-        if (pos == msg_len) byte ^= 0x01u;  // TurboSHAKE domain byte 1
-        if (pos == KECCAK_RATE - 1) byte ^= 0x80u;
-        v |= static_cast<uint64_t>(byte) << (8 * q);
+        for (int j = 0; j < 32; ++j) {
+          if (32 * w + j < R)
+            *reinterpret_cast<uint32_t*>(
+                next_seed + (static_cast<size_t>(32 * w + j) * n2 + node) * 16 + 4 * t) = s[j];
+        }
       }
-      a[l] = v;
+      continue;
     }
-    keccak_p1600(a, 12);
-    const bool corr = ct[slot] != 0;
-    uint8_t* dst = proof + slot * 32;
+    // Element e = 2 (blk - 1) + (t >> 1): its low word in thread 2h, its high
+    // word in thread 2h + 1.  Each of the two takes 16 of the 32 reports.
+    const int e = 2 * (blk - 1) + (t >> 1);
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        uint8_t byte = static_cast<uint8_t>(a[l] >> (8 * q));
-        if (corr) byte ^= pcw[r * 32 + 8 * l + q];
-        dst[8 * l + q] = byte;
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t got = __shfl_xor_sync(FULL_WARP, odd ? s[2 * i] : s[2 * i + 1], 1, 4);
+      const uint32_t mine = odd ? s[2 * i + 1] : s[2 * i];
+      uint64_t v = odd ? (static_cast<uint64_t>(mine) << 32) | got
+                       : (static_cast<uint64_t>(got) << 32) | mine;
+      const int j = 2 * i + odd;
+      const size_t r = static_cast<size_t>(32 * w + j);
+      if (live && e < value_len && r < static_cast<size_t>(R)) {
+        if (v >= F64_P) okmask &= ~(1u << j);
+        if ((tb >> j) & 1u)
+          v = f64_add(v, limbs64(__ldg(reinterpret_cast<const int4*>(wcw + (r * value_len + e) * 4))));
+        int4 out;
+        out.x = static_cast<int32_t>(v & 0xFFFF);
+        out.y = static_cast<int32_t>((v >> 16) & 0xFFFF);
+        out.z = static_cast<int32_t>((v >> 32) & 0xFFFF);
+        out.w = static_cast<int32_t>(v >> 48);
+        *reinterpret_cast<int4*>(w_out + ((r * n2 + node) * value_len + e) * 4) = out;
       }
+    }
+  }
+  okmask &= __shfl_xor_sync(FULL_WARP, okmask, 1, 4);
+  okmask &= __shfl_xor_sync(FULL_WARP, okmask, 2, 4);
+  if (live) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * t + jj;
+      if (32 * w + j < R) ok[static_cast<size_t>(32 * w + j) * n2 + node] = (okmask >> j) & 1u;
     }
   }
 }
 
-extern "C" int level_step(const void* ekp, const void* ckp, const void* pseed,
-                          const void* pctrl, const void* cwsd, const void* cwct,
-                          const void* wcw, const void* pcw, const void* prefix,
-                          int prefix_len, const void* binder, int binder_stride,
-                          int binder_len, void* next_seed, void* ct, void* w_out,
-                          void* ok, void* proof, int W, int N, int convert_blocks,
-                          int value_len, void* stream) {
-  const long long pairs = static_cast<long long>(W) * N;
-  const int blocks = static_cast<int>((pairs + LEVEL_THREADS - 1) / LEVEL_THREADS);
-  level_kernel<<<blocks, LEVEL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(ekp), static_cast<const uint32_t*>(ckp),
-      static_cast<const uint32_t*>(pseed), static_cast<const uint32_t*>(pctrl),
-      static_cast<const uint32_t*>(cwsd), static_cast<const uint32_t*>(cwct),
-      static_cast<const int32_t*>(wcw), static_cast<const uint8_t*>(pcw),
-      static_cast<const uint8_t*>(prefix), prefix_len,
-      static_cast<const uint8_t*>(binder), binder_stride, binder_len,
-      static_cast<uint8_t*>(next_seed), static_cast<uint8_t*>(ct),
-      static_cast<int32_t*>(w_out), static_cast<uint8_t*>(ok),
-      static_cast<uint8_t*>(proof), W, N, convert_blocks, value_len);
+// One thread per (report, child) slot: TurboSHAKE128 (domain 1) over the
+// template lanes of the slot's node, nb rate blocks of 21 lanes, with the
+// 16-byte next seed XORed in at byte offset plen; the first 32 bytes out,
+// XORed with proof_cw where the child holds ctrl.
+__global__ void __launch_bounds__(128)
+node_proof_kernel(const uint8_t* __restrict__ next_seed, const uint8_t* __restrict__ ct,
+                  const uint8_t* __restrict__ pcw, const uint64_t* __restrict__ tmpl,
+                  int nb, int plen, uint8_t* __restrict__ proof, int n2, long long slots) {
+  const long long slot = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (slot >= slots) return;
+  const int node = static_cast<int>(slot % n2);
+  const long long r = slot / n2;
+  const uint4 sd = *reinterpret_cast<const uint4*>(next_seed + slot * 16);
+  const uint64_t s0 = static_cast<uint64_t>(sd.x) | (static_cast<uint64_t>(sd.y) << 32);
+  const uint64_t s1 = static_cast<uint64_t>(sd.z) | (static_cast<uint64_t>(sd.w) << 32);
+  // The seed's bytes land in lanes L0, L0 + 1 and, unless plen % 8 == 0, L0 + 2.
+  const int l0 = plen >> 3;
+  const int sh = 8 * (plen & 7);
+  const uint64_t x0 = s0 << sh;
+  const uint64_t x1 = sh ? (s0 >> (64 - sh)) | (s1 << sh) : s1;
+  const uint64_t x2 = sh ? s1 >> (64 - sh) : 0;
+  uint64_t a[25];
+#pragma unroll
+  for (int l = 0; l < 25; ++l) a[l] = 0;
+  const uint64_t* tl = tmpl + static_cast<size_t>(node) * nb * 21;
+  for (int blk = 0; blk < nb; ++blk) {
+#pragma unroll
+    for (int l = 0; l < 21; ++l) {
+      const int j = 21 * blk + l - l0;
+      a[l] ^= ldg64(tl + 21 * blk + l) ^ (j == 0 ? x0 : j == 1 ? x1 : j == 2 ? x2 : 0);
+    }
+    keccak_p1600(a, 12);
+  }
+  const bool corr = ct[slot] != 0;
+  const uint64_t* cw = reinterpret_cast<const uint64_t*>(pcw + r * 32);
+  uint64_t* dst = reinterpret_cast<uint64_t*>(proof + slot * 32);
+#pragma unroll
+  for (int l = 0; l < 4; ++l) dst[l] = corr ? a[l] ^ ldg64(cw + l) : a[l];
+}
+
+extern "C" int level_step(const void* ext_rk, const void* conv_rk, const void* pseed,
+                          const void* pctrl, const void* seed_cw, const void* ctrl_cw,
+                          const void* wcw, const void* pcw, const void* tmpl, int nb,
+                          int plen, void* next_seed, void* ct, void* w_out, void* ok,
+                          void* proof, int R, int N, int convert_blocks, int value_len,
+                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long threads = 4LL * 2 * N * ((R + 31) / 32);  // four per (child, word)
+  const int blocks = static_cast<int>((threads + LEVEL_THREADS - 1) / LEVEL_THREADS);
+  level_kernel<<<blocks, LEVEL_THREADS, 0, st>>>(
+      static_cast<const uint8_t*>(ext_rk), static_cast<const uint8_t*>(conv_rk),
+      static_cast<const uint8_t*>(pseed), static_cast<const uint8_t*>(pctrl),
+      static_cast<const uint8_t*>(seed_cw), static_cast<const uint8_t*>(ctrl_cw),
+      static_cast<const int32_t*>(wcw), static_cast<uint8_t*>(next_seed),
+      static_cast<uint8_t*>(ct), static_cast<int32_t*>(w_out),
+      static_cast<uint8_t*>(ok), R, N, convert_blocks, value_len);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slots = static_cast<long long>(R) * 2 * N;
+  node_proof_kernel<<<static_cast<int>((slots + 127) / 128), 128, 0, st>>>(
+      static_cast<const uint8_t*>(next_seed), static_cast<const uint8_t*>(ct),
+      static_cast<const uint8_t*>(pcw), static_cast<const uint64_t*>(tmpl), nb, plen,
+      static_cast<uint8_t*>(proof), 2 * N, slots);
   return static_cast<int>(cudaGetLastError());
 }

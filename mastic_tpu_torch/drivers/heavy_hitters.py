@@ -103,12 +103,10 @@ class IncrementalRunner:
         (level, prefixes, do_weight_check) = agg_param
         plan = self._plan(prefixes, level)
         rnd = round_inputs(plan, self.device)
-        (c0, proof0, out0, ok0) = self.engine.agg_round(
-            0, self.verify_key, self.ctx, self.carries[0], rnd,
-            self.ext_rk, self.conv_rk, self.batch.cws)
-        (c1, proof1, out1, ok1) = self.engine.agg_round(
-            1, self.verify_key, self.ctx, self.carries[1], rnd,
-            self.ext_rk, self.conv_rk, self.batch.cws)
+        ((c0, proof0, out0, ok0), (c1, proof1, out1, ok1)) = \
+            self.engine.agg_rounds((0, 1), self.verify_key, self.ctx,
+                                   tuple(self.carries), rnd, self.ext_rk,
+                                   self.conv_rk, self.batch.cws)
         self.carries = [c0, c1]
         accept = torch.all(proof0 == proof1, dim=-1)
         ok = ok0 & ok1

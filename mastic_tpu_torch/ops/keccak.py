@@ -8,12 +8,14 @@ int64 (ops/bits.py): a (25, batch) state, one vectorised step per
 theta / rho / pi / chi / iota.
 
 Kernel K1 (`csrc/keccak.cu`) replaces the Pallas permutation
-`keccak_p1600_pallas` (mastic_tpu/ops/keccak_pallas.py:84).  It has two
-entry points: the bare permutation behind `keccak_p1600`, and a sponge
-that absorbs a runtime number of rate blocks in one launch behind
+`keccak_p1600_pallas` (mastic_tpu/ops/keccak_pallas.py:84).  Its entry
+points: the bare permutation behind `keccak_p1600`; a sponge that
+absorbs a runtime number of rate blocks in one launch behind
 `turbo_shake128_dynamic` and `turbo_shake128`, reading the message in
-place (no padded copy, and no copy behind a short shared prefix).  Both count as kernel "keccak" in
-`ops.kernels.launches`.
+place (no padded copy, and no copy behind a short shared prefix); and
+the eval proof's binder sponge, which reads its message straight from
+the carried tree (`ops/binder.py`).  The first two count as "keccak"
+in `ops.kernels.launches`, the binder sponge as "keccak_binder".
 """
 
 import numpy as np

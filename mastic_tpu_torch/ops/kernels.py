@@ -17,10 +17,13 @@ cross as `c_void_p` (the wrappers pass `tensor.data_ptr()` and
 `torch.cuda.current_stream().cuda_stream`).
 
 `launches` counts, per kernel, the launches its wrappers made: each
-wrapper adds one where it launches, and nowhere else.
+wrapper adds one where it launches, and nowhere else.  K1's binder
+sponge counts under its own key, "keccak_binder"; "keccak" counts the
+permutation and the in-place sponge.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -33,7 +36,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("keccak", "aes", "level")
-HEADERS = ("keccak.cuh", "aes_bitsliced.cuh", "sbox_tower.cuh")
+HEADERS = ("keccak.cuh", "aes_bitsliced.cuh", "aes_column.cuh",
+           "field64.cuh", "sbox_tower.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,17 +50,19 @@ SIGNATURES = {
     "keccak": {
         "keccak_permute": (_P, _P, _P, _P, _I, _I, _P),
         "turboshake": (_P, _I, _P, _L, _L, _I, _P, _I, _I, _I, _P),
+        "binder_sponge": (_P, _P, _P, _P, _L, _I, _P, _L, _P, _P, _P, _L,
+                          _P, _P, _I, _P, _I, _I, _P),
     },
     "aes": {
         "aes_bitsliced": (_P, _P, _P, _I, _I, _P),
     },
     "level": {
-        "level_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                       _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "level_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                       _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 
-launches = {name: 0 for name in SOURCES}
+launches = {name: 0 for name in SOURCES + ("keccak_binder",)}
 build_info: dict = {}
 _libs: dict = {}
 
@@ -136,13 +142,21 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(name: str, fn: str, *args) -> None:
+def launch(name: str, fn: str, *args, counter: str = "") -> None:
     """Call one exported launch function, raise on a refused launch,
-    and count it."""
+    and count it under `counter` (by default the kernel's name)."""
     err = getattr(lib(name), fn)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA launch {name}.{fn} failed: error {err}")
-    launches[name] += 1
+    launches[counter or name] += 1
+
+
+@functools.lru_cache(maxsize=64)
+def const_bytes(data: bytes, device: torch.device) -> torch.Tensor:
+    """A constant byte string (a dst prefix) as a uint8 tensor on the
+    card, uploaded once: a copy from pageable host memory would wait
+    for the stream at every launch.  Kernels only read it."""
+    return torch.tensor(list(data), dtype=torch.uint8, device=device)
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:

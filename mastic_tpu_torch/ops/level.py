@@ -5,16 +5,19 @@
 every parent (2 fixed-key AES blocks), correct seeds and control bits,
 convert each child (`convert_blocks` AES blocks: next seed, payload
 limbs with the in-range mask, w_cw added mod p where the child holds
-ctrl), and the node proof (one-block TurboSHAKE128 over prefix | next
-seed | binder, XORed with proof_cw where the child holds ctrl).
+ctrl), and the node proof (TurboSHAKE128 over prefix | next seed |
+binder, XORed with proof_cw where the child holds ctrl).
 
 The binder length is a runtime argument: the TPU kernel bakes it in,
 so the JAX package's incremental round (whose binder grows with the
 level) never reaches it; here `IncrementalMastic._eval_step_dynamic`
-goes through K3 as well.  On a CUDA tensor the wrapper packs the
-inputs into bit planes and launches `csrc/level.cu`; on a CPU tensor
-it runs `level_step_plain`, which is `backend.vidpf.level_core` plus
-the plain TurboSHAKE sponge.
+goes through K3 as well.  The node-proof message takes as many rate
+blocks as prefix, seed and binder need (the TPU kernel's one-block
+limit is its own).  On a CUDA tensor the wrapper builds the per-node
+message template and launches `csrc/level.cu` on the report-major
+inputs as they are (the level kernel, then the node-proof kernel: one
+launch call, counted once); on a CPU tensor it runs `level_step_plain`,
+which is `backend.vidpf.level_core` plus the plain TurboSHAKE sponge.
 """
 
 import numpy as np
@@ -22,18 +25,17 @@ import torch
 
 from ..backend.vidpf import level_core
 from . import kernels
-from .aes import bitslice_keys, bitslice_pack, pack_mask
 from .bits import I32
 from .keccak import RATE, turbo_shake128_dynamic_plain
 
 _MAX_CONVERT_BLOCKS = 8
 
 
-def supports(convert_blocks: int, prefix_len: int, binder_bytes: int) -> bool:
-    """Shapes the fused level step serves: the node-proof message fits
-    one absorb block and the convert stays a few AES blocks."""
-    return (convert_blocks <= _MAX_CONVERT_BLOCKS
-            and prefix_len + 16 + binder_bytes <= RATE - 1)
+def supports(convert_blocks: int) -> bool:
+    """Shapes the fused level step serves: the convert stays a few AES
+    blocks.  The node-proof message may take any number of rate
+    blocks (a long `ctx` makes it longer than one)."""
+    return convert_blocks <= _MAX_CONVERT_BLOCKS
 
 
 def level_step(spec, convert_blocks: int, value_len: int,
@@ -52,7 +54,7 @@ def level_step(spec, convert_blocks: int, value_len: int,
     bool, w (R, 2N, VL, n) int32 plain limbs, ok (R, 2N) bool, proof
     (R, 2N, 32) uint8); children interleave (left0, right0, left1,
     ...)."""
-    if not supports(convert_blocks, len(prefix), binder_len):
+    if not supports(convert_blocks):
         raise ValueError("shape outside the fused level step")
     if binder_len > node_binder.shape[-1]:
         raise ValueError("binder_len exceeds the binder rows")
@@ -90,6 +92,24 @@ def level_step_plain(spec, convert_blocks: int, value_len: int,
     return (next_seed, ct, w, ok, proof)
 
 
+def node_proof_template(prefix: bytes, node_binder: torch.Tensor,
+                        binder_len: int) -> tuple:
+    """The public part of every node-proof message, per node: prefix,
+    a 16-byte hole for the seed, binder, TurboSHAKE's pad10*1 (domain
+    1), as (2N, nb * 21) int64 rate-block lanes.  Returns (lanes,
+    nb)."""
+    plen = len(prefix)
+    length = plen + 16 + binder_len
+    nb = length // RATE + 1
+    msg = torch.zeros((node_binder.shape[0], nb * RATE), dtype=torch.uint8,
+                      device=node_binder.device)
+    msg[:, :plen] = kernels.const_bytes(bytes(prefix), node_binder.device)
+    msg[:, plen + 16:length] = node_binder[:, :binder_len]
+    msg[:, length] ^= 0x01
+    msg[:, -1] ^= 0x80
+    return (msg.view(torch.int64), nb)
+
+
 def _level_cuda(spec, convert_blocks: int, value_len: int,
                 ext_rk: torch.Tensor, conv_rk: torch.Tensor,
                 parent_seed: torch.Tensor, parent_ctrl: torch.Tensor,
@@ -109,49 +129,31 @@ def _level_cuda(spec, convert_blocks: int, value_len: int,
             or proof_cw.shape != (num_reports, 32) \
             or node_binder.shape[0] != 2 * num_parents:
         raise ValueError("level_step: inconsistent input shapes")
-    pad = (-num_reports) % 32
-    r32 = num_reports + pad
-
-    def padded(x):
-        if not pad:
-            return x
-        return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
-
-    words = r32 // 32
-    ekp = bitslice_keys(padded(ext_rk)).reshape(11 * 128, words)
-    ckp = bitslice_keys(padded(conv_rk)).reshape(11 * 128, words)
-    pseed = torch.movedim(bitslice_pack(padded(parent_seed)), 2, 0)
-    pseed = pseed.reshape(num_parents, 128, words)
-    pctrl = pack_mask(padded(parent_ctrl))                  # (N, W)
-    cwsd = bitslice_pack(padded(seed_cw)).reshape(128, words)
-    cwct = pack_mask(padded(ctrl_cw))                       # (2, W)
-    wcw = padded(w_cw).to(I32)
-    pcw = padded(proof_cw)
-    prefix_t = torch.as_tensor(np.frombuffer(prefix, np.uint8).copy(), device=dev)
-    binder = node_binder.contiguous()
-    ins = [x.contiguous() for x in (ekp, ckp, pseed, pctrl, cwsd, cwct,
-                                     wcw, pcw)]
+    (tmpl, nb) = node_proof_template(prefix, node_binder, binder_len)
+    # The correction-word slices are strided views of the whole tree's.
+    ins = [x.contiguous() for x in (ext_rk, conv_rk, parent_seed, parent_ctrl,
+                                     seed_cw, ctrl_cw, w_cw, proof_cw)]
     for (t, dtype, what) in zip(
-            ins + [prefix_t, binder],
-            [I32] * 6 + [I32, torch.uint8, torch.uint8, torch.uint8],
-            ("ext key planes", "conv key planes", "parent seed planes",
-             "parent ctrl", "seed cw planes", "ctrl cw", "w cw",
-             "proof cw", "prefix", "node binder")):
+            ins + [tmpl],
+            [torch.uint8] * 3 + [torch.bool, torch.uint8, torch.bool, I32,
+                                 torch.uint8, torch.int64],
+            ("ext round keys", "conv round keys", "parent seeds",
+             "parent ctrl", "seed cw", "ctrl cw", "w cw", "proof cw",
+             "node-proof template")):
         kernels.check_cuda(t, dtype, what)
 
     n2 = 2 * num_parents
-    next_seed = torch.empty((r32, n2, 16), dtype=torch.uint8, device=dev)
-    ct = torch.empty((r32, n2), dtype=torch.bool, device=dev)
-    w = torch.empty((r32, n2, value_len, 4), dtype=I32, device=dev)
-    ok = torch.empty((r32, n2), dtype=torch.bool, device=dev)
-    proof = torch.empty((r32, n2, 32), dtype=torch.uint8, device=dev)
-    kernels.launch(
-        "level", "level_step", *(x.data_ptr() for x in ins),
-        prefix_t.data_ptr(), len(prefix), binder.data_ptr(),
-        binder.shape[-1], binder_len, next_seed.data_ptr(), ct.data_ptr(),
-        w.data_ptr(), ok.data_ptr(), proof.data_ptr(), words, num_parents,
-        convert_blocks, value_len, kernels.stream_ptr(dev))
-    if pad:
-        return (next_seed[:num_reports], ct[:num_reports],
-                w[:num_reports], ok[:num_reports], proof[:num_reports])
+    next_seed = torch.empty((num_reports, n2, 16), dtype=torch.uint8,
+                            device=dev)
+    ct = torch.empty((num_reports, n2), dtype=torch.bool, device=dev)
+    w = torch.empty((num_reports, n2, value_len, 4), dtype=I32, device=dev)
+    ok = torch.empty((num_reports, n2), dtype=torch.bool, device=dev)
+    proof = torch.empty((num_reports, n2, 32), dtype=torch.uint8, device=dev)
+    if num_reports:
+        kernels.launch(
+            "level", "level_step", *(x.data_ptr() for x in ins),
+            tmpl.data_ptr(), nb, len(prefix), next_seed.data_ptr(),
+            ct.data_ptr(), w.data_ptr(), ok.data_ptr(), proof.data_ptr(),
+            num_reports, num_parents, convert_blocks, value_len,
+            kernels.stream_ptr(dev))
     return (next_seed, ct, w, ok, proof)

@@ -2,19 +2,22 @@
 
     python3 profile_smoke.py [--seed N] [--levels L]
 
-Runs chip_smoke.py's main path (MasticCount(256), 4096 reports, the
-same measurements from --seed) with a synchronising host timer around
-each phase of a round: the host RoundPlan, the index upload, kernel K3's
-level step, the binder sponges (message assembly plus kernel K1), the
-whole eval proof (payload difference, binders, eval-proof XOF), one
-aggregator's round, the level-0 weight check, the masked aggregation and
-the collect (sync and unshard).  Each phase is summed over all levels
-and over the deepest quarter.  The timers synchronise the card around
-every phase, so the rounds run somewhat slower than in chip_smoke.py.
+Runs chip_smoke.py's main path (MasticCount(256), 4096 reports, the same
+measurements from --seed) with a synchronising host timer around each
+phase of a round: the host RoundPlan, the index upload, kernel K3's
+level step, the binder sponges (kernel K1's gathered sponge, both
+aggregators in one launch), the eval proofs (binders, counter check,
+eval-proof XOF), both aggregators' round, the level-0 weight check, the
+masked aggregation and the collect (sync and unshard). Each phase is
+summed over all levels and over the deepest quarter. The timers
+synchronise the card around every phase, so the rounds run somewhat
+slower than in chip_smoke.py.
 
 Then it traces two of the deepest levels with torch.profiler and prints
 the card's busy share of their wall time and the top device operations.
-Needs a CUDA card.
+Last it times the two ways to launch K1's binder sponge over two
+aggregators' level-255 carries: both in one launch (the main path's)
+and one launch per aggregator.  Needs a CUDA card.
 """
 
 import argparse
@@ -28,7 +31,23 @@ from torch.autograd import DeviceType
 import chip_smoke
 from mastic_tpu_torch.backend import incremental, mastic
 from mastic_tpu_torch.drivers import heavy_hitters
-from mastic_tpu_torch.ops import kernels
+from mastic_tpu_torch.ops import binder, kernels
+
+
+def binder_launch_forms(seed: int) -> None:
+    """K1's binder sponge at level 255: both aggregators in one launch
+    against one launch per aggregator, same carries, CUDA events."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    args = chip_smoke.binder_inputs(dev, gen, chip_smoke.BITS,
+                                    chip_smoke.CTX)
+    (spec, ws, proofs, *rest) = args
+    both = chip_smoke._time(lambda: binder.binder_checks(*args), 3)
+    apart = chip_smoke._time(lambda: [binder.binder_checks(
+        spec, ws[a:a + 1], proofs[a:a + 1], *rest) for a in (0, 1)], 3)
+    print(f"K1 binder sponge at level {chip_smoke.BITS - 1}, 2 aggregators: "
+          f"one launch {both:.4f} ms, one launch per aggregator "
+          f"{apart:.4f} ms for the pair")
 
 
 def main() -> int:
@@ -65,13 +84,13 @@ def main() -> int:
                                        incremental.round_inputs)
     incremental.level_step = timed("K3 level step (wrapper + kernel)",
                                    incremental.level_step)
-    incremental._binder_check = timed("binder sponges (message + K1)",
-                                      incremental._binder_check)
+    incremental.binder_checks = timed("binder sponges (K1 gathered)",
+                                      incremental.binder_checks)
     engine = incremental.IncrementalMastic
-    engine._eval_proof = timed("eval proof (payload diff, binders, XOF)",
-                               engine._eval_proof)
-    engine.agg_round = timed("agg_round (both aggregators)",
-                             engine.agg_round)
+    engine._eval_proofs = timed("eval proofs (binders, counter, XOF)",
+                                engine._eval_proofs)
+    engine.agg_rounds = timed("agg_rounds (both aggregators)",
+                              engine.agg_rounds)
     bm = mastic.BatchedMastic
     bm.weight_check_device = timed("weight check", bm.weight_check_device)
     bm.aggregate = timed("masked aggregation", bm.aggregate)
@@ -113,6 +132,9 @@ def main() -> int:
     print(f"levels {traced[0]}-{traced[1] - 1}: wall {trace['wall']:.3f} s, "
           f"device busy {busy:.3f} s ({100 * busy / trace['wall']:.1f}%)")
     print(averages.table(sort_by="self_cuda_time_total", row_limit=15))
+    del result, averages, trace
+    torch.cuda.empty_cache()
+    binder_launch_forms(args.seed)
     return 0
 
 

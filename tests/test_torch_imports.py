@@ -88,9 +88,8 @@ def test_kernel_argument_checks():
     t = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.check_cuda(t, torch.int32, "x")
-    assert level.supports(2, 28, 36)
-    assert not level.supports(9, 28, 36)
-    assert not level.supports(2, 28, 124)
+    assert level.supports(2)
+    assert not level.supports(9)
     with pytest.raises(ValueError, match="binder_len"):
         level.level_step(None, 2, 2, None, None, None, None, None,
                          bytes(28), torch.zeros((2, 4), dtype=torch.uint8),

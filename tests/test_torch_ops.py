@@ -229,6 +229,21 @@ def test_field64_sum_and_bytes_match_jax():
                           np.asarray(JFIELD64.plain_to_le_bytes(want)))
 
 
+@pytest.mark.parametrize("op", ["add", "sub"])
+def test_field64_add_sub_match_jax_at_and_above_p(op):
+    """Carried payloads can hold 64-bit values >= p (the level step
+    stores a sampled value whose in-range mask failed): add and sub
+    must still equal the JAX package's limb code bit for bit."""
+    p = JFIELD64.modulus
+    edge = [0, 1, p - 1, p, p + 1, 2 ** 64 - 1, 2 ** 63, 2 ** 32, p - 2 ** 32]
+    pairs = [(x, y) for x in edge for y in edge]
+    a = np.stack([JFIELD64.int_to_limbs(x) for (x, _y) in pairs])
+    b = np.stack([JFIELD64.int_to_limbs(y) for (_x, y) in pairs])
+    want = getattr(JFIELD64, op)(jnp.asarray(a), jnp.asarray(b))
+    got = getattr(FIELD64, op)(_words(a), _words(b))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("size,inverse", [(2, True), (4, False),
                                           (4, True)])
 def test_ntt_plans_match_jax(size, inverse):

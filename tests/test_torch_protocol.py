@@ -14,6 +14,9 @@ from mastic_tpu.backend.incremental import IncrementalMastic as JEngine
 from mastic_tpu.backend.incremental import RoundPlan as JRoundPlan
 from mastic_tpu.backend.incremental import carry_to_arrays as j_carry_to_arrays
 from mastic_tpu.backend.incremental import round_inputs as j_round_inputs
+from mastic_tpu.backend.incremental import _prefix_len, _prefixed
+from mastic_tpu.ops.field_jax import FIELD64 as JFIELD64
+from mastic_tpu.ops.keccak_jax import turbo_shake128_dynamic as j_sponge
 from mastic_tpu.backend.mastic_jax import BatchedMastic as JBatchedMastic
 from mastic_tpu.backend.vidpf_jax import BatchedVidpf as JBatchedVidpf
 from mastic_tpu.backend.vidpf_jax import EvalState as JEvalState
@@ -23,9 +26,12 @@ from mastic_tpu_torch.backend.incremental import IncrementalMastic
 from mastic_tpu_torch.backend.incremental import RoundPlan, round_inputs
 from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
 from mastic_tpu_torch.backend.vidpf import BatchedVidpf, EvalState
+from mastic_tpu_torch.ops.binder import binder_checks
+from mastic_tpu_torch.ops import level
 from mastic_tpu_torch.ops.level import level_step
 from mastic_tpu_torch.backend.xof import ts_prefix
-from mastic_tpu_torch.dst import USAGE_NODE_PROOF, dst
+from mastic_tpu_torch.dst import (USAGE_NODE_PROOF, USAGE_ONEHOT_CHECK,
+                                  USAGE_PAYLOAD_CHECK, dst, dst_alg)
 
 CTX = b"torch port test"
 VK = bytes(range(32))
@@ -236,6 +242,31 @@ def test_level_step_matches_eval_step_dynamic():
     assert np.array_equal(out[4].numpy(), np.asarray(jchild.proof))
 
 
+@pytest.mark.parametrize("ctx", [CTX, bytes(range(150))],
+                         ids=["one_block", "two_blocks"])
+def test_node_proof_template_is_the_padded_message(ctx):
+    """The per-node lanes K3's node-proof kernel absorbs: with a seed in
+    the 16-byte hole they are the message the plain sponge pads
+    (prefix | seed | binder, domain byte 1, final 0x80)."""
+    rng = np.random.default_rng(len(ctx))
+    prefix = ts_prefix(dst(ctx, USAGE_NODE_PROOF), 16)
+    binder = torch.from_numpy(rng.integers(0, 256, (6, 9), np.uint8))
+    seed = rng.integers(0, 256, 16, np.uint8)
+    (lanes, nb) = level.node_proof_template(prefix, binder, 7)
+    assert lanes.shape == (6, nb * 21)
+    msg = lanes.numpy().view(np.uint8).copy()
+    msg[:, len(prefix):len(prefix) + 16] ^= seed
+    length = len(prefix) + 16 + 7
+    assert nb == length // 168 + 1 == (2 if len(ctx) > 100 else 1)
+    want = np.zeros((6, nb * 168), np.uint8)
+    want[:, :length] = np.concatenate(
+        [np.broadcast_to(np.frombuffer(prefix, np.uint8), (6, len(prefix))),
+         np.broadcast_to(seed, (6, 16)), binder.numpy()[:, :7]], axis=1)
+    want[:, length] ^= 1
+    want[:, -1] ^= 0x80
+    assert np.array_equal(msg, want)
+
+
 # -- incremental rounds ------------------------------------------------
 
 FRONTIERS = [
@@ -245,34 +276,35 @@ FRONTIERS = [
 ]
 
 
-def test_agg_round_matches_jax_over_rounds(sharded):
-    """Three consecutive rounds of both aggregators: carry, eval proof,
-    out share and ok equal after each."""
+def _rounds_against_jax(sharded, ctx: bytes, frontiers: list) -> None:
+    """Consecutive rounds of both aggregators, the port's against the
+    JAX package's: carry, eval proof, out share and ok equal after
+    each."""
     (jbatch, _jok, pbatch, _pok) = sharded
     jbm = JBatchedMastic(JMasticCount(BITS))
     jengine = JEngine(jbm, width=8)
-    (jext, jconv) = jbm.vidpf.roundkeys(CTX, jbatch.nonces)
+    (jext, jconv) = jbm.vidpf.roundkeys(ctx, jbatch.nonces)
     jcarries = [jengine.init_carry(REPORTS, jbatch.keys[:, a], a)
                 for a in range(2)]
     tbm = BatchedMastic(MasticCount(BITS))
     tengine = IncrementalMastic(tbm, 8)
-    (text, tconv) = tbm.vidpf.roundkeys(CTX, pbatch.nonces)
+    (text, tconv) = tbm.vidpf.roundkeys(ctx, pbatch.nonces)
     tcarries = [tengine.init_carry(REPORTS, pbatch.keys[:, a], a)
                 for a in range(2)]
     layouts: list = []
-    for (level, prefixes) in enumerate(FRONTIERS):
+    for (level, prefixes) in enumerate(frontiers):
         jplan = JRoundPlan(tuple(prefixes), level, BITS, 8, layouts)
         tplan = RoundPlan(tuple(prefixes), level, BITS, 8, layouts)
         jrnd = j_round_inputs(jplan)
         trnd = round_inputs(tplan, "cpu")
         jouts = jax.jit(lambda c0, c1, r: tuple(
-            jengine.agg_round(agg, VK, CTX, c, r, jext, jconv, jbatch.cws)
+            jengine.agg_round(agg, VK, ctx, c, r, jext, jconv, jbatch.cws)
             for (agg, c) in ((0, c0), (1, c1))))(jcarries[0], jcarries[1],
                                                  jrnd)
         for a in range(2):
             (jcarries[a], jproof, jout, jok) = jouts[a]
             (tcarries[a], tproof, tout, tok) = tengine.agg_round(
-                a, VK, CTX, tcarries[a], trnd, text, tconv, pbatch.cws)
+                a, VK, ctx, tcarries[a], trnd, text, tconv, pbatch.cws)
             want = j_carry_to_arrays(jcarries[a])
             got = convert.carry_to_arrays(tcarries[a])
             for key in ("w", "proof", "seed", "ctrl"):
@@ -286,3 +318,102 @@ def test_agg_round_matches_jax_over_rounds(sharded):
     for (x, y) in zip(back, tcarries[1]):
         assert torch.equal(x, y)
 
+
+def test_agg_round_matches_jax_over_rounds(sharded):
+    """Three consecutive rounds of both aggregators."""
+    _rounds_against_jax(sharded, CTX, FRONTIERS)
+
+
+def test_agg_round_long_ctx_matches_jax(sharded):
+    """A 150-byte ctx makes the node-proof message (11 + 150 bytes of
+    prefix, 16 of seed, 5 of binder) longer than one rate block: the
+    level step hashes it over two blocks, as the JAX package's XLA
+    sponge does.  (The reports were sharded under CTX, so the
+    aggregators disagree; both packages must still give the same
+    bytes.)"""
+    ctx = bytes(range(150))
+    assert len(ts_prefix(dst(ctx, USAGE_NODE_PROOF), 16)) + 16 + 5 > 167
+    _rounds_against_jax(sharded, ctx, FRONTIERS[:2])
+
+
+# -- K1's binder sponge: the eval proof's onehot and payload checks ------
+
+def _carried_tree(rng, width: int) -> tuple:
+    """A carried tree of random payloads, a third of them 64-bit values
+    at or above p (stored where the in-range mask failed), and random
+    node proofs: (w (R, BITS, W, 2, 4) uint32 limbs, proof uint8)."""
+    p = JFIELD64.modulus
+    shape = (REPORTS, BITS, width, 2)
+    vals = rng.integers(0, 2 ** 64, shape, dtype=np.uint64)
+    edge = np.array([p, p + 1, 2 ** 64 - 1, p - 1, 0], dtype=np.uint64)
+    high = rng.random(shape) < 0.3
+    vals[high] = edge[rng.integers(0, len(edge), int(high.sum()))]
+    w = np.stack([(vals >> np.uint64(16 * i)) & np.uint64(0xFFFF)
+                  for i in range(4)], -1).astype(np.uint32)
+    proof = rng.integers(0, 256, (REPORTS, BITS, width, 32), np.uint8)
+    return (w, proof)
+
+
+@pytest.mark.parametrize("ctx", [b"x" * 17, b"x" * 20],
+                         ids=["prefix32", "prefix35"])
+def test_binder_checks_match_jax_eval_proof(ctx):
+    """The binder sponge's plain version against the JAX package's
+    payload and onehot checks (mastic_tpu/backend/incremental.py
+    _eval_proof) at level 3 of a real RoundPlan, over a carry holding
+    values >= p; with a prefix length that is a multiple of 8 (32) and
+    one that is not (35).  Then the whole eval proof of both
+    aggregators, port against JAX."""
+    width = 8
+    plans = []
+    layouts: list = []
+    for (level, prefixes) in enumerate(FRONTIERS + [[
+            (False, True, True, False), (True, False, False, True),
+            (True, False, True, True)]]):
+        plans.append((JRoundPlan(tuple(prefixes), level, BITS, width,
+                                 layouts),
+                      RoundPlan(tuple(prefixes), level, BITS, width,
+                                layouts)))
+        layouts.append(plans[-1][0].layout_new)
+    (jplan, tplan) = plans[-1]
+    jrnd = j_round_inputs(jplan)
+    trnd = round_inputs(tplan, "cpu")
+    rng = np.random.default_rng(len(ctx))
+    trees = [_carried_tree(rng, width) for _ in range(2)]
+    tbm = BatchedMastic(MasticCount(BITS))
+    (onehot, payload) = binder_checks(
+        tbm.spec, tuple(convert.to_tensor(w, "cpu") for (w, _p) in trees),
+        tuple(torch.from_numpy(p) for (_w, p) in trees), trnd.onehot_idx,
+        trnd.payload_parent, trnd.payload_left, trnd.payload_right,
+        ts_prefix(dst_alg(ctx, USAGE_ONEHOT_CHECK, tbm.m.ID), 0),
+        ts_prefix(dst_alg(ctx, USAGE_PAYLOAD_CHECK, tbm.m.ID), 0))
+    assert len(ts_prefix(dst_alg(ctx, USAGE_ONEHOT_CHECK, tbm.m.ID), 0)) \
+        == 15 + len(ctx)
+
+    jbm = JBatchedMastic(JMasticCount(BITS))
+    jengine = JEngine(jbm, width=width)
+    tengine = IncrementalMastic(tbm, width)
+    for (a, (w, proof)) in enumerate(trees):
+        # The JAX package's two checks, as its _eval_proof computes them.
+        w_flat = jnp.asarray(w).reshape(REPORTS, BITS * width, 2, 4)
+        diff = JFIELD64.sub(w_flat[:, jrnd.payload_parent],
+                            JFIELD64.add(w_flat[:, jrnd.payload_left],
+                                         w_flat[:, jrnd.payload_right]))
+        binder = JFIELD64.plain_to_le_bytes(diff).reshape(REPORTS, -1)
+        want = j_sponge(
+            _prefixed(binder, ctx, USAGE_PAYLOAD_CHECK, jbm.m.ID),
+            _prefix_len(ctx, USAGE_PAYLOAD_CHECK, jbm.m.ID)
+            + jplan.payload_rows * 16, 1, 32)
+        assert np.array_equal(payload[a].numpy(), np.asarray(want))
+        rows = jnp.asarray(proof).reshape(REPORTS, BITS * width, 32)
+        binder = rows[:, jrnd.onehot_idx].reshape(REPORTS, -1)
+        want = j_sponge(
+            _prefixed(binder, ctx, USAGE_ONEHOT_CHECK, jbm.m.ID),
+            _prefix_len(ctx, USAGE_ONEHOT_CHECK, jbm.m.ID)
+            + jplan.onehot_rows * 32, 1, 32)
+        assert np.array_equal(onehot[a].numpy(), np.asarray(want))
+
+        want = jengine._eval_proof(a, VK, ctx, jnp.asarray(w),
+                                   jnp.asarray(proof), jrnd)
+        got = tengine._eval_proof(a, VK, ctx, convert.to_tensor(w, "cpu"),
+                                  torch.from_numpy(proof), trnd)
+        assert np.array_equal(got.numpy(), np.asarray(want))
