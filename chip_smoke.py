@@ -11,17 +11,21 @@
    level-255 carries (both checks of both aggregators in one launch,
    payloads holding values >= p; also at depth 64 behind a 35-byte
    prefix), as the bare permutation over R x 2W node-proof states and
-   as the in-place sponge; K2 (bitsliced AES) at the client
-   sharding's shape; K3 (the level step) at R = 4096 reports x 32
-   parents (the main path's widest level), x 64 parents, and x 32
-   parents with a 150-byte ctx (a node proof over two rate blocks).
+   as the in-place sponge; K2 (bitsliced AES) as the main path's
+   `fixed_key_blocks` at the client sharding's extend and convert
+   shapes, at R = 4093 with 3 blocks and at 64 seeds a report, and as
+   the planes entry at the sharding's plane stack; K3 (the level
+   step) at R = 4096 reports x 32 parents (the main path's widest
+   level), x 64 parents, and x 32 parents with a 150-byte ctx (a node
+   proof over two rate blocks).
 3. Runs the main path at real size: MasticCount(256) over Field64 with
    R = 4096 reports (32 planted 256-bit strings x 64 reports each plus
    2048 uniform ones, weights 0/1, all from --seed), sharded on the
    card, then the whole 256-level heavy-hitters collection at threshold
    48, with every launch counter set to 0 just before and read just
-   after (K1's binder sponge counts apart from its in-place sponge, and
-   each must have launched).  The aggregates of every level must equal
+   after (K1's binder sponge counts apart from its in-place sponge, K2's
+   fixed-key entry apart from its planes entry, which the path does not
+   launch; each of the path's four must have launched).  The aggregates of every level must equal
    a numpy plaintext count over the reports that were not rejected, and
    the heavy hitters must be the planted strings.  `--levels L` stops after L levels (a
    cut of depth, printed on its own line).
@@ -55,6 +59,9 @@ BITS = 256
 PLANTED = 32
 PER_PLANTED = 64
 THRESHOLD = 48
+# The launch counters of the main path's kernels (ops/kernels.py): K1's
+# in-place sponge and binder sponge, K2's fixed-key entry, K3.
+PATH_COUNTERS = ("keccak", "keccak_binder", "aes", "level")
 CTX = b"mastic chip smoke"
 LONG_CTX = bytes(range(150))
 
@@ -135,7 +142,7 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
     from mastic_tpu_torch.backend.xof import ts_prefix
     from mastic_tpu_torch.dst import (USAGE_NODE_PROOF, USAGE_ONEHOT_CHECK,
                                       dst, dst_alg)
-    from mastic_tpu_torch.ops import aes, keccak, level
+    from mastic_tpu_torch.ops import keccak, level
     from mastic_tpu_torch.ops.field import FIELD64
 
     def rand_u8(*shape):
@@ -193,26 +200,8 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
                     f"{len(prefix) + length} B: {sponge_ms:.4f} ms")
     rows.append(k1)
 
-    # K2 at the client sharding's extend shape: both parties' seeds, 2
-    # blocks each, 4096 reports = 128 packed words.
+    rows.append(check_aes(dev, gen))
     vid = BatchedVidpf(BITS, 2)
-    keys = rand_u8(R, 16)
-    rk = aes.aes128_key_schedule(keys)
-    kp = aes.bitslice_keys(rk).contiguous()
-    planes = rand_i32(8, 16, 2, 2, R // 32)
-    err = _max_err([aes.aes128_encrypt_bitsliced(kp, planes)],
-                   [aes.aes128_encrypt_bitsliced_plain(kp, planes)])
-    ms = _time(lambda: aes.aes128_encrypt_bitsliced(kp, planes), 20)
-    plain_ms = _time(lambda: aes.aes128_encrypt_bitsliced_plain(kp, planes), 2)
-    columns = 4 * (R // 32)
-    (bound, by) = _bound(kp.numel() * 4.0 + 2 * planes.numel() * 4.0,
-                         columns * AES_BLOCK_OPS)
-    rows.append({"name": "aes128_bitsliced", "route": "cuda",
-                 "source": "mastic_tpu_torch/csrc/aes.cu",
-                 "replaces": "mastic_tpu/ops/aes_pallas.py:149",
-                 "max_abs_err": err, "kernel_ms": ms, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                 "library_ms": None, "shape": f"planes (8, 16, 2, 2, {R // 32})"})
 
     # K3 with a level-255 node binder, at the main path's R x 32 parents
     # (padded width 64), at R x 64 parents, and at R x 32 parents with a
@@ -291,6 +280,108 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
             raise AssertionError(f"{row['name']} disagrees with its plain "
                                  f"version: {row['max_abs_err']}")
     return rows
+
+
+def check_aes(dev: torch.device, gen: torch.Generator) -> dict:
+    """K2 against its plain versions: the fixed-key entry (the main
+    path's `fixed_key_blocks`) at the client shard's extend shape (next
+    seeds sliced from the wider convert output, as `gen` passes them)
+    and convert shape, at R - 3 reports with 3 blocks and at a
+    throughput shape of 64 seeds a report; the planes entry at the
+    shard's plane stack.  Times the whole `fixed_key_blocks` call (CUDA
+    events), its kernel alone (profiler), the parent's path for the
+    same call (PyTorch bit packing around the planes entry) and the
+    planes entry."""
+    from mastic_tpu_torch.backend.xof import (fixed_key_blocks,
+                                              fixed_key_blocks_plain)
+    from mastic_tpu_torch.backend.vidpf import BatchedVidpf
+    from mastic_tpu_torch.ops import aes
+
+    def inputs(reports, seeds, width=16):
+        keys = torch.randint(0, 256, (reports, 16), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        rows = torch.randint(0, 256, (reports, seeds, width),
+                             dtype=torch.uint8, device=dev, generator=gen)
+        return (aes.aes128_key_schedule(keys), rows[..., :16])
+
+    def parent_path(round_keys, seeds, blocks):
+        """The parent's `fixed_key_blocks` on the card: block indices
+        uploaded from numpy, sigma and the feed-forward as byte
+        tensors, PyTorch bit packing around the planes entry."""
+        idx = np.zeros((blocks, 16), np.uint8)
+        idx[:, 0] = np.arange(blocks)
+        x = seeds[..., None, :] ^ torch.as_tensor(idx, device=dev)
+        sigma = torch.cat([x[..., 8:], x[..., 8:] ^ x[..., :8]], dim=-1)
+        planes = aes.bitslice_pack(sigma).contiguous()
+        kp = aes.bitslice_keys(round_keys).contiguous()
+        enc = aes.bitslice_unpack(aes.aes128_encrypt_bitsliced(kp, planes))
+        out = enc ^ sigma
+        return out.reshape(out.shape[:-2] + (blocks * 16,))
+
+    def bound(reports, seeds, blocks):
+        columns = (reports + 31) // 32 * seeds * blocks
+        nbytes = reports * (11 * 16 + seeds * 16 + seeds * blocks * 16)
+        return _bound(float(nbytes), columns * AES_BLOCK_OPS)
+
+    convert_blocks = BatchedVidpf(BITS, 2).convert_blocks
+    extend = (*inputs(R, 2, 16 * convert_blocks), 2)
+    wide = (*inputs(R, 64), 2)
+    cases = {"extend": extend, "convert": (*inputs(R, 2), convert_blocks),
+             "ragged": (*inputs(R - 3, 2), 3), "throughput": wide}
+    errs = {}
+    for (name, args) in cases.items():
+        errs[name] = _max_err([fixed_key_blocks(*args)],
+                              [fixed_key_blocks_plain(*args)])
+        (rk, seeds, blocks) = args
+        print(f"K2 fixed_key_blocks ({name}): {rk.shape[0]} reports x "
+              f"{seeds.shape[1]} seeds x {blocks} blocks, max_abs_err "
+              f"{errs[name]}")
+    kp = aes.bitslice_keys(extend[0]).contiguous()
+    planes = torch.randint(-2 ** 31, 2 ** 31, (8, 16, 2, 2, R // 32),
+                           dtype=torch.int32, device=dev, generator=gen)
+    errs["planes"] = _max_err([aes.aes128_encrypt_bitsliced(kp, planes)],
+                              [aes.aes128_encrypt_bitsliced_plain(kp, planes)])
+    errs["parent"] = _max_err([parent_path(*extend)],
+                              [fixed_key_blocks_plain(*extend)])
+    print(f"K2 planes entry: planes (8, 16, 2, 2, {R // 32}), max_abs_err "
+          f"{errs['planes']}; the parent's path through it at the extend "
+          f"shape, max_abs_err {errs['parent']}")
+
+    ms = _time(lambda: fixed_key_blocks(*extend), 20)
+    device_ms = _device_ms(lambda: fixed_key_blocks(*extend),
+                           ("fixed_key_kernel",), 20)["fixed_key_kernel"]
+    plain_ms = _time(lambda: fixed_key_blocks_plain(*extend), 2)
+    parent_ms = _time(lambda: parent_path(*extend), 20)
+    planes_ms = _time(lambda: aes.aes128_encrypt_bitsliced(kp, planes), 20)
+    wide_ms = _time(lambda: fixed_key_blocks(*wide), 20)
+    wide_device = _device_ms(lambda: fixed_key_blocks(*wide),
+                             ("fixed_key_kernel",), 20)["fixed_key_kernel"]
+    (b, by) = bound(R, 2, 2)
+    (wide_b, wide_by) = bound(R, 64, 2)
+    threads = 4 * (R // 32) * 2 * 2
+    print(f"K2 fixed_key_blocks at {R} reports x 2 seeds x 2 blocks "
+          f"({threads // 64} blocks of 64 threads): whole call {ms:.4f} ms, "
+          f"kernel {device_ms:.4f} ms (bound {b:.6f} ms by {by}); the "
+          f"parent's path (bit packing + planes entry + unpacking) "
+          f"{parent_ms:.4f} ms; plain {plain_ms:.3f} ms")
+    print(f"K2 fixed_key_blocks at {R} reports x 64 seeds x 2 blocks: whole "
+          f"call {wide_ms:.4f} ms, kernel {wide_device:.4f} ms (bound "
+          f"{wide_b:.4f} ms by {wide_by}); planes entry at (8, 16, 2, 2, "
+          f"{R // 32}) {planes_ms:.4f} ms")
+    return {"name": "aes_fixed_key_blocks", "route": "cuda",
+            "source": "mastic_tpu_torch/csrc/aes.cu",
+            "replaces": "mastic_tpu/ops/aes_pallas.py:149",
+            "max_abs_err": max(errs.values()), "kernel_ms": ms,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": f"fixed_key_blocks, {R} reports x 2 seeds x 2 blocks "
+                     f"(the shard's extend; also checked at its convert, at "
+                     f"{R - 3} reports x 3 blocks and at 64 seeds); the "
+                     f"parent's path for this call {parent_ms:.4f} ms; {R} "
+                     f"reports x 64 seeds x 2 blocks: whole call "
+                     f"{wide_ms:.4f} ms, kernel {wide_device:.4f} ms, bound "
+                     f"{wide_b:.4f} ms; planes entry at (8, 16, 2, 2, "
+                     f"{R // 32}): {planes_ms:.4f} ms"}
 
 
 def _binder_indices(gen_np: np.random.Generator, dev: torch.device,
@@ -572,11 +663,12 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated(dev)
     for row in rows:
         key = {"keccak_binder_sponge": "keccak_binder",
-               "aes128_bitsliced": "aes", "level_step": "level"}[row["name"]]
+               "aes_fixed_key_blocks": "aes",
+               "level_step": "level"}[row["name"]]
         row["launches"] = counts[key]
     # K1's in-place sponge (the shard's and the eval-proof XOF's).
     rows[0]["launches_turboshake"] = counts["keccak"]
-    idle = [name for (name, n) in counts.items() if n == 0]
+    idle = [name for name in PATH_COUNTERS if counts[name] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
 

@@ -6,7 +6,7 @@
 * XofFixedKeyAes128: fixed key = TurboSHAKE128(le16(len(dst)) || dst ||
   binder, domain 2, 16); block i = pi(seed XOR le128(i)) with
   pi(x) = AES(sigma(x)) XOR sigma(x), sigma(lo||hi) = hi || hi^lo.
-  The block encryptions run bitsliced through kernel K2.
+  On the card each call is one launch of kernel K2's fixed-key entry.
 
 `sample_vec` reproduces the scalar rejection sampler assuming no
 rejection and returns the in-range mask (False where a rejection would
@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from ..common import to_le_bytes
-from ..ops.aes import (aes128_encrypt_bitsliced,
-                       aes128_encrypt_bitsliced_plain, aes128_key_schedule,
+from ..ops import kernels
+from ..ops.aes import (aes128_encrypt_bitsliced_plain, aes128_key_schedule,
                        bitslice_keys, bitslice_pack, bitslice_unpack,
                        block_index_planes)
 from ..ops.field import FieldSpec
@@ -85,10 +85,28 @@ def fixed_key_blocks(round_keys: torch.Tensor, seeds: torch.Tensor,
     """XofFixedKeyAes128 output blocks 0..num_blocks-1.
 
     round_keys (R, 11, 16), one schedule per report; seeds (R, N...,
-    16).  Returns (R, N..., num_blocks*16) uint8.  The encryptions run
-    bitsliced along the report axis (padded to a multiple of 32 with
-    zero lanes), which the JAX package takes for R >= 32; its byte path
-    for smaller batches gives the same bytes."""
+    16).  Returns (R, N..., num_blocks*16) uint8.  On a CUDA tensor
+    this is one launch of kernel K2's `fixed_key_blocks` entry
+    (`csrc/aes.cu`), which reads the report-major keys and seeds and
+    writes the blocks itself; on a CPU tensor it runs
+    `fixed_key_blocks_plain`."""
+    if round_keys.ndim != 3 or round_keys.shape[1:] != (11, 16) \
+            or seeds.ndim < 2 or seeds.shape[-1] != 16 \
+            or seeds.shape[0] != round_keys.shape[0]:
+        raise ValueError("expected round keys (R, 11, 16) and seeds "
+                         "(R, N..., 16)")
+    if seeds.is_cuda:
+        return _fixed_key_blocks_cuda(round_keys, seeds, num_blocks)
+    return fixed_key_blocks_plain(round_keys, seeds, num_blocks)
+
+
+def fixed_key_blocks_plain(round_keys: torch.Tensor, seeds: torch.Tensor,
+                           num_blocks: int) -> torch.Tensor:
+    """The plain version of `fixed_key_blocks`: sigma and the block
+    indices as byte tensors, the encryptions bitsliced along the report
+    axis (padded to a multiple of 32 with zero lanes), the
+    feed-forward.  The JAX package takes its bitsliced path for R >= 32
+    and its byte path below: both give the same bytes."""
     x = seeds[..., None, :] ^ _block_indices(num_blocks, seeds.device)
     lo = x[..., :8]
     hi = x[..., 8:]
@@ -96,6 +114,29 @@ def fixed_key_blocks(round_keys: torch.Tensor, seeds: torch.Tensor,
     enc = _encrypt_bitsliced_reports(round_keys, sigma)
     out = enc ^ sigma
     return out.reshape(out.shape[:-2] + (num_blocks * 16,))
+
+
+def _fixed_key_blocks_cuda(round_keys: torch.Tensor, seeds: torch.Tensor,
+                           num_blocks: int) -> torch.Tensor:
+    kernels.check_cuda(round_keys, _U8, "round_keys")
+    if seeds.dtype != _U8 or seeds.device != round_keys.device:
+        raise ValueError("seeds: expected uint8 on the round keys' device")
+    num_reports = seeds.shape[0]
+    # The kernel reads (R, S, 16) rows at any 4-byte aligned strides, so
+    # a slice of a wider row (gen's next seeds) needs no copy.
+    flat = seeds.reshape(num_reports, -1, 16)
+    if flat.stride(2) != 1 or flat.data_ptr() % 4 \
+            or flat.stride(0) % 4 or flat.stride(1) % 4:
+        flat = flat.contiguous()
+    num_seeds = flat.shape[1]
+    out = torch.empty((num_reports, num_seeds, num_blocks * 16), dtype=_U8,
+                      device=seeds.device)
+    if out.numel():
+        kernels.launch("aes", "fixed_key_blocks", round_keys.data_ptr(),
+                       flat.data_ptr(), flat.stride(0), flat.stride(1),
+                       out.data_ptr(), num_reports, num_seeds, num_blocks,
+                       kernels.stream_ptr(seeds.device))
+    return out.reshape(seeds.shape[:-1] + (num_blocks * 16,))
 
 
 def fixed_key_blocks_planes(key_planes: torch.Tensor,
@@ -130,7 +171,7 @@ def _encrypt_bitsliced_reports(round_keys: torch.Tensor,
                                 round_keys.new_zeros((pad, 11, 16))])
     planes = bitslice_pack(sigma).contiguous()      # (8, 16, N..., W)
     kp = bitslice_keys(round_keys).contiguous()     # (11, 8, 16, W)
-    enc = bitslice_unpack(aes128_encrypt_bitsliced(kp, planes))
+    enc = bitslice_unpack(aes128_encrypt_bitsliced_plain(kp, planes))
     return enc[:r] if pad else enc
 
 

@@ -1,19 +1,22 @@
 // Bitsliced AES-128 with one AES state for 32 reports split across four
-// threads, one AES column each: device code of kernel K3 (level.cu).
+// threads, one AES column each: device code of kernels K2 (aes.cu) and K3
+// (level.cu).
 //
 // The four threads of a group are adjacent lanes (t = lane & 3).  Thread t
 // holds the 32 bit planes of state bytes 4t .. 4t+3 (column t):
 // s[8 * q + b] is the plane of bit b of byte 4t + q, bit j of each word
 // belonging to report 32 * w + j (the plane layout of
-// mastic_tpu_torch/ops/aes.py:bitslice_pack, cut by column).  Inputs stay
-// report-major in device memory (round keys, seeds): the thread loads one
-// 32-bit word per report and a 32 x 32 bit transpose turns them into its
-// planes, so no packed copy is made in front of the kernel.  SubBytes is
-// the tower-field circuit of sbox_tower.cuh on each of the thread's four
-// bytes; ShiftRows moves row q of column (t + q) % 4 to column t, 24 warp
-// shuffles per round; MixColumns works inside the column.  No table and no
-// data-dependent branch or address: constant-time, like aes_bitsliced.cuh,
-// which holds all 128 planes in one thread (K2) and at 255 registers spills.
+// mastic_tpu_torch/ops/aes.py:bitslice_pack, cut by column).  Seen as one
+// little-endian word per report, s[k] is the plane of bit k of the thread's
+// word.  Report-major inputs (round keys, seeds) stay so in device memory:
+// the thread loads one 32-bit word per report and a 32 x 32 bit transpose
+// turns them into its planes, so no packed copy is made in front of the
+// kernel.  SubBytes is the tower-field circuit of sbox_tower.cuh on each of
+// the thread's four bytes; ShiftRows moves row q of column (t + q) % 4 to
+// column t, 24 warp shuffles per round; MixColumns works inside the column.
+// No table and no data-dependent branch or address: constant-time.  (One
+// thread holding all 128 planes, K2's first design, needed 255 registers and
+// spilled.)
 #pragma once
 #include <cstdint>
 
@@ -114,19 +117,27 @@ __device__ __forceinline__ void col_add_key(uint32_t s[32], const uint8_t* __res
 }
 
 // AES-128: whitening, 9 full rounds, the final round without MixColumns.
-__device__ __forceinline__ void col_aes_encrypt(uint32_t s[32], const uint8_t* __restrict__ keys,
-                                                int R, int w, int t) {
-  col_add_key(s, keys, 0, R, w, t);
+// add_key(s, round) XORs the thread's column of that round key.  Every lane
+// of the warp must call it (ShiftRows shuffles).
+template <class AddKey>
+__device__ __forceinline__ void col_aes_rounds(uint32_t s[32], int t, AddKey add_key) {
+  add_key(s, 0);
 #pragma unroll 1
   for (int r = 1; r < 10; ++r) {
     col_sub_bytes(s);
     col_shift_rows(s, t);
     col_mix_column(s);
-    col_add_key(s, keys, r, R, w, t);
+    add_key(s, r);
   }
   col_sub_bytes(s);
   col_shift_rows(s, t);
-  col_add_key(s, keys, 10, R, w, t);
+  add_key(s, 10);
+}
+
+// AES-128 under the report-major key schedules (R, 11, 16) bytes.
+__device__ __forceinline__ void col_aes_encrypt(uint32_t s[32], const uint8_t* __restrict__ keys,
+                                                int R, int w, int t) {
+  col_aes_rounds(s, t, [&](uint32_t x[32], int round) { col_add_key(x, keys, round, R, w, t); });
 }
 
 }  // namespace mtk

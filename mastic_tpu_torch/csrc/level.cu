@@ -23,7 +23,8 @@
 // of magnitude.
 //
 // Design.  level_kernel: four adjacent lanes own one (child node, packed
-// word w) pair, one AES column each (aes_column.cuh): 32 state planes per
+// word w) pair, one AES column each (aes_column.cuh; the fixed-key block,
+// fixed_key.cuh, is K2's too): 32 state planes per
 // thread in registers and its 32 sigma planes in shared memory, so nothing
 // spills (the earlier one-thread-per-pair form held all 128 planes plus the
 // S-box temporaries: 255 registers and 4676 bytes of spill stores).  The group
@@ -44,28 +45,13 @@
 // template lanes it straddles and absorbs block by block.
 #include <cuda_runtime.h>
 
-#include "aes_column.cuh"
 #include "field64.cuh"
+#include "fixed_key.cuh"
 #include "keccak.cuh"
 
 using namespace mtk;
 
 constexpr int LEVEL_THREADS = 128;
-
-// sigma(x ^ le128(blk)) into s from the sigma of x, which waits in shared
-// memory (sigma[i][threadIdx.x]: in registers it pushed level_kernel into
-// spills): le128(blk), blk < 256, only touches byte 0 of x, which lands in
-// sigma byte 8 (thread 2, q = 0).  With `into`, XOR (the Davies-Meyer
-// feed-forward).
-__device__ __forceinline__ void dm_input(uint32_t s[32], uint32_t (*sigma)[LEVEL_THREADS],
-                                         int blk, int t, bool into) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    uint32_t v = sigma[i][threadIdx.x];
-    if (i < 8 && t == 2 && ((blk >> i) & 1)) v = ~v;
-    s[i] = into ? s[i] ^ v : v;
-  }
-}
 
 // The 32-bit mask of a per-report flag (bool bytes `stride` apart) over the
 // reports 32w .. 32w+31: each of the four threads reads 8, shuffles merge.
@@ -105,31 +91,15 @@ level_kernel(const uint8_t* __restrict__ ext_rk, const uint8_t* __restrict__ con
   const int c = node & 1;
 
   __shared__ uint32_t sigma[32][LEVEL_THREADS];
-  // sigma of the parent seed: byte k < 8 is seed[k + 8]; byte k >= 8 is
-  // seed[k] ^ seed[k - 8].  As 32-bit words: word t | 2, XOR word t & 1
-  // for t >= 2; transposed to planes (the transpose is linear).
   uint32_t planes[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int r = 32 * w + j;
-    uint32_t v = 0;
-    if (r < R) {
-      const uint32_t* row = reinterpret_cast<const uint32_t*>(
-          pseed + (static_cast<size_t>(r) * N + p) * 16);
-      v = __ldg(row + (t | 2));
-      if (t >= 2) v ^= __ldg(row + (t & 1));
-    }
-    planes[j] = v;
-  }
-  transpose32(planes);
+  load_sigma_planes(planes, pseed + static_cast<size_t>(p) * 16, static_cast<size_t>(N) * 16, R, w,
+                    t);
 #pragma unroll
   for (int i = 0; i < 32; ++i) sigma[i][threadIdx.x] = planes[i];
 
   // -- extend child c, correct ---------------------------------------------
   uint32_t s[32];
-  dm_input(s, sigma, c, t, false);
-  col_aes_encrypt(s, ext_rk, R, w, t);
-  dm_input(s, sigma, c, t, true);
+  fixed_key_block<LEVEL_THREADS>(s, sigma, ext_rk, c, R, w, t);
   // Control bit: plane (bit 0, byte 0), thread 0's s[0]; cleared in the seed.
   // Corrections are mask ANDs: where the parent holds ctrl, XOR the words.
   const uint32_t pc = load_mask(pctrl + p, N, R, w, t);
@@ -160,9 +130,7 @@ level_kernel(const uint8_t* __restrict__ ext_rk, const uint8_t* __restrict__ con
   const int odd = t & 1;
 #pragma unroll 1
   for (int blk = 0; blk < convert_blocks; ++blk) {
-    dm_input(s, sigma, blk, t, false);
-    col_aes_encrypt(s, conv_rk, R, w, t);
-    dm_input(s, sigma, blk, t, true);
+    fixed_key_block<LEVEL_THREADS>(s, sigma, conv_rk, blk, R, w, t);
     transpose32(s);  // s[j]: bytes 4t .. 4t+3 of this block for report j
     if (blk == 0) {
       if (live) {

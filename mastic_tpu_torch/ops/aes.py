@@ -15,7 +15,9 @@ Two forms, as in the JAX package:
 Both are constant-time by construction: the same gates for every
 input, no table lookup.  Kernel K2 (`csrc/aes.cu`) replaces the Pallas
 kernel `aes128_encrypt_bitsliced_pallas`
-(mastic_tpu/ops/aes_pallas.py:107) behind `aes128_encrypt_bitsliced`.
+(mastic_tpu/ops/aes_pallas.py:107) behind `aes128_encrypt_bitsliced`
+(planes in, planes out); the main path reaches K2 through its other
+entry, `backend.xof.fixed_key_blocks`, which takes report-major bytes.
 """
 
 import numpy as np
@@ -272,5 +274,6 @@ def _encrypt_cuda(key_planes: torch.Tensor,
     if m and w:
         kernels.launch("aes", "aes_bitsliced", key_planes.data_ptr(),
                        planes.data_ptr(), out.data_ptr(), m, w,
-                       kernels.stream_ptr(planes.device))
+                       kernels.stream_ptr(planes.device),
+                       counter="aes_planes")
     return out

@@ -19,7 +19,9 @@ cross as `c_void_p` (the wrappers pass `tensor.data_ptr()` and
 `launches` counts, per kernel, the launches its wrappers made: each
 wrapper adds one where it launches, and nowhere else.  K1's binder
 sponge counts under its own key, "keccak_binder"; "keccak" counts the
-permutation and the in-place sponge.
+permutation and the in-place sponge.  K2's fixed-key entry (the one
+`fixed_key_blocks` launches) counts as "aes", its planes entry as
+"aes_planes".
 """
 
 import ctypes
@@ -36,8 +38,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("keccak", "aes", "level")
-HEADERS = ("keccak.cuh", "aes_bitsliced.cuh", "aes_column.cuh",
-           "field64.cuh", "sbox_tower.cuh")
+# Every header in csrc/, so that a new or renamed one changes the hash.
+HEADERS = tuple(sorted(path.name for path in CSRC.glob("*.cuh")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +56,7 @@ SIGNATURES = {
                           _P, _P, _I, _P, _I, _I, _P),
     },
     "aes": {
+        "fixed_key_blocks": (_P, _P, _L, _L, _P, _I, _I, _I, _P),
         "aes_bitsliced": (_P, _P, _P, _I, _I, _P),
     },
     "level": {
@@ -62,7 +65,7 @@ SIGNATURES = {
     },
 }
 
-launches = {name: 0 for name in SOURCES + ("keccak_binder",)}
+launches = {name: 0 for name in SOURCES + ("keccak_binder", "aes_planes")}
 build_info: dict = {}
 _libs: dict = {}
 
@@ -87,6 +90,7 @@ def _digest() -> str:
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
     for name in HEADERS:
+        h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

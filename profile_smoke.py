@@ -13,11 +13,23 @@ summed over all levels and over the deepest quarter. The timers
 synchronise the card around every phase, so the rounds run somewhat
 slower than in chip_smoke.py.
 
+The client shard is split the same way, with timers that count only
+inside it: `encode_measurements` (the host loop over the measurements
+and the upload), and within `shard_device` the VIDPF key generation
+(`gen`: the round keys, `fixed_key_blocks` for extend and for convert,
+the node proofs and the rest of `gen`), `prove_rand` with
+`helper_proof_share`, the FLP proof and the rest.  Both are timed
+after a one-level pass of the same path, which loads every kernel.
+
 Then it traces two of the deepest levels with torch.profiler and prints
 the card's busy share of their wall time and the top device operations.
-Last it times the two ways to launch K1's binder sponge over two
+Then it times the two ways to launch K1's binder sponge over two
 aggregators' level-255 carries: both in one launch (the main path's)
-and one launch per aggregator.  Needs a CUDA card.
+and one launch per aggregator.  Last it times K2 over growing grids
+(4096 reports, 2 blocks, 1 to 64 seeds a report): the whole
+`fixed_key_blocks` call by CUDA events, its kernel's device time, and
+the planes entry's device time at the same columns (no round-key or
+seed transposes), beside the bound.  Needs a CUDA card.
 """
 
 import argparse
@@ -29,8 +41,9 @@ import torch
 from torch.autograd import DeviceType
 
 import chip_smoke
-from mastic_tpu_torch.backend import incremental, mastic
+from mastic_tpu_torch.backend import incremental, mastic, vidpf
 from mastic_tpu_torch.drivers import heavy_hitters
+from mastic_tpu_torch.flp import flp
 from mastic_tpu_torch.ops import binder, kernels
 
 
@@ -50,6 +63,110 @@ def binder_launch_forms(seed: int) -> None:
           f"{apart:.4f} ms for the pair")
 
 
+def fixed_key_grids(seed: int) -> None:
+    """K2 at 4096 reports x S seeds x 2 blocks for growing S: where the
+    one-thread latency floor gives way to throughput, and what the
+    fixed-key entry's transposes cost over the planes entry."""
+    from mastic_tpu_torch.backend.xof import fixed_key_blocks
+    from mastic_tpu_torch.ops import aes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    reports = chip_smoke.R
+    keys = torch.randint(0, 256, (reports, 16), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    rk = aes.aes128_key_schedule(keys)
+    kp = aes.bitslice_keys(rk).contiguous()
+    for seeds in (1, 2, 8, 32, 64):
+        rows = torch.randint(0, 256, (reports, seeds, 16), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        planes = torch.randint(-2 ** 31, 2 ** 31,
+                               (8, 16, seeds, 2, reports // 32),
+                               dtype=torch.int32, device=dev, generator=gen)
+        columns = reports // 32 * seeds * 2
+        (bound, _by) = chip_smoke._bound(
+            reports * (176.0 + 48 * seeds), columns * chip_smoke.AES_BLOCK_OPS)
+        call = chip_smoke._time(lambda: fixed_key_blocks(rk, rows, 2), 20)
+        kernel = chip_smoke._device_ms(lambda: fixed_key_blocks(rk, rows, 2),
+                                       ("fixed_key_kernel",), 20)
+        entry = chip_smoke._device_ms(
+            lambda: aes.aes128_encrypt_bitsliced(kp, planes), ("aes_",), 20)
+        print(f"K2 at {reports} x {seeds} seeds x 2 blocks ({columns} "
+              f"columns, {4 * columns // 32} warps): fixed_key_blocks call "
+              f"{call:.4f} ms, its kernel {kernel['fixed_key_kernel']:.4f} "
+              f"ms; planes entry {entry['aes_']:.4f} ms; bound "
+              f"{bound:.4f} ms")
+
+
+def shard_timers() -> dict:
+    """Rebind the client shard's phases to synchronising timers that
+    count only inside `encode_measurements` and `shard_device`: returns
+    the {phase: seconds} they fill."""
+    secs = collections.defaultdict(float)
+    state = {"shard": False, "xof": ""}
+
+    def timed(name, fn, entry=False):
+        def wrapper(*a, **k):
+            if not (entry or state["shard"]):
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state["shard"] = True
+            try:
+                out = fn(*a, **k)
+            finally:
+                state["shard"] = not entry
+            torch.cuda.synchronize()
+            secs[name if isinstance(name, str) else name()] += \
+                time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def labelled(usage, fn):
+        def wrapper(*a, **k):
+            state["xof"] = usage
+            return fn(*a, **k)
+        return wrapper
+
+    bm = mastic.BatchedMastic
+    bm.encode_measurements = timed("encode_measurements",
+                                   bm.encode_measurements, entry=True)
+    bm.shard_device = timed("shard_device", bm.shard_device, entry=True)
+    bm.prove_rand = timed("prove_rand + helper_proof_share", bm.prove_rand)
+    bm.helper_proof_share = timed("prove_rand + helper_proof_share",
+                                  bm.helper_proof_share)
+    flp.BatchedFlp.prove = timed("bflp.prove", flp.BatchedFlp.prove)
+    bv = vidpf.BatchedVidpf
+    bv.gen = timed("gen", bv.gen)
+    bv.roundkeys = timed("gen: roundkeys", bv.roundkeys)
+    bv._node_proof_dynamic = timed("gen: _node_proof_dynamic",
+                                   bv._node_proof_dynamic)
+    bv.extend = labelled("extend", bv.extend)
+    bv.convert = labelled("convert", bv.convert)
+    vidpf.fixed_key_blocks = timed(
+        lambda: f"gen: fixed_key_blocks ({state['xof']})",
+        vidpf.fixed_key_blocks)
+    return secs
+
+
+def print_shard(secs: dict, shard_s: float) -> None:
+    gen_parts = [k for k in secs if k.startswith("gen: ")]
+    rest_gen = secs["gen"] - sum(secs[k] for k in gen_parts)
+    rest = secs["shard_device"] - secs["gen"] - sum(
+        secs[k] for k in ("prove_rand + helper_proof_share", "bflp.prove"))
+    print(f"shard by phase (synchronising timers; the shard took "
+          f"{shard_s:.3f} s with them):")
+    print(f"  encode_measurements: {secs['encode_measurements']:.4f} s")
+    print(f"  shard_device: {secs['shard_device']:.4f} s, of which")
+    print(f"    gen: {secs['gen']:.4f} s, of which")
+    for name in sorted(gen_parts):
+        print(f"      {name[5:]}: {secs[name]:.4f} s")
+    print(f"      rest of gen: {rest_gen:.4f} s")
+    for name in ("prove_rand + helper_proof_share", "bflp.prove"):
+        print(f"    {name}: {secs[name]:.4f} s")
+    print(f"    rest of shard_device: {rest:.4f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -62,7 +179,7 @@ def main() -> int:
     traced = (args.levels - 4, args.levels - 2)
     total = collections.defaultdict(float)
     deep = collections.defaultdict(float)
-    state = {"level": 0}
+    state = {"level": 0, "warm": False}
 
     def timed(name, fn):
         def wrapper(*a, **k):
@@ -104,23 +221,32 @@ def main() -> int:
 
     def step(self):
         state["level"] = self.level
-        if self.level == traced[0]:
+        if state["warm"] and self.level == traced[0]:
             trace["prof"] = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA])
             trace["prof"].__enter__()
             trace["t0"] = time.perf_counter()
         out = timed("step", plain_step)(self)
-        if self.level == traced[1]:
+        if state["warm"] and self.level == traced[1]:
             trace["wall"] = time.perf_counter() - trace["t0"]
             trace["prof"].__exit__(None, None, None)
         return out
 
     run_cls.step = step
+    shard = shard_timers()
     kernels.build()
+    # A first pass through the shard and one round: the first launch of
+    # each PyTorch and hand-written kernel in a process loads it, which
+    # took seconds in all and would land in the shard's phases.
+    chip_smoke.main_path(torch.device("cuda"), args.seed, 1)
+    for timings in (total, deep, shard):
+        timings.clear()
+    state["warm"] = True
     result = chip_smoke.main_path(torch.device("cuda"), args.seed,
                                   args.levels)
     print({k: v for (k, v) in result.items() if k != "shard_launches"})
+    print_shard(shard, result["shard_s"])
     for (name, secs) in sorted(total.items(), key=lambda kv: -kv[1]):
         print(f"{name}: all levels {secs:.3f} s, levels {deep_from}-"
               f"{args.levels - 1} {deep[name]:.3f} s")
@@ -135,6 +261,7 @@ def main() -> int:
     del result, averages, trace
     torch.cuda.empty_cache()
     binder_launch_forms(args.seed)
+    fixed_key_grids(args.seed)
     return 0
 
 

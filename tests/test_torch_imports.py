@@ -5,6 +5,7 @@ kernel wrappers' CPU routing and argument checks."""
 import importlib
 import pathlib
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -14,6 +15,7 @@ import torch
 
 import mastic_tpu_torch
 from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
+from mastic_tpu_torch.backend.xof import fixed_key_blocks
 from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
 from mastic_tpu_torch.ops import kernels, level
 from mastic_tpu_torch.ops.keccak import turbo_shake128
@@ -106,6 +108,33 @@ def test_kernel_build_is_keyed_by_every_source():
         assert (kernels.CSRC / name).exists()
     assert len(kernels._digest()) == 16
     assert "/build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_kernel_build_hash_covers_every_include():
+    """Every header a kernel source includes is hashed into the build
+    directory's name, so a new, moved or edited header cannot leave a
+    stale library in use."""
+    included = set()
+    for path in kernels.CSRC.iterdir():
+        if path.suffix in (".cu", ".cuh"):
+            included.update(re.findall(r'#include "([^"]+)"',
+                                       path.read_text()))
+    assert included and included <= set(kernels.HEADERS)
+
+
+def test_fixed_key_blocks_argument_checks():
+    """K2's fixed-key wrapper refuses shapes the kernel cannot take and
+    routes a CPU tensor to its plain version without a launch."""
+    rk = torch.zeros((4, 11, 16), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="round keys"):
+        fixed_key_blocks(rk, torch.zeros((3, 2, 16), dtype=torch.uint8), 2)
+    with pytest.raises(ValueError, match="round keys"):
+        fixed_key_blocks(rk[:, :10], torch.zeros((4, 2, 16),
+                                                 dtype=torch.uint8), 2)
+    before = dict(kernels.launches)
+    out = fixed_key_blocks(rk, torch.zeros((4, 16), dtype=torch.uint8), 3)
+    assert out.shape == (4, 48)
+    assert kernels.launches == before
 
 
 def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):

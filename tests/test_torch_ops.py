@@ -3,6 +3,7 @@ versions of kernels K1 and K2, Field64, the XOF helpers) against the
 JAX package, on the same numpy inputs, compared exactly (all integer
 arithmetic: tolerance zero)."""
 
+import functools
 import pathlib
 
 import jax
@@ -328,3 +329,35 @@ def test_fixed_key_blocks_match_jax(reports):
     want = xof_jax.fixed_key_blocks(jrk, jnp.asarray(seeds), 3)
     got = txof.fixed_key_blocks(trk, torch.from_numpy(seeds), 3)
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+_FIXED_KEY_SHAPES = [(r, s, b) for r in (8, 40, 64) for s in (1, 3)
+                     for b in (2, 3)]
+
+
+@functools.lru_cache(maxsize=None)
+def _fixed_key_case(reports: int, seeds: int, blocks: int) -> tuple:
+    """Keys and seeds from a seed per shape, and the JAX package's
+    blocks for them (computed once for both entries under test)."""
+    rng = np.random.default_rng(1000 * reports + 10 * seeds + blocks)
+    keys = rng.integers(0, 256, (reports, 16), dtype=np.uint8)
+    seed_rows = rng.integers(0, 256, (reports, seeds, 16), dtype=np.uint8)
+    jrk = aes_jax.aes128_key_schedule(jnp.asarray(keys))
+    want = xof_jax.fixed_key_blocks(jrk, jnp.asarray(seed_rows), blocks)
+    return (keys, seed_rows, np.asarray(want))
+
+
+@pytest.mark.parametrize("entry", ["fixed_key_blocks",
+                                   "fixed_key_blocks_plain"])
+@pytest.mark.parametrize("reports,seeds,blocks", _FIXED_KEY_SHAPES)
+def test_fixed_key_blocks_shapes_match_jax(reports, seeds, blocks, entry):
+    """K2's function over report counts below 32 (the JAX byte path),
+    with a partial last packed word (40) and whole words (64), one or
+    several seeds a report and two or three blocks: the port's entry on
+    a CPU tensor (its plain version) and the plain version called
+    directly, byte for byte against the JAX package."""
+    (keys, seed_rows, want) = _fixed_key_case(reports, seeds, blocks)
+    trk = taes.aes128_key_schedule(torch.from_numpy(keys))
+    got = getattr(txof, entry)(trk, torch.from_numpy(seed_rows), blocks)
+    assert got.shape == (reports, seeds, 16 * blocks)
+    assert np.array_equal(got.numpy(), want)
