@@ -18,20 +18,44 @@
    step) at R = 4096 reports x 32 parents (the main path's widest
    level), x 64 parents, and x 32 parents with a 150-byte ctx (a node
    proof over two rate blocks).
-3. Runs the main path at real size: MasticCount(256) over Field64 with
-   R = 4096 reports (32 planted 256-bit strings x 64 reports each plus
-   2048 uniform ones, weights 0/1, all from --seed), sharded on the
-   card, then the whole 256-level heavy-hitters collection at threshold
-   48, with every launch counter set to 0 just before and read just
-   after (K1's binder sponge counts apart from its in-place sponge, K2's
-   fixed-key entry apart from its planes entry, which the path does not
-   launch; each of the path's four must have launched).  The aggregates of every level must equal
-   a numpy plaintext count over the reports that were not rejected, and
-   the heavy hitters must be the planted strings.  `--levels L` stops after L levels (a
-   cut of depth, printed on its own line).
-4. Prints the `kernels` JSON line, the card, the run's figures, and
-   last `{"ok": true, "device": {...}}`.  Any failure exits non-zero
-   before that line.
+   The same kernels at the new slices' shapes, each row under its own
+   name: K3 at MasticSum(256, 255)'s widest level (Field64, VALUE_LEN
+   17, 10 convert blocks), MasticHistogram(64, 16, 4)'s (Field128,
+   VALUE_LEN 17, 18 blocks), both at R x 32 parents, and at depth 0
+   with 1026 blocks (SumVec(1024)'s beta share); K1's binder sponge on
+   MasticSum(256, 255)'s 17-element Field64 rows at depth 64 (timed
+   alone at depth 256, where the plain version does not fit the card)
+   and on two Field128 carries at the Histogram path's last level
+   (values >= p planted in both); K2 at 10, 18 and 1026 blocks.
+3. Drives four paths, each with every launch counter set to 0 just
+   before and read just after; each must have launched every kernel it
+   runs (K1's binder sponge and K3 count Field128 launches apart):
+   a. Count: MasticCount(256) over Field64 with R = 4096 reports (32
+      planted 256-bit strings x 64 reports each plus 2048 uniform
+      ones, weights 0/1, all from --seed), sharded on the card, then
+      the whole 256-level heavy-hitters collection at threshold 48.
+      The aggregates of every level must equal a numpy plaintext count
+      over the reports that were not rejected, and the heavy hitters
+      must be the planted strings.  `--levels L` stops after L levels
+      (a cut of depth, printed on its own line).
+   b. Sum (weighted heavy hitters): MasticSum(256, 255), the same
+      strings with weights uniform in [0, 255], through
+      `HeavyHittersRun` (the loop of `compute_heavy_hitters`) at all 256
+      levels, threshold 48 x 128;
+      every level's weighted counts and survivors must equal numpy's.
+   c. Histogram (Field128): MasticHistogram(64, 16, 4), R = 4096 reports
+      over 16 planted attribute strings, buckets uniform; all 64 levels
+      of the resident runner with the attributes' ancestors as the
+      frontier and the weight check (joint rand confirmed) at level 0;
+      every level's 16-bucket aggregates must equal numpy's.
+   d. SumVec (long payload): MasticSumVec(128, 1024, 1, 32), R = 4096,
+      sharded (K3 at 1026 blocks for the joint-rand parts), then both
+      aggregators' weight check from their depth-0 payloads: every
+      honest report must be accepted.  No rounds: its carry does not
+      fit a 128-level tree at this R.
+4. Prints the `kernels` JSON line (every kernel and instantiation), the
+   card, each path's figures, and last `{"ok": true, "device": {...}}`.
+   Any failure exits non-zero before that line.
 
 Exits 2 without a card.  Needs the repository beside it (it imports
 mastic_tpu_torch).
@@ -59,9 +83,27 @@ BITS = 256
 PLANTED = 32
 PER_PLANTED = 64
 THRESHOLD = 48
-# The launch counters of the main path's kernels (ops/kernels.py): K1's
-# in-place sponge and binder sponge, K2's fixed-key entry, K3.
-PATH_COUNTERS = ("keccak", "keccak_binder", "aes", "level")
+# Weighted heavy hitters: MasticSum(256, 255), 8-bit weights, the same
+# report layout, threshold 48 x 128 (the Count threshold times the mean
+# weight: it keeps the frontier near the Count path's 64).
+SUM_MAX = 255
+SUM_THRESHOLD = 48 * 128
+SUM_VALUE_LEN = 1 + 2 * SUM_MAX.bit_length()
+# The Field128 path: MasticHistogram(64, 16, 4) over 16 planted 64-bit
+# attribute strings, and the long-payload shard MasticSumVec(128, 1024,
+# 1, 32).
+HIST = (64, 16, 4)
+HIST_ATTRS = 16
+SUMVEC = (128, 1024, 1, 32)
+# The launch counters each path must reach (ops/kernels.py): K1's
+# in-place sponge and its binder sponge (per field), K2's fixed-key
+# entry, K3 (per field).
+PATH_COUNTERS = {
+    "count": ("keccak", "keccak_binder", "aes", "level"),
+    "sum": ("keccak", "keccak_binder", "aes", "level"),
+    "histogram": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
+    "sumvec": ("keccak", "aes", "level_f128"),
+}
 CTX = b"mastic chip smoke"
 LONG_CTX = bytes(range(150))
 
@@ -76,8 +118,12 @@ KECCAK_ABSORB_OPS = 42          # one rate block: 21 lanes x 2 XOR
 # The payload check's arithmetic per Field64 element: 3 values from 4
 # limbs (4 each: two halves of one LOP3 and one SHF), the add (2 IADD,
 # 2 for the compare and the conditional subtract) and the sub (2 IADD,
-# 2 for the borrow's conditional add of p).
+# 2 for the borrow's conditional add of p).  A Field128 element: 3
+# values from 8 limbs (8 each), the add (4 IADD with carries, 4 for the
+# compare against p and the conditional subtract) and the sub (4 with
+# borrows, 4 for the conditional add of p).
 PAYLOAD_ELEM_OPS = 3 * 4 + 4 + 4
+PAYLOAD_ELEM_OPS_F128 = 3 * 8 + 8 + 8
 # AES over one column of 32 blocks (a 32-bit word per state bit), in
 # 2-input gates: 11 round keys x 128 XOR, 10 x 16 tower S-boxes of 195
 # gates, 9 x 16 MixColumns bytes of 35 XOR; charged at two gates per
@@ -92,10 +138,20 @@ def _bound(nbytes: float, ops: float) -> tuple:
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _warm(fn, seconds: float = 0.2) -> None:
+    """Run fn() until `seconds` have passed, so that the card's clocks
+    have left idle before a measurement."""
+    t0 = time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= seconds:
+            return
+
+
 def _time(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps runs, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
+    _warm(fn)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -108,20 +164,24 @@ def _time(fn, reps: int) -> float:
 
 def _device_ms(fn, names: tuple, reps: int) -> dict:
     """Mean device milliseconds per call of fn() in each kernel whose
-    name contains one of `names`, from a torch.profiler trace."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for event in prof.key_averages():
-        for name in names:
-            if name in event.key:
-                out[name] += event.self_device_time_total / 1e3 / reps
-    return out
+    name contains one of `names`, from a torch.profiler trace.  A trace
+    that holds no device time for one of them (the profiler now and then
+    records none) is taken again, up to five in all; then it fails."""
+    _warm(fn)
+    for _attempt in range(5):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names, 0.0)
+        for event in prof.key_averages():
+            for name in names:
+                if name in event.key:
+                    out[name] += event.self_device_time_total / 1e3 / reps
+        if all(out.values()):
+            return out
+    raise AssertionError(f"no device time recorded for {names}: {out}")
 
 
 def _max_err(got, want) -> int:
@@ -138,11 +198,9 @@ def _max_err(got, want) -> int:
 def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
     """Each kernel against its plain version at main-path shapes."""
     from mastic_tpu_torch.backend.mastic import MasticCount
-    from mastic_tpu_torch.backend.vidpf import BatchedVidpf
     from mastic_tpu_torch.backend.xof import ts_prefix
-    from mastic_tpu_torch.dst import (USAGE_NODE_PROOF, USAGE_ONEHOT_CHECK,
-                                      dst, dst_alg)
-    from mastic_tpu_torch.ops import keccak, level
+    from mastic_tpu_torch.dst import USAGE_ONEHOT_CHECK, dst_alg
+    from mastic_tpu_torch.ops import keccak
     from mastic_tpu_torch.ops.field import FIELD64
 
     def rand_u8(*shape):
@@ -201,56 +259,13 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
     rows.append(k1)
 
     rows.append(check_aes(dev, gen))
-    vid = BatchedVidpf(BITS, 2)
-
     # K3 with a level-255 node binder, at the main path's R x 32 parents
     # (padded width 64), at R x 64 parents, and at R x 32 parents with a
     # 150-byte ctx, whose node-proof message takes two rate blocks.
-    nonces = rand_u8(R, 16)
     level_rows = {}
     for (parents, ctx) in ((64, CTX), (32, LONG_CTX), (32, CTX)):
-        (ext_rk, conv_rk) = vid.roundkeys(ctx, nonces)
-        prefix = ts_prefix(dst(ctx, USAGE_NODE_PROOF), 16)
-        pseed = rand_u8(R, parents, 16)
-        pctrl = rand_u8(R, parents) >= 128
-        cw = (rand_u8(R, 16), rand_u8(R, 2) >= 128,
-              torch.randint(0, 1 << 16, (R, 2, 4), dtype=torch.int32,
-                            device=dev, generator=gen),
-              rand_u8(R, 32))
-        binder = rand_u8(2 * parents, 36)
-        args = (FIELD64, vid.convert_blocks, 2, ext_rk, conv_rk, pseed, pctrl,
-                cw, prefix, binder, 36)
-        err = _max_err(level.level_step(*args), level.level_step_plain(*args))
-        # The whole call by CUDA events (what the main path pays: the
-        # wrapper's template and copies, and the kernels), as in PR 1;
-        # the kernels' own device time from a profiler trace beside it.
-        split = _device_ms(lambda: level.level_step(*args),
-                           ("level_kernel", "node_proof_kernel"), 5)
-        ms = _time(lambda: level.level_step(*args), 5)
-        plain_ms = _time(lambda: level.level_step_plain(*args), 1)
-        pairs = (R // 32) * parents
-        nb = (len(prefix) + 16 + 36) // 168 + 1
-        in_bytes = 2 * 11 * 16 * R + R * parents * 17 \
-            + R * (16 + 2 + 32 + 32) + len(prefix) + binder.numel()
-        out_bytes = R * 2 * parents * (16 + 1 + 32 + 1 + 32)
-        # Per (packed word x parent): 2 extend and 2 x 2 convert AES
-        # columns, and 64 node-proof sponges of nb blocks each.
-        ops = pairs * (6 * AES_BLOCK_OPS
-                       + 64 * nb * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
-        (bound, by) = _bound(float(in_bytes + out_bytes), float(ops))
-        level_rows[(parents, len(ctx))] = {
-            "name": "level_step", "route": "cuda",
-            "source": "mastic_tpu_torch/csrc/level.cu",
-            "replaces": "mastic_tpu/ops/level_pallas.py:521",
-            "max_abs_err": err, "kernel_ms": ms, "ms": ms,
-            "device_ms": sum(split.values()),
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None,
-            "shape": f"{R} reports x {parents} parents, ctx {len(ctx)} B "
-                     f"(node proof {nb} block{'s' if nb > 1 else ''}): "
-                     f"level_kernel {split['level_kernel']:.4f} ms + "
-                     f"node_proof_kernel {split['node_proof_kernel']:.4f} ms"
-                     f" device time"}
+        row = check_level(dev, gen, FIELD64, 2, parents, ctx, "level_step")
+        level_rows[(parents, len(ctx))] = row
     for ((parents, ctx_len), row) in level_rows.items():
         print(f"K3: whole call {row['ms']:.4f} ms, kernels "
               f"{row['device_ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
@@ -275,6 +290,181 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
                       f" kernels {long_row['device_ms']:.4f} ms, bound "
                       f"{long_row['bound_ms']:.4f} ms")
     rows.append(main)
+    for row in rows:
+        if row["max_abs_err"]:
+            raise AssertionError(f"{row['name']} disagrees with its plain "
+                                 f"version: {row['max_abs_err']}")
+    return rows
+
+
+def field_values(spec, shape: tuple, dev: torch.device,
+                 gen: torch.Generator) -> torch.Tensor:
+    """Random plain limbs (..., n) int32 of which every 97th element is
+    a value >= p (p, p + 1, 2^(16n) - 1 in turn): what the level step
+    stores where its in-range mask fails."""
+    limbs = torch.randint(0, 1 << 16, shape + (spec.num_limbs,),
+                          dtype=torch.int32, device=dev, generator=gen)
+    flat = limbs.view(-1, spec.num_limbs)
+    for (i, v) in enumerate((spec.modulus, spec.modulus + 1,
+                             2 ** (16 * spec.num_limbs) - 1)):
+        flat[i::3 * 97] = torch.as_tensor(spec.int_to_limbs(v), device=dev)
+    return limbs
+
+
+def check_level(dev: torch.device, gen: torch.Generator, spec,
+                value_len: int, parents: int, ctx: bytes, name: str,
+                reports: int = R) -> dict:
+    """K3 against its plain version at `reports` x `parents` with a
+    36-byte node binder (level 255's) and payloads of `value_len`
+    elements of `spec`'s field (w_cw holding values >= p): the whole
+    call by CUDA events, its two kernels' device time from a profiler
+    trace, the plain version's time and the bound."""
+    from mastic_tpu_torch.backend.vidpf import BatchedVidpf
+    from mastic_tpu_torch.backend.xof import ts_prefix
+    from mastic_tpu_torch.dst import USAGE_NODE_PROOF, dst
+    from mastic_tpu_torch.ops import level
+
+    def rand_u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    vid = BatchedVidpf(BITS, value_len, spec)
+    (ext_rk, conv_rk) = vid.roundkeys(ctx, rand_u8(reports, 16))
+    prefix = ts_prefix(dst(ctx, USAGE_NODE_PROOF), 16)
+    cw = (rand_u8(reports, 16), rand_u8(reports, 2) >= 128,
+          field_values(spec, (reports, value_len), dev, gen),
+          rand_u8(reports, 32))
+    binder = rand_u8(2 * parents, 36)
+    args = (spec, vid.convert_blocks, value_len, ext_rk, conv_rk,
+            rand_u8(reports, parents, 16), rand_u8(reports, parents) >= 128,
+            cw, prefix, binder, 36)
+    err = _max_err(level.level_step(*args), level.level_step_plain(*args))
+    # The whole call by CUDA events (what the main path pays: the
+    # wrapper's template and copies, and the kernels), as in PR 1; the
+    # kernels' own device time from a profiler trace beside it.
+    reps = 5 if vid.convert_blocks < 100 else 2
+    split = _device_ms(lambda: level.level_step(*args),
+                       ("level_kernel", "node_proof_kernel"), reps)
+    ms = _time(lambda: level.level_step(*args), reps)
+    plain_ms = _time(lambda: level.level_step_plain(*args), 1)
+    pairs = (reports + 31) // 32 * parents
+    nb = (len(prefix) + 16 + 36) // 168 + 1
+    elem = spec.num_limbs * 4
+    in_bytes = 2 * 11 * 16 * reports + reports * parents * 17 \
+        + reports * (16 + 2 + value_len * elem + 32) + len(prefix) \
+        + binder.numel()
+    out_bytes = reports * 2 * parents * (16 + 1 + value_len * elem + 1 + 32)
+    # Per (packed word x parent): both children's extend and convert AES
+    # columns, and 64 node-proof sponges of nb blocks each.
+    ops = pairs * (2 * (1 + vid.convert_blocks) * AES_BLOCK_OPS
+                   + 64 * nb * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
+    (bound, by) = _bound(float(in_bytes + out_bytes), float(ops))
+    field = "Field128" if spec.num_limbs == 8 else "Field64"
+    return {
+        "name": name, "route": "cuda",
+        "source": "mastic_tpu_torch/csrc/level.cu",
+        "replaces": "mastic_tpu/ops/level_pallas.py:521",
+        "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+        "device_ms": sum(split.values()),
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "shape": f"{reports} reports x {parents} parents, {field} VALUE_LEN "
+                 f"{value_len} ({vid.convert_blocks} convert blocks), ctx "
+                 f"{len(ctx)} B (node proof {nb} block"
+                 f"{'s' if nb > 1 else ''}): level_kernel "
+                 f"{split['level_kernel']:.4f} ms + node_proof_kernel "
+                 f"{split['node_proof_kernel']:.4f} ms device time"}
+
+
+def check_new_shapes(dev: torch.device, gen: torch.Generator) -> list:
+    """The kernels at the shapes of the Sum, Histogram and SumVec paths,
+    each row under its own name: K3 at MasticSum(256, 255)'s (Field64,
+    VALUE_LEN 17, 10 convert blocks) and MasticHistogram(64, 16, 4)'s
+    (Field128, VALUE_LEN 17, 18 blocks) widest levels (R x 32 parents),
+    and at depth 0 with 1026 blocks (SumVec(1024)'s beta share); K1's
+    binder sponge on MasticSum(256, 255)'s 17-element Field64 rows (at
+    depth 64, and the kernel alone at depth 256) and on two Field128
+    carries at the Histogram path's last level; K2 at 10, 18 and 1026
+    blocks."""
+    from mastic_tpu_torch.backend.xof import (fixed_key_blocks,
+                                              fixed_key_blocks_plain)
+    from mastic_tpu_torch.ops import aes
+    from mastic_tpu_torch.ops.field import FIELD64, FIELD128
+
+    rows = []
+    for (spec, value_len, parents, name) in (
+            (FIELD64, SUM_VALUE_LEN, 32, "level_step_sum"),
+            (FIELD128, 1 + HIST[1], 32, "level_step_f128_histogram"),
+            (FIELD128, 1 + SUMVEC[1] * SUMVEC[2], 1,
+             "level_step_f128_sumvec_depth0")):
+        row = check_level(dev, gen, spec, value_len, parents, CTX, name)
+        print(f"K3 ({name}): whole call {row['ms']:.4f} ms, kernels "
+              f"{row['device_ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
+              f"{row['shape']}, max_abs_err {row['max_abs_err']}")
+        rows.append(row)
+
+    # K1's binder sponge on MasticSum(256, 255)'s 17-element Field64
+    # rows (the Sum path's width 64, 32 planted strings), checked at depth
+    # 64: at depth 256 the two carries take 36.5 GB and the plain
+    # version's gathered int64 rows 18 GB each, more than the card holds.
+    # The kernel alone is timed and bounded at depth 256 too.
+    (err, plain_ms, args) = _binder_compare(
+        dev, gen, 64, CTX, value_len=SUM_VALUE_LEN, alg_id=0xFFFF0002)
+    row = _binder_row("keccak_binder_sponge_sum", args, err, plain_ms,
+                      PAYLOAD_ELEM_OPS)
+    del args
+    torch.cuda.empty_cache()
+    (ms, bound, by, shape) = _binder_cost(
+        binder_inputs(dev, gen, BITS, CTX, value_len=SUM_VALUE_LEN,
+                      alg_id=0xFFFF0002), PAYLOAD_ELEM_OPS)
+    torch.cuda.empty_cache()
+    print(f"keccak_binder_sponge_sum at depth {BITS} (kernel alone): "
+          f"{shape}, {ms:.4f} ms (bound {bound:.4f} ms by {by})")
+    row["shape"] += (f", depth 64; at depth {BITS} (not checked against the "
+                     f"plain version): {ms:.4f} ms, bound {bound:.4f} ms by "
+                     f"{by}")
+    rows.append(row)
+
+    # K1's binder sponge on Field128 carries: the Histogram path's level
+    # 63 (width 32, at most 16 parents a depth).
+    (err, plain_ms, args) = _binder_compare(
+        dev, gen, HIST[0], CTX, spec=FIELD128, width=32,
+        value_len=1 + HIST[1], planted=HIST_ATTRS, alg_id=0xFFFF0004)
+    rows.append(_binder_row("keccak_binder_sponge_f128", args, err,
+                            plain_ms, PAYLOAD_ELEM_OPS_F128))
+    del args
+
+    # K2 at the three payloads' convert shapes: R reports x 2 seeds.
+    for (blocks, name) in ((10, "aes_fixed_key_blocks_sum"),
+                           (18, "aes_fixed_key_blocks_histogram"),
+                           (1026, "aes_fixed_key_blocks_sumvec")):
+        keys = torch.randint(0, 256, (R, 16), dtype=torch.uint8, device=dev,
+                             generator=gen)
+        seeds = torch.randint(0, 256, (R, 2, 16), dtype=torch.uint8,
+                              device=dev, generator=gen)
+        rk = aes.aes128_key_schedule(keys)
+        err = _max_err([fixed_key_blocks(rk, seeds, blocks)],
+                       [fixed_key_blocks_plain(rk, seeds, blocks)])
+        ms = _time(lambda: fixed_key_blocks(rk, seeds, blocks), 50)
+        device_ms = _device_ms(lambda: fixed_key_blocks(rk, seeds, blocks),
+                               ("fixed_key_kernel",), 50)["fixed_key_kernel"]
+        plain_ms = _time(lambda: fixed_key_blocks_plain(rk, seeds, blocks), 1)
+        columns = R // 32 * 2 * blocks
+        (bound, by) = _bound(float(R * (11 * 16 + 2 * 16 + 2 * blocks * 16)),
+                             columns * AES_BLOCK_OPS)
+        print(f"K2 fixed_key_blocks at {R} reports x 2 seeds x {blocks} "
+              f"blocks: whole call {ms:.4f} ms, kernel {device_ms:.4f} ms "
+              f"(plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by}), "
+              f"max_abs_err {err}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "mastic_tpu_torch/csrc/aes.cu",
+                     "replaces": "mastic_tpu/ops/aes_pallas.py:149",
+                     "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+                     "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "shape": f"fixed_key_blocks, {R} reports x 2 seeds x "
+                              f"{blocks} blocks"})
     for row in rows:
         if row["max_abs_err"]:
             raise AssertionError(f"{row['name']} disagrees with its plain "
@@ -385,15 +575,15 @@ def check_aes(dev: torch.device, gen: torch.Generator) -> dict:
 
 
 def _binder_indices(gen_np: np.random.Generator, dev: torch.device,
-                    bits: int) -> tuple:
-    """onehot / payload row lists of a level-(bits-1) round at width 64
-    with 32 parents per depth, as RoundPlan lays them out: per depth the
-    nodes sit at creation-order positions (here a random permutation),
-    onehot lists both children of every depth-(d-1) ancestor, payload
-    every ancestor with its two children."""
-    width = 64
+                    bits: int, width: int = 64,
+                    planted: int = PLANTED) -> tuple:
+    """onehot / payload row lists of a level-(bits-1) round at `width`
+    with up to `planted` parents per depth, as RoundPlan lays them out:
+    per depth the nodes sit at creation-order positions (here a random
+    permutation), onehot lists both children of every depth-(d-1)
+    ancestor, payload every ancestor with its two children."""
     pos = [gen_np.permutation(width) for _ in range(bits)]
-    anc = [min(2 ** (d + 1), PLANTED) for d in range(bits)]
+    anc = [min(2 ** (d + 1), planted) for d in range(bits)]
     onehot = [d * width + pos[d][i] for d in range(bits)
               for i in range(2 if d == 0 else 2 * anc[d - 1])]
     (par, left, right) = ([], [], [])
@@ -406,50 +596,38 @@ def _binder_indices(gen_np: np.random.Generator, dev: torch.device,
                  for x in (onehot, par, left, right))
 
 
-def _binder_carries(dev: torch.device, gen: torch.Generator,
-                    bits: int) -> tuple:
-    """Two independent random carries, one per aggregator, at width 64:
-    ((w0, w1), (proof0, proof1)).  Every 97th element of w holds a value
-    >= p (p, p + 1, 2^64 - 1 in turn), from a different first element in
-    each carry."""
-    from mastic_tpu_torch.ops.field import FIELD64
-
-    p = FIELD64.modulus
-    (ws, proofs) = ([], [])
-    for first in (0, 41):
-        w = torch.randint(0, 1 << 16, (R, bits, 64, 2, 4), dtype=torch.int32,
-                          device=dev, generator=gen)
-        flat = w.view(-1, 4)
-        for (i, v) in enumerate((p, p + 1, 2 ** 64 - 1)):
-            flat[first + i::3 * 97] = torch.as_tensor(FIELD64.int_to_limbs(v),
-                                                      device=dev)
-        ws.append(w)
-        proofs.append(torch.randint(0, 256, (R, bits, 64, 32),
-                                    dtype=torch.uint8, device=dev,
-                                    generator=gen))
-    return (tuple(ws), tuple(proofs))
-
-
 def binder_inputs(dev: torch.device, gen: torch.Generator, bits: int,
-                  ctx: bytes) -> tuple:
+                  ctx: bytes, spec=None, width: int = 64,
+                  value_len: int = 2, planted: int = PLANTED,
+                  alg_id: int = 0xFFFF0001) -> tuple:
     """The arguments of `binder_checks` for two aggregators' distinct
-    carries at depth `bits` with RoundPlan-shaped index lists."""
-    from mastic_tpu_torch.backend.mastic import MasticCount
+    random carries at depth `bits` (Field64 by default, VALUE_LEN 2: the
+    Count path's), each with values >= p from a different first element
+    (`field_values`), with RoundPlan-shaped index lists."""
     from mastic_tpu_torch.backend.xof import ts_prefix
     from mastic_tpu_torch.dst import (USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK,
                                       dst_alg)
     from mastic_tpu_torch.ops.field import FIELD64
 
-    (ws, proofs) = _binder_carries(dev, gen, bits)
+    spec = spec or FIELD64
+    (ws, proofs) = ([], [])
+    for first in (0, 41):
+        w = field_values(spec, (R, bits, width, value_len), dev, gen)
+        ws.append(torch.roll(w.view(-1, spec.num_limbs), first, 0).view(
+            w.shape))
+        proofs.append(torch.randint(0, 256, (R, bits, width, 32),
+                                    dtype=torch.uint8, device=dev,
+                                    generator=gen))
     idx = _binder_indices(np.random.default_rng(int(torch.randint(
-        0, 2 ** 31, (1,), generator=gen, device=dev))), dev, bits)
-    pre = tuple(ts_prefix(dst_alg(ctx, usage, MasticCount.ID), 0)
+        0, 2 ** 31, (1,), generator=gen, device=dev))), dev, bits, width,
+        planted)
+    pre = tuple(ts_prefix(dst_alg(ctx, usage, alg_id), 0)
                 for usage in (USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK))
-    return (FIELD64, ws, proofs, *idx, *pre)
+    return (spec, tuple(ws), tuple(proofs), *idx, *pre)
 
 
 def _binder_compare(dev: torch.device, gen: torch.Generator, bits: int,
-                    ctx: bytes) -> tuple:
+                    ctx: bytes, **shape) -> tuple:
     """The binder sponge against its plain version on two aggregators'
     distinct carries at depth `bits`: (max_abs_err, plain ms, the
     inputs of the launch).  Fails unless the two aggregators' outputs
@@ -457,7 +635,7 @@ def _binder_compare(dev: torch.device, gen: torch.Generator, bits: int,
     for the other's could not agree."""
     from mastic_tpu_torch.ops import binder
 
-    args = binder_inputs(dev, gen, bits, ctx)
+    args = binder_inputs(dev, gen, bits, ctx, **shape)
     pre = args[-2:]
     got = binder.binder_checks(*args)
     t0 = time.perf_counter()
@@ -469,10 +647,55 @@ def _binder_compare(dev: torch.device, gen: torch.Generator, bits: int,
         if not (out[0] != out[1]).any(dim=-1).all():
             raise AssertionError(f"K1 binder sponge: the two aggregators' "
                                  f"{check} checks agree at some report")
-    print(f"K1 binder sponge, depth {bits}, prefix {len(pre[0])} B "
+    field = "Field128" if args[0].num_limbs == 8 else "Field64"
+    print(f"K1 binder sponge, {field}, depth {bits}, prefix {len(pre[0])} B "
           f"({len(pre[0]) % 8} past a lane), 2 aggregators' distinct carries "
           f"(values >= p in both): max_abs_err {err}")
     return (err, plain_ms, args)
+
+
+def _binder_cost(args: tuple, elem_ops: int) -> tuple:
+    """Time one launch of the binder sponge (both checks of both
+    aggregators) and bound it: (ms, bound ms, bound by, the shape)."""
+    from mastic_tpu_torch.ops import binder
+
+    ms = _time(lambda: binder.binder_checks(*args), 3)
+    (spec, ws, _proofs, *idx, prefix_onehot, _prefix_payload) = args
+    (onehot_rows, payload_rows) = (idx[0].numel(), idx[1].numel())
+    value_len = ws[0].shape[3]
+    row_bytes = value_len * spec.encoded_size
+    plen = len(prefix_onehot)
+    blocks = ((plen + 32 * onehot_rows) // 168 + 1
+              + (plen + row_bytes * payload_rows) // 168 + 1)
+    # Each input read once: the onehot proof rows and the distinct w rows
+    # (int32 limbs) the payload check names, per aggregator and report,
+    # and the index lists.
+    payload_nodes = torch.unique(torch.cat(idx[1:])).numel()
+    w_row = value_len * spec.num_limbs * 4
+    in_bytes = 2 * R * (32.0 * onehot_rows + w_row * payload_nodes) \
+        + 8.0 * (onehot_rows + 3 * payload_rows)
+    out_bytes = 2 * 2 * R * 32.0
+    ops = 2 * R * (blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS)
+                   + value_len * payload_rows * elem_ops)
+    (bound, by) = _bound(in_bytes + out_bytes, float(ops))
+    shape = (f"binder sponge, 2 aggregators x {R} reports x (prefix {plen} B "
+             f"+ onehot {onehot_rows} x 32 B, + payload {payload_rows} x "
+             f"{row_bytes} B)")
+    return (ms, bound, by, shape)
+
+
+def _binder_row(name: str, args: tuple, err: int, plain_ms: float,
+                elem_ops: int) -> dict:
+    """The kernels-line row of one binder sponge check."""
+    (ms, bound, by, shape) = _binder_cost(args, elem_ops)
+    print(f"{name}: {shape}, {ms:.4f} ms (plain {plain_ms:.1f} ms; bound "
+          f"{bound:.4f} ms by {by}), max_abs_err {err}")
+    return {"name": name, "route": "cuda",
+            "source": "mastic_tpu_torch/csrc/keccak.cu",
+            "replaces": "mastic_tpu/ops/keccak_pallas.py:72",
+            "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "shape": shape}
 
 
 def check_binder_sponge(dev: torch.device, gen: torch.Generator) -> dict:
@@ -481,42 +704,13 @@ def check_binder_sponge(dev: torch.device, gen: torch.Generator) -> dict:
     (prefix 35 B: every message word straddles two rate lanes); times
     the first in the main path's form (both checks of both aggregators,
     one launch)."""
-    from mastic_tpu_torch.ops import binder
-
     (err_odd, _ms, _args) = _binder_compare(dev, gen, 64, bytes(range(20)))
+    del _args
     (err, plain_ms, args) = _binder_compare(dev, gen, BITS, CTX)
-    err = max(err, err_odd)
-    ms = _time(lambda: binder.binder_checks(*args), 3)
-    (_spec, ws, _proofs, *idx, prefix_onehot, _prefix_payload) = args
-    (onehot_rows, payload_rows) = (idx[0].numel(), idx[1].numel())
-    plen = len(prefix_onehot)
-    blocks = ((plen + 32 * onehot_rows) // 168 + 1
-              + (plen + 16 * payload_rows) // 168 + 1)
-    # Each input read once: the onehot proof rows and the distinct w rows
-    # (2 elements x 16 B) the payload check names, per aggregator and
-    # report, and the index lists.
-    payload_nodes = torch.unique(torch.cat(idx[1:])).numel()
-    in_bytes = 2 * R * 32.0 * (onehot_rows + payload_nodes) \
-        + 8.0 * (onehot_rows + 3 * payload_rows)
-    out_bytes = 2 * 2 * R * 32.0
-    ops = 2 * R * (blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS)
-                   + 2 * payload_rows * PAYLOAD_ELEM_OPS)
-    (bound, by) = _bound(in_bytes + out_bytes, float(ops))
-    print(f"K1 binder sponge: 2 aggregators x {R} reports x (onehot "
-          f"{onehot_rows} rows, payload {payload_rows} rows), {ms:.4f} ms "
-          f"(plain {plain_ms:.1f} ms; bound {bound:.4f} ms by "
-          f"{by}), max_abs_err {err}")
-    del args, ws, _proofs
-    return {"name": "keccak_binder_sponge", "route": "cuda",
-            "source": "mastic_tpu_torch/csrc/keccak.cu",
-            "replaces": "mastic_tpu/ops/keccak_pallas.py:72",
-            "max_abs_err": err, "kernel_ms": ms, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None,
-            "shape": f"binder sponge, 2 aggregators x {R} reports x (prefix "
-                     f"{plen} B + onehot {onehot_rows} x 32 B, + payload "
-                     f"{payload_rows} x 2 x 8 B); also checked at depth 64 "
-                     f"with a 35-byte prefix"}
+    row = _binder_row("keccak_binder_sponge", args, max(err, err_odd),
+                      plain_ms, PAYLOAD_ELEM_OPS)
+    row["shape"] += "; also checked at depth 64 with a 35-byte prefix"
+    return row
 
 
 def measurements(seed: int) -> tuple:
@@ -622,6 +816,212 @@ def main_path(dev: torch.device, seed: int, levels: int) -> dict:
             "heavy_hitters": len(got), "shard_launches": shard_launches}
 
 
+def sum_measurements(seed: int) -> tuple:
+    """The Count path's report strings with 8-bit weights: uniform in
+    [0, SUM_MAX] from their own generator.  (alphas, weights, planted)."""
+    (alphas, _weights, planted) = measurements(seed)
+    weights = np.random.default_rng(seed + 2).integers(0, SUM_MAX + 1, R)
+    return (alphas, weights, planted)
+
+
+def survivors(alphas: np.ndarray, weights: np.ndarray, valid: np.ndarray,
+              level: int, threshold: int) -> list:
+    """Every (level + 1)-bit prefix whose weighted count over the valid
+    reports reaches the threshold, sorted: the numpy weighted heavy
+    hitters of that level."""
+    packed = np.packbits(alphas[valid, :level + 1], axis=1)
+    (keys, inverse) = np.unique(packed, axis=0, return_inverse=True)
+    sums = np.bincount(inverse.ravel(), weights=weights[valid],
+                       minlength=len(keys))
+    bits = np.unpackbits(keys[sums >= threshold], axis=1)[:, :level + 1]
+    return sorted(tuple(bool(b) for b in row) for row in bits)
+
+
+def _path_inputs(dev: torch.device, seed: int, rand_size: int) -> tuple:
+    """Nonces, client randomness and the verify key of a path, drawn on
+    the card from `seed`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nonces = torch.randint(0, 256, (R, 16), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    rand = torch.randint(0, 256, (R, rand_size), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    vk = bytes(torch.randint(0, 256, (32,), dtype=torch.uint8, device=dev,
+                             generator=gen).cpu().tolist())
+    return (nonces, rand, vk)
+
+
+def _shard(dev: torch.device, bm, meas: list, nonces: torch.Tensor,
+           rand: torch.Tensor) -> tuple:
+    """encode_measurements + shard_device, synchronised: (batch, ok,
+    seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (a_dev, b_dev) = bm.encode_measurements(meas, dev)
+    (batch, ok) = bm.shard_device(CTX, a_dev, b_dev, nonces, rand)
+    torch.cuda.synchronize()
+    return (batch, ok, time.perf_counter() - t0)
+
+
+def sum_path(dev: torch.device, seed: int) -> dict:
+    """Weighted heavy hitters: MasticSum(256, 255) at full depth through
+    HeavyHittersRun, one step a level (compute_heavy_hitters' loop);
+    every level's weighted counts and survivors against numpy."""
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticSum
+    from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
+    from mastic_tpu_torch.ops import kernels
+
+    (alphas, weights, planted) = sum_measurements(seed)
+    mastic = MasticSum(BITS, SUM_MAX)
+    bm = BatchedMastic(mastic)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 3, mastic.RAND_SIZE)
+    meas = [(tuple(bool(b) for b in alphas[r]), int(weights[r]))
+            for r in range(R)]
+    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+    shard_launches = dict(kernels.launches)
+
+    run = HeavyHittersRun(mastic, CTX, {"default": SUM_THRESHOLD}, vk, batch,
+                          valid=shard_ok, device=dev)
+    excluded = []
+    t0 = time.perf_counter()
+    more = True
+    while more:
+        more = run.step()
+        excluded.append(run.excluded())
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    hh = run.result()
+    levels = [(prefixes, counts, ex) for ((prefixes, counts), ex)
+              in zip(run.level_results, excluded)]
+    for (level, (prefixes, counts, ex)) in enumerate(levels):
+        valid = ~ex
+        if counts != plaintext_counts(alphas, weights, valid, prefixes):
+            raise AssertionError(f"MasticSum level {level}: weighted counts "
+                                 f"differ from numpy")
+        got = sorted(p for (p, c) in zip(prefixes, counts)
+                     if c >= SUM_THRESHOLD)
+        if got != survivors(alphas, weights, valid, level, SUM_THRESHOLD):
+            raise AssertionError(f"MasticSum level {level}: survivors differ "
+                                 f"from numpy's weighted heavy hitters")
+    expect = sorted(tuple(bool(b) for b in p) for p in planted)
+    if len(levels) != BITS or sorted(hh) != expect:
+        raise AssertionError(f"MasticSum heavy hitters: {len(hh)} found, "
+                             f"{len(expect)} planted")
+    planted_weight = min(
+        int(weights[(alphas == p).all(axis=1)].sum()) for p in planted)
+    live = sum(2 * R * 2 * len({p[:-1] for p in prefixes})
+               for (prefixes, _c, _e) in levels)
+    return {"levels": len(levels), "shard_s": shard_s, "rounds_s": rounds_s,
+            "rejected": int(levels[-1][2].sum()),
+            "shard_rejected": int((~shard_ok).sum()), "live_evals": live,
+            "max_frontier": max(len(p) for (p, _c, _e) in levels),
+            "heavy_hitters": len(hh),
+            "planted_weight": planted_weight,
+            "shard_launches": shard_launches}
+
+
+def histogram_path(dev: torch.device, seed: int) -> dict:
+    """The Field128 path: MasticHistogram(64, 16, 4) over 16 planted
+    attribute strings, every level of the resident runner with the
+    frontier = the attributes' ancestors and the weight check (joint
+    rand confirmed) at level 0; every level's per-prefix 16-bucket
+    aggregate against numpy."""
+    from mastic_tpu_torch.backend.mastic import (BatchedMastic,
+                                                 MasticHistogram)
+    from mastic_tpu_torch.drivers.heavy_hitters import IncrementalRunner
+    from mastic_tpu_torch.ops import kernels
+
+    (bits, length, _chunk) = HIST
+    rng = np.random.default_rng(seed + 4)
+    attrs = rng.integers(0, 2, (HIST_ATTRS, bits)).astype(bool)
+    alphas = attrs[rng.integers(0, HIST_ATTRS, R)]
+    buckets = rng.integers(0, length, R)
+    mastic = MasticHistogram(*HIST)
+    bm = BatchedMastic(mastic)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 5, mastic.RAND_SIZE)
+    meas = [(tuple(bool(b) for b in alphas[r]), int(buckets[r]))
+            for r in range(R)]
+    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+    shard_launches = dict(kernels.launches)
+
+    runner = IncrementalRunner(bm, vk, CTX, batch, valid=shard_ok)
+    t0 = time.perf_counter()
+    for level in range(bits):
+        prefixes = sorted({tuple(bool(b) for b in a[:level + 1])
+                           for a in attrs})
+        handle = runner.round_stage((level, tuple(prefixes), level == 0))
+        got = runner.round_collect(handle)
+        valid = ~runner.excluded.cpu().numpy()
+        want = [np.bincount(buckets[valid & (alphas[:, :level + 1]
+                                             == np.array(p)).all(axis=1)],
+                            minlength=length).tolist() for p in prefixes]
+        if got != want:
+            raise AssertionError(f"MasticHistogram level {level}: bucket "
+                                 f"aggregates differ from numpy")
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    return {"levels": bits, "shard_s": shard_s, "rounds_s": rounds_s,
+            "rejected": int(runner.excluded.sum()),
+            "shard_rejected": int((~shard_ok).sum()),
+            "max_width": runner.max_width, "shard_launches": shard_launches}
+
+
+def sumvec_path(dev: torch.device, seed: int) -> dict:
+    """The long payload: MasticSumVec(128, 1024, 1, 32) sharded (the
+    joint-rand parts from both beta shares: K3 at depth 0 with 1026
+    convert blocks), then both aggregators' weight check from their
+    depth-0 payloads; every honest report must be accepted and the two
+    beta shares must sum to the encoded measurement."""
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticSumVec
+
+    (bits, length, vbits, _chunk) = SUMVEC
+    rng = np.random.default_rng(seed + 6)
+    alphas = rng.integers(0, 2, (R, bits)).astype(bool)
+    values = rng.integers(0, 2 ** vbits, (R, length))
+    mastic = MasticSumVec(*SUMVEC)
+    bm = BatchedMastic(mastic)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 7, mastic.RAND_SIZE)
+    meas = [(tuple(bool(b) for b in alphas[r]), values[r].tolist())
+            for r in range(R)]
+    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+    shard_peak = torch.cuda.max_memory_allocated(dev)
+
+    t0 = time.perf_counter()
+    pairs = [bm.vidpf.root_children(a, batch.cws, batch.keys[:, a], CTX,
+                                    batch.nonces) for a in range(2)]
+    (checks, wc_ok) = bm.weight_check_device(vk, CTX, 0, batch, pairs[0][0],
+                                             pairs[1][0])
+    accept = checks["weight_check"] & checks["joint_rand"] & wc_ok \
+        & pairs[0][1] & pairs[1][1] & shard_ok
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    if not bool(accept.all()):
+        raise AssertionError(
+            f"MasticSumVec: {int((~accept).sum())} honest reports refused "
+            f"(weight_check {int((~checks['weight_check']).sum())}, "
+            f"joint_rand {int((~checks['joint_rand']).sum())})")
+    spec = bm.spec
+    beta = spec.add(spec.add(pairs[0][0][:, 0], pairs[0][0][:, 1]),
+                    spec.neg(spec.add(pairs[1][0][:, 0], pairs[1][0][:, 1])))
+    (_alphas, betas) = bm.encode_measurements(meas[:64], dev)
+    if not torch.equal(beta[:64], betas):
+        raise AssertionError("MasticSumVec: the beta shares do not sum to "
+                             "the encoded measurements")
+    cw_bytes = batch.cws.w.numel() * batch.cws.w.element_size()
+    return {"shard_s": shard_s, "check_s": check_s,
+            "shard_rejected": int((~shard_ok).sum()),
+            "accepted": int(accept.sum()), "cws_w_bytes": cw_bytes,
+            "shard_peak": shard_peak}
+
+
+def _print_launches(counts: dict, result: dict) -> None:
+    """One path's launches, split between its shard and its rounds."""
+    shard_n = result["shard_launches"]
+    print("launches: " + ", ".join(
+        f"{name} {shard_n[name]} in the shard + {n - shard_n[name]} in the "
+        f"rounds ({(n - shard_n[name]) / result['levels']:.3g} per level)"
+        for (name, n) in counts.items() if n))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -653,25 +1053,51 @@ def main() -> int:
         check=True, timeout=60).stdout.strip()
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rows = check_kernels(dev, gen)
+    rows = check_kernels(dev, gen) + check_new_shapes(dev, gen)
     torch.cuda.empty_cache()
 
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats(dev)
-    result = main_path(dev, args.seed, args.levels)
-    counts = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated(dev)
+    # Each path with every count set to 0 just before it and read just
+    # after; each must have launched every kernel it runs.
+    (results, counts, peaks) = ({}, {}, {})
+    for (name, drive) in (
+            ("count", lambda: main_path(dev, args.seed, args.levels)),
+            ("sum", lambda: sum_path(dev, args.seed)),
+            ("histogram", lambda: histogram_path(dev, args.seed)),
+            ("sumvec", lambda: sumvec_path(dev, args.seed))):
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        results[name] = drive()
+        torch.cuda.synchronize()
+        results[name]["path_s"] = time.perf_counter() - t0
+        counts[name] = dict(kernels.launches)
+        peaks[name] = torch.cuda.max_memory_allocated(dev)
+        idle = [c for c in PATH_COUNTERS[name] if counts[name][c] == 0]
+        if idle:
+            raise AssertionError(f"kernels not launched on the {name} path: "
+                                 f"{idle}")
+    # Each row's launches: its kernel's counter in the path of its shape.
+    row_counter = {
+        "keccak_binder_sponge": ("count", "keccak_binder"),
+        "aes_fixed_key_blocks": ("count", "aes"),
+        "level_step": ("count", "level"),
+        "level_step_sum": ("sum", "level"),
+        "level_step_f128_histogram": ("histogram", "level_f128"),
+        "level_step_f128_sumvec_depth0": ("sumvec", "level_f128"),
+        "keccak_binder_sponge_sum": ("sum", "keccak_binder"),
+        "keccak_binder_sponge_f128": ("histogram", "keccak_binder_f128"),
+        "aes_fixed_key_blocks_sum": ("sum", "aes"),
+        "aes_fixed_key_blocks_histogram": ("histogram", "aes"),
+        "aes_fixed_key_blocks_sumvec": ("sumvec", "aes")}
     for row in rows:
-        key = {"keccak_binder_sponge": "keccak_binder",
-               "aes_fixed_key_blocks": "aes",
-               "level_step": "level"}[row["name"]]
-        row["launches"] = counts[key]
+        (path, counter) = row_counter[row["name"]]
+        row["launches"] = counts[path][counter]
+        row["launches_path"] = path
     # K1's in-place sponge (the shard's and the eval-proof XOF's).
-    rows[0]["launches_turboshake"] = counts["keccak"]
-    idle = [name for name in PATH_COUNTERS if counts[name] == 0]
-    if idle:
-        raise AssertionError(f"kernels not launched on the main path: {idle}")
+    rows[0]["launches_turboshake"] = counts["count"]["keccak"]
 
+    result = results["count"]
     if result["levels"] < BITS:
         print(f"cut: the collection stopped after {result['levels']} of "
               f"{BITS} levels (--levels); the frontier there matched numpy")
@@ -686,14 +1112,54 @@ def main() -> int:
           f"({result['padded_evals'] / result['rounds_s']:.4g} evals/s), "
           f"{result['live_evals']} under live parents "
           f"({result['live_evals'] / result['rounds_s']:.4g} evals/s)")
-    shard_n = result["shard_launches"]
-    print("launches: " + ", ".join(
-        f"{name} {shard_n[name]} in the shard + {n - shard_n[name]} in the "
-        f"rounds ({(n - shard_n[name]) / result['levels']:.3g} per level)"
-        for (name, n) in counts.items()))
-    print(f"peak device memory: {peak} B ({peak / 2 ** 30:.2f} GiB); "
-          f"largest frontier {result['max_frontier']} prefixes, padded "
-          f"width {result['max_width']}")
+    _print_launches(counts["count"], result)
+    print(f"peak device memory: {peaks['count']} B "
+          f"({peaks['count'] / 2 ** 30:.2f} GiB); largest frontier "
+          f"{result['max_frontier']} prefixes, padded width "
+          f"{result['max_width']}")
+
+    result = results["sum"]
+    print(f"sum path: MasticSum({BITS}, {SUM_MAX}) through "
+          f"HeavyHittersRun, {R} reports (weights uniform in [0, "
+          f"{SUM_MAX}]), threshold {SUM_THRESHOLD}, {result['levels']} "
+          f"levels, {result['heavy_hitters']} heavy hitters = the planted "
+          f"strings (lightest planted weight {result['planted_weight']}); "
+          f"every level's weighted counts and survivors = numpy's")
+    print(f"sum path: rejected {result['rejected']} "
+          f"({result['shard_rejected']} at sharding); shard "
+          f"{result['shard_s']:.3f} s; rounds {result['rounds_s']:.3f} s; "
+          f"{result['live_evals']} node evals under live parents "
+          f"({result['live_evals'] / result['rounds_s']:.4g} evals/s); "
+          f"largest frontier {result['max_frontier']} prefixes; peak device "
+          f"memory {peaks['sum']} B ({peaks['sum'] / 2 ** 30:.2f} GiB)")
+    _print_launches(counts["sum"], result)
+
+    result = results["histogram"]
+    print(f"histogram path: MasticHistogram{HIST}, {R} reports over "
+          f"{HIST_ATTRS} attributes, {result['levels']} levels of the "
+          f"resident runner, every level's {HIST[1]}-bucket aggregates = "
+          f"numpy's; rejected {result['rejected']} "
+          f"({result['shard_rejected']} at sharding); shard "
+          f"{result['shard_s']:.3f} s; rounds {result['rounds_s']:.3f} s; "
+          f"padded width {result['max_width']}; peak device memory "
+          f"{peaks['histogram']} B ({peaks['histogram'] / 2 ** 30:.2f} GiB)")
+    _print_launches(counts["histogram"], result)
+
+    result = results["sumvec"]
+    print(f"sumvec path: MasticSumVec{SUMVEC}, {R} reports: shard "
+          f"{result['shard_s']:.3f} s (cws.w {result['cws_w_bytes']} B), "
+          f"weight check of both aggregators from their depth-0 payloads "
+          f"{result['check_s']:.3f} s, {result['accepted']} of {R} honest "
+          f"reports accepted ({result['shard_rejected']} rejected at "
+          f"sharding); peak device memory {peaks['sumvec']} B "
+          f"({peaks['sumvec'] / 2 ** 30:.2f} GiB); launches "
+          + ", ".join(f"{k} {v}" for (k, v) in counts["sumvec"].items()))
+    print("sumvec path: no incremental rounds: the carry (about 33 KB a "
+          "node) does not fit a 128-level tree at this R; the JAX package "
+          "runs this instantiation from the root, which the port has not "
+          "ported yet")
+    print("path seconds: " + ", ".join(
+        f"{name} {r['path_s']:.1f}" for (name, r) in results.items()))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

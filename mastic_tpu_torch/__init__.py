@@ -1,20 +1,24 @@
 """mastic_tpu_torch: the PyTorch/CUDA port of mastic_tpu.
 
 A second package beside the JAX reference `mastic_tpu/`, built slice by
-slice.  This slice runs one MasticCount (Field64) heavy-hitters
-collection: batched client sharding (`backend.mastic.BatchedMastic.
-shard_device`), per-level incremental rounds for both aggregators
+slice.  It runs heavy-hitters collections on the resident incremental
+runner: batched client sharding (`backend.mastic.BatchedMastic.
+shard_device`, with the joint-rand parts of the Field128 circuits),
+per-level incremental rounds for both aggregators
 (`backend.incremental.IncrementalMastic.agg_round`), the level-0 FLP
-weight check, masked aggregation, unshard and threshold pruning
-(`drivers.heavy_hitters.HeavyHittersRun`).
+weight check, masked aggregation, unshard and decode, and threshold
+pruning (`drivers.heavy_hitters.HeavyHittersRun`).  All five circuits
+are served: MasticCount and MasticSum over Field64, MasticSumVec,
+MasticHistogram and MasticMultihotCountVec over Field128.
 
 The three TPU kernels under that path are hand-written CUDA C++ for
 sm_90a in `csrc/` (built with nvcc at first use by `ops.kernels`):
-Keccak-p[1600,12] and the TurboSHAKE sponge (`ops.keccak`), bitsliced
-AES-128 (`ops.aes`) and the fused VIDPF level step (`ops.level`).
-Every wrapper runs its kernel for a CUDA tensor and its plain PyTorch
-version for a CPU tensor.  Entry points take `device=` and default to
-"cuda"; they raise when no card is present.
+Keccak-p[1600,12] and the TurboSHAKE sponge (`ops.keccak`, and the eval
+proof's binder sponge, `ops.binder`), bitsliced AES-128 (`ops.aes`) and
+the fused VIDPF level step (`ops.level`).  Every wrapper runs its kernel
+for a CUDA tensor and its plain PyTorch version for a CPU tensor.  Entry
+points take `device=` and default to "cuda"; they raise when no card is
+present.
 
 Nothing here imports jax or mastic_tpu.
 """

@@ -17,13 +17,11 @@ import torch
 
 from ..common import to_le_bytes
 from ..dst import USAGE_CONVERT, USAGE_EXTEND, USAGE_NODE_PROOF, dst
-from ..ops.aes import bitslice_keys, bitslice_pack, bitslice_unpack, \
-    pack_mask, unpack_mask
 from ..ops.field import FIELD64, FieldSpec
 from ..ops.keccak import turbo_shake128_dynamic
-from ..vidpf import KEY_SIZE, PROOF_SIZE
-from .xof import (fixed_key_blocks, fixed_key_blocks_planes,
-                  fixed_key_schedule, sample_vec, ts_prefix)
+from ..ops.level import level_step
+from ..vidpf import KEY_SIZE, PROOF_SIZE, encode_path
+from .xof import fixed_key_blocks, fixed_key_schedule, sample_vec, ts_prefix
 
 _U8 = torch.uint8
 
@@ -64,73 +62,12 @@ def pack_path_bits(bits_arr: torch.Tensor) -> torch.Tensor:
     return (grouped * weights).sum(-1).to(_U8)
 
 
-def level_core(spec: FieldSpec, convert_blocks: int, value_len: int,
-               ext_rk: torch.Tensor, conv_rk: torch.Tensor,
-               parent_seed: torch.Tensor, parent_ctrl: torch.Tensor,
-               cw_slice) -> tuple:
-    """extend + correct + convert for one level (everything but the
-    node proof), in the bitsliced plane domain: one bitslice_pack of
-    the parent seeds in, one unpack of the next seeds and payload out,
-    corrections as mask ANDs on packed words.  Reports are padded to a
-    multiple of 32 with zero lanes.  Returns (next_seed (R, 2N, 16), ct
-    (R, 2N) bool, w plain limbs (R, 2N, VL, n), ok (R, 2N)); children
-    interleave (left0, right0, left1, ...), i.e. lexicographic order.
-    It runs the AES on its plain version: this is K3's plain version."""
-    (seed_cw, ctrl_cw, w_cw, _proof_cw) = cw_slice
-    (num_reports, num_parents) = parent_ctrl.shape
-    pad = (-num_reports) % 32
-
-    def padded(x):
-        if not pad:
-            return x
-        return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
-
-    ext_kp = bitslice_keys(padded(ext_rk)).contiguous()   # (11,8,16,W)
-    conv_kp = bitslice_keys(padded(conv_rk)).contiguous()
-    sp = bitslice_pack(padded(parent_seed))               # (8,16,N,W)
-    pctrl = pack_mask(padded(parent_ctrl))                # (N, W)
-
-    ext = fixed_key_blocks_planes(ext_kp, sp, 2)        # (8,16,N,2,W)
-    s_l = ext[..., 0, :].clone()
-    s_r = ext[..., 1, :].clone()
-    # Control bits are plane (0, byte 0); clear them in the seeds.
-    t_l = s_l[0, 0].clone()
-    t_r = s_r[0, 0].clone()
-    s_l[0, 0] = 0
-    s_r[0, 0] = 0
-
-    cw_planes = bitslice_pack(padded(seed_cw))            # (8, 16, W)
-    sel = cw_planes[:, :, None, :] & pctrl[None, None, :, :]
-    s_l = s_l ^ sel
-    s_r = s_r ^ sel
-    cw_ctrl = pack_mask(padded(ctrl_cw))                  # (2, W)
-    t_l = t_l ^ (pctrl & cw_ctrl[0])
-    t_r = t_r ^ (pctrl & cw_ctrl[1])
-
-    cs = torch.stack([s_l, s_r], dim=3).reshape(
-        (8, 16, 2 * num_parents) + sp.shape[-1:])
-    ct_words = torch.stack([t_l, t_r], dim=1).reshape(2 * num_parents, -1)
-
-    stream = fixed_key_blocks_planes(conv_kp, cs, convert_blocks)
-    next_seed = bitslice_unpack(stream[..., 0, :])[:num_reports]
-    tail = stream[..., 1:, :]
-    tail = bitslice_unpack(
-        tail.reshape(tail.shape[:2] + (-1,) + tail.shape[-1:]))
-    stream_bytes = tail[:num_reports].reshape(num_reports,
-                                              2 * num_parents, -1)
-    (w, ok) = sample_vec(spec, stream_bytes, value_len)
-
-    ct = unpack_mask(ct_words, num_reports)               # (R, 2N)
-    w = torch.where(ct[..., None, None], spec.add(w, w_cw[:, None]), w)
-    return (next_seed.contiguous(), ct, w, ok)
-
-
 class BatchedVidpf:
-    """Batched VIDPF over Field64 with input length `bits` and payload
-    length `value_len`."""
+    """Batched VIDPF with input length `bits` and payload length
+    `value_len` over the field of `spec` (Field64 by default)."""
 
-    def __init__(self, bits: int, value_len: int):
-        self.spec: FieldSpec = FIELD64
+    def __init__(self, bits: int, value_len: int, spec: FieldSpec = FIELD64):
+        self.spec = spec
         self.BITS = bits
         self.VALUE_LEN = value_len
         # Convert reads a 16-byte next seed then VALUE_LEN elements.
@@ -212,14 +149,22 @@ class BatchedVidpf:
         byte_idx = np.arange(path_cap)
 
         seeds = keys.clone()                               # (R, 2, 16)
-        ctrl = torch.zeros((num_reports, 2), dtype=torch.bool,
-                           device=alphas.device)
+        dev = alphas.device
+        ctrl = torch.zeros((num_reports, 2), dtype=torch.bool, device=dev)
         ctrl[:, 1] = True
-        ok = torch.ones(num_reports, dtype=torch.bool, device=alphas.device)
-        cw_seed = []
-        cw_ctrl = []
-        cw_w = []
-        cw_proof = []
+        ok = torch.ones(num_reports, dtype=torch.bool, device=dev)
+        # Filled level by level: a long payload's correction words are
+        # most of the batch (17 GB at 4096 reports of SumVec(1024) at
+        # 128 bits), so no second copy is stacked at the end.
+        cws = BatchedCorrectionWords(
+            seed=torch.empty((num_reports, bits, KEY_SIZE), dtype=_U8,
+                             device=dev),
+            ctrl=torch.empty((num_reports, bits, 2), dtype=torch.bool,
+                             device=dev),
+            w=torch.empty((num_reports, bits, self.VALUE_LEN,
+                           spec.num_limbs), dtype=torch.int32, device=dev),
+            proof=torch.empty((num_reports, bits, PROOF_SIZE), dtype=_U8,
+                              device=dev))
         for i in range(bits):
             bit = alphas[:, i]
             keep = np.where(byte_idx * 8 + 7 <= i, 0xFF,
@@ -253,13 +198,47 @@ class BatchedVidpf:
             # Node-proof correction, binding the on-path prefix.
             proofs = self._node_proof_dynamic(ctx, seeds.contiguous(),
                                               path, i)
-            cw_seed.append(seed_cw)
-            cw_ctrl.append(torch.stack([ctrl_cw_l, ctrl_cw_r], dim=-1))
-            cw_w.append(w_cw)
-            cw_proof.append(proofs[:, 0] ^ proofs[:, 1])
+            cws.seed[:, i] = seed_cw
+            cws.ctrl[:, i, 0] = ctrl_cw_l
+            cws.ctrl[:, i, 1] = ctrl_cw_r
+            cws.w[:, i] = w_cw
+            cws.proof[:, i] = proofs[:, 0] ^ proofs[:, 1]
             ctrl = t_k
-
-        cws = BatchedCorrectionWords(
-            seed=torch.stack(cw_seed, dim=1), ctrl=torch.stack(cw_ctrl, dim=1),
-            w=torch.stack(cw_w, dim=1), proof=torch.stack(cw_proof, dim=1))
         return (cws, keys, ok)
+
+    # -- the beta share (client side, for the joint-rand parts) -----
+
+    def root_children(self, agg_id: int, cws: BatchedCorrectionWords,
+                      keys: torch.Tensor, ctx: bytes,
+                      nonces: torch.Tensor) -> tuple:
+        """One party's two depth-0 payloads, unnegated, from its root
+        key: one level step, kernel K3 on the card, with the root as its
+        one parent (the JAX package's depth-0 `eval_full`).  keys (R,
+        16).  Returns (w (R, 2, VALUE_LEN, n), ok (R,))."""
+        (ext_rk, conv_rk) = self.roundkeys(ctx, nonces)
+        num_reports = keys.shape[0]
+        ctrl = torch.full((num_reports, 1), bool(agg_id), dtype=torch.bool,
+                          device=keys.device)
+        cw_slice = tuple(x[:, 0] for x in cws)
+        head = to_le_bytes(self.BITS, 2) + to_le_bytes(0, 2)
+        binder = torch.as_tensor(np.stack([
+            np.frombuffer(head + encode_path(path), np.uint8)
+            for path in ((False,), (True,))]), device=keys.device)
+        prefix = ts_prefix(dst(ctx, USAGE_NODE_PROOF), KEY_SIZE)
+        (_seed, _ct, w, ok, _proof) = level_step(
+            self.spec, self.convert_blocks, self.VALUE_LEN, ext_rk, conv_rk,
+            keys[:, None, :], ctrl, cw_slice, prefix, binder,
+            binder.shape[-1])
+        return (w, torch.all(ok, dim=-1))
+
+    def get_beta_share(self, agg_id: int, cws: BatchedCorrectionWords,
+                       keys: torch.Tensor, ctx: bytes,
+                       nonces: torch.Tensor) -> tuple:
+        """Each party's beta share: the sum of its two depth-0 payloads,
+        negated for aggregator 1.  Returns (share (R, VALUE_LEN, n), ok
+        (R,))."""
+        (w, ok) = self.root_children(agg_id, cws, keys, ctx, nonces)
+        share = self.spec.add(w[:, 0], w[:, 1])
+        if agg_id == 1:
+            share = self.spec.neg(share)
+        return (share, ok)

@@ -29,4 +29,14 @@ __device__ __forceinline__ uint64_t limbs64(int4 l) {
          (static_cast<uint64_t>(l.z & 0xFFFF) << 32) | (static_cast<uint64_t>(l.w & 0xFFFF) << 48);
 }
 
+// One 64-bit word as four 16-bit limbs (int32 carriers, little-endian).
+__device__ __forceinline__ int4 limbs_of(uint64_t v) {
+  int4 out;
+  out.x = static_cast<int32_t>(v & 0xFFFF);
+  out.y = static_cast<int32_t>((v >> 16) & 0xFFFF);
+  out.z = static_cast<int32_t>((v >> 32) & 0xFFFF);
+  out.w = static_cast<int32_t>(v >> 48);
+  return out;
+}
+
 }  // namespace mtk

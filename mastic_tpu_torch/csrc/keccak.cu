@@ -23,8 +23,10 @@
 // binder_sponge computes, per aggregator a and report r, TurboSHAKE128
 // (domain 1, 32 bytes) over
 //   onehot:  prefix || proof[a][r, onehot_idx[k]]            (32-byte rows)
-//   payload: prefix || le64(sub(w[par_k, e], add(w[left_k, e], w[right_k, e])))
-//            for each row k and element e < value_len
+//   payload: prefix || le(sub(w[par_k, e], add(w[left_k, e], w[right_k, e])))
+//            for each row k and element e < value_len (8 bytes a Field64
+//            element, 16 a Field128 one: the kernel is a template on the
+//            element's limbs, and a Field128 difference yields two words)
 // (mastic_tpu/backend/incremental.py IncrementalMastic._eval_proof), reading
 // the rows where they lie in the (R, BITS * W, ...) carry: no gathered copy,
 // no limb temporaries and no serialised message exist in device memory.
@@ -37,7 +39,7 @@
 // before the permutation of the current one, so the loads overlap it.
 #include <cuda_runtime.h>
 
-#include "field64.cuh"
+#include "field128.cuh"
 #include "keccak.cuh"
 
 using namespace mtk;
@@ -95,23 +97,49 @@ struct OnehotWords {
   }
 };
 
+// The payload check's words: per row k and element e the difference
+// sub(w[par_k, e], add(w[left_k, e], w[right_k, e])), little-endian, as one
+// word for a Field64 element (NL = 4 limbs) and two, low half then high half,
+// for a Field128 one (NL = 8), as FieldSpec.plain_to_le_bytes orders them.
+template <int NL>
 struct PayloadWords {
-  const int32_t* base;  // payload rows of report r: base + (row * vl + e) * 4
+  const int32_t* base;  // payload rows of report r: base + (row * vl + e) * NL
   const long long *par, *left, *right;
   long long nbody, u, k;
   int e, vl;
-  __device__ __forceinline__ uint64_t elem(const long long* idx) const {
-    return limbs64(__ldg(reinterpret_cast<const int4*>(base + (__ldg(idx + k) * vl + e) * 4)));
+  uint64_t high;  // Field128: the high half of the difference just begun
+  bool odd;       // Field128: the next word is `high`
+  __device__ __forceinline__ const int4* at(const long long* idx) const {
+    return reinterpret_cast<const int4*>(base + (__ldg(idx + k) * vl + e) * NL);
   }
-  __device__ __forceinline__ uint64_t next() {
-    if (u >= nbody) return 0;
-    const uint64_t v = f64_sub(elem(par), f64_add(elem(left), elem(right)));
-    ++u;
+  __device__ __forceinline__ void advance() {
     if (++e == vl) {
       e = 0;
       ++k;
     }
-    return v;
+  }
+  __device__ __forceinline__ uint64_t next() {
+    if (u >= nbody) return 0;
+    ++u;
+    if constexpr (NL == 4) {
+      const uint64_t v =
+          f64_sub(limbs64(__ldg(at(par))), f64_add(limbs64(__ldg(at(left))), limbs64(__ldg(at(right)))));
+      advance();
+      return v;
+    } else {
+      if (odd) {
+        odd = false;
+        advance();
+        return high;
+      }
+      const int4 *p = at(par), *l = at(left), *r = at(right);
+      const u128 d = f128_sub(limbs128(__ldg(p), __ldg(p + 1)),
+                              f128_add(limbs128(__ldg(l), __ldg(l + 1)),
+                                       limbs128(__ldg(r), __ldg(r + 1))));
+      high = d.hi;
+      odd = true;
+      return d.lo;
+    }
   }
 };
 
@@ -170,7 +198,9 @@ __device__ __forceinline__ void load_rows(uint64_t fb[24], const uint8_t* base,
 }
 
 // blockIdx.y: 0 .. A-1 the onehot checks of aggregator y, A .. 2A-1 the
-// payload checks of aggregator y - A.  out is (2, A, R, 32).
+// payload checks of aggregator y - A.  out is (2, A, R, 32).  NL: the limbs
+// of a payload element, 4 (Field64) or 8 (Field128).
+template <int NL>
 __global__ void __launch_bounds__(128)
 binder_sponge_kernel(const uint8_t* __restrict__ proof0, const uint8_t* __restrict__ proof1,
                      const int32_t* __restrict__ w0, const int32_t* __restrict__ w1,
@@ -187,7 +217,7 @@ binder_sponge_kernel(const uint8_t* __restrict__ proof0, const uint8_t* __restri
   const int agg = onehot ? y : y - A;
   const int p0 = plen >> 3;
   const int sh = 8 * (plen & 7);
-  const long long nbody = onehot ? 4 * onehot_rows : vl * payload_rows;
+  const long long nbody = onehot ? 4 * onehot_rows : (NL / 4) * vl * payload_rows;
   const long long lane_end = p0 + nbody;  // the lane of byte L = plen + 8 nbody
   const long long nblk = (plen + 8 * nbody) / 168 + 1;
   const uint64_t* pre = onehot ? pre_onehot : pre_payload;
@@ -225,7 +255,8 @@ binder_sponge_kernel(const uint8_t* __restrict__ proof0, const uint8_t* __restri
     for (long long blk = bf1; blk < nblk; ++blk)
       absorb_general(a, words, prev, pre, p0, sh, blk, lane_end, blk == nblk - 1);
   } else {
-    PayloadWords words{(agg ? w1 : w0) + r * rows * vl * 4, par, left, right, nbody, 0, 0, 0, vl};
+    PayloadWords<NL> words{(agg ? w1 : w0) + r * rows * vl * NL, par, left, right, nbody, 0, 0, 0,
+                           vl, 0, false};
     for (long long blk = 0; blk < nblk; ++blk)
       absorb_general(a, words, prev, pre, p0, sh, blk, lane_end, blk == nblk - 1);
   }
@@ -260,14 +291,16 @@ extern "C" int turboshake(const void* pre, int plen, const void* msg,
 }
 
 extern "C" int binder_sponge(const void* proof0, const void* proof1, const void* w0,
-                             const void* w1, long long rows, int vl, const void* onehot_idx,
+                             const void* w1, long long rows, int vl, int nl,
+                             const void* onehot_idx,
                              long long onehot_rows, const void* par, const void* left,
                              const void* right, long long payload_rows,
                              const void* pre_onehot, const void* pre_payload, int plen,
                              void* out, int R, int A, void* stream) {
   const int threads = 128;
   const dim3 grid((R + threads - 1) / threads, 2 * A);
-  binder_sponge_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = nl == 8 ? binder_sponge_kernel<8> : binder_sponge_kernel<4>;
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(proof0), static_cast<const uint8_t*>(proof1),
       static_cast<const int32_t*>(w0), static_cast<const int32_t*>(w1), rows, vl,
       static_cast<const long long*>(onehot_idx), onehot_rows,

@@ -1,5 +1,5 @@
-// Kernel K3: one whole VIDPF tree level (Field64 payloads), two kernels
-// behind one launch function.
+// Kernel K3: one whole VIDPF tree level (Field64 or Field128 payloads of any
+// length), two kernels behind one launch function.
 //
 // Replaces the TPU kernel mastic_tpu/ops/level_pallas.py:level_step_pallas
 // (the 39-stage fused level over a (report tile x parent tile) grid).  Per
@@ -12,9 +12,10 @@
 //   node proof: TurboSHAKE128 over prefix | next seed | binder, over as many
 //     rate blocks as the message needs, XORed with proof_cw where the child
 //     holds ctrl.
-// Unlike the TPU kernel, the binder length and the prefix length are runtime
-// arguments, so the incremental round (whose binder grows with the level) and
-// any ctx go through it.
+// Unlike the TPU kernel, the binder length, the prefix length and the number
+// of convert blocks are runtime arguments, so the incremental round (whose
+// binder grows with the level), any ctx and any payload go through it (the
+// TPU kernel's limit of 8 convert blocks was its VMEM envelope's).
 //
 // What bounds it on the H100: integer issue.  Per 32 reports and one parent:
 // 6 bitsliced AES columns (~18.8k instructions each) plus 64 Keccak-p
@@ -33,8 +34,12 @@
 // stay report-major (the layouts of the JAX package's level step): 32 x 32
 // bit transposes in the thread turn each report's 32-bit word into the
 // thread's planes and back, so the wrapper packs nothing (in PyTorch the
-// packing took ~5 ms a call, 20 times the kernel), and the two halves of a
-// Field64 element meet by one shuffle.  The round keys are transposed anew
+// packing took ~5 ms a call, 20 times the kernel).  The payload step is a
+// template on the limb count: the two halves of a Field64 element meet by one
+// shuffle; a Field128 element is a whole block, its four words in the four
+// threads, gathered by a 4 x 4 exchange of shuffles.  The convert loop is not
+// unrolled, so registers do not grow with the payload: a long payload (1026
+// blocks for SumVec(1024)) is one long chain per group, not a larger kernel.  The round keys are transposed anew
 // for each AES round: no room to keep 11 x 32 planes per thread.  At 4096
 // reports x 32 parents that is 8192 groups, 256 blocks of 128 threads: all
 // 132 SMs, about eight warps each.
@@ -45,7 +50,7 @@
 // template lanes it straddles and absorbs block by block.
 #include <cuda_runtime.h>
 
-#include "field64.cuh"
+#include "field128.cuh"
 #include "fixed_key.cuh"
 #include "keccak.cuh"
 
@@ -68,6 +73,83 @@ __device__ __forceinline__ uint32_t load_mask(const uint8_t* __restrict__ flags,
   return m | __shfl_xor_sync(FULL_WARP, m, 2, 4);
 }
 
+// One convert block of Field64 payload, s[j] holding word t of the block for
+// report 32w + j.  Element e = 2 (blk - 1) + (t >> 1): its low word in thread
+// 2h, its high word in thread 2h + 1, which meet by one shuffle; each of the
+// two takes 16 of the 32 reports.  With an odd VALUE_LEN the last block's
+// second element is past the payload and is dropped by the e < value_len
+// guard.
+__device__ __forceinline__ void payload_f64(const uint32_t s[32], uint32_t& okmask, uint32_t tb,
+                                            const int32_t* __restrict__ wcw,
+                                            int32_t* __restrict__ w_out, bool live, int R, int w,
+                                            int t, int n2, int node, int blk, int value_len) {
+  const int odd = t & 1;
+  const int e = 2 * (blk - 1) + (t >> 1);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const uint32_t got = __shfl_xor_sync(FULL_WARP, odd ? s[2 * i] : s[2 * i + 1], 1, 4);
+    const uint32_t mine = odd ? s[2 * i + 1] : s[2 * i];
+    uint64_t v = odd ? (static_cast<uint64_t>(mine) << 32) | got
+                     : (static_cast<uint64_t>(got) << 32) | mine;
+    const int j = 2 * i + odd;
+    const size_t r = static_cast<size_t>(32 * w + j);
+    if (live && e < value_len && r < static_cast<size_t>(R)) {
+      if (v >= F64_P) okmask &= ~(1u << j);
+      if ((tb >> j) & 1u)
+        v = f64_add(v, limbs64(__ldg(reinterpret_cast<const int4*>(wcw + (r * value_len + e) * 4))));
+      *reinterpret_cast<int4*>(w_out + ((r * n2 + node) * value_len + e) * 4) = limbs_of(v);
+    }
+  }
+}
+
+// a, b, c or d by k in 0..3, with the four in registers.
+__device__ __forceinline__ uint32_t pick4(uint32_t a, uint32_t b, uint32_t c, uint32_t d, int k) {
+  return (k & 2) ? ((k & 1) ? d : c) : ((k & 1) ? b : a);
+}
+
+// One convert block of Field128 payload: the block is element e = blk - 1,
+// whose four words sit in the four threads of the group.  A 4 x 4 exchange
+// (three xor shuffles per report, the sent word picked by a select so that
+// no register array is indexed at run time) gives thread t the whole
+// element of the reports 32w + 8t .. 32w + 8t + 7: in round d it sends word
+// t of report 8 (t ^ d) + i and receives word t ^ d of report 8t + i.
+__device__ __forceinline__ void payload_f128(const uint32_t s[32], uint32_t& okmask, uint32_t tb,
+                                             const int32_t* __restrict__ wcw,
+                                             int32_t* __restrict__ w_out, bool live, int R,
+                                             int w, int t, int n2, int node, int blk,
+                                             int value_len) {
+  const int e = blk - 1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint32_t got[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const uint32_t send = pick4(s[i], s[8 + i], s[16 + i], s[24 + i], t ^ d);
+      got[d] = d ? __shfl_xor_sync(FULL_WARP, send, d, 4) : send;
+    }
+    // got[d] is word t ^ d, so word k is got[k ^ t].
+    const uint32_t w0 = pick4(got[0], got[1], got[2], got[3], t);
+    const uint32_t w1 = pick4(got[0], got[1], got[2], got[3], t ^ 1);
+    const uint32_t w2 = pick4(got[0], got[1], got[2], got[3], t ^ 2);
+    const uint32_t w3 = pick4(got[0], got[1], got[2], got[3], t ^ 3);
+    u128 v{static_cast<uint64_t>(w0) | (static_cast<uint64_t>(w1) << 32),
+           static_cast<uint64_t>(w2) | (static_cast<uint64_t>(w3) << 32)};
+    const int j = 8 * t + i;
+    const size_t r = static_cast<size_t>(32 * w + j);
+    if (live && e < value_len && r < static_cast<size_t>(R)) {
+      if (!f128_lt_p(v)) okmask &= ~(1u << j);
+      if ((tb >> j) & 1u) {
+        const int4* c = reinterpret_cast<const int4*>(wcw + (r * value_len + e) * 8);
+        v = f128_add(v, limbs128(__ldg(c), __ldg(c + 1)));
+      }
+      int4* out = reinterpret_cast<int4*>(w_out + ((r * n2 + node) * value_len + e) * 8);
+      out[0] = limbs_of(v.lo);
+      out[1] = limbs_of(v.hi);
+    }
+  }
+}
+
+template <int NL>
 __global__ void __launch_bounds__(LEVEL_THREADS)
 level_kernel(const uint8_t* __restrict__ ext_rk, const uint8_t* __restrict__ conv_rk,
              const uint8_t* __restrict__ pseed, const uint8_t* __restrict__ pctrl,
@@ -127,7 +209,6 @@ level_kernel(const uint8_t* __restrict__ ext_rk, const uint8_t* __restrict__ con
 
   // -- convert ---------------------------------------------------------------
   uint32_t okmask = 0xFFFFFFFFu;
-  const int odd = t & 1;
 #pragma unroll 1
   for (int blk = 0; blk < convert_blocks; ++blk) {
     fixed_key_block<LEVEL_THREADS>(s, sigma, conv_rk, blk, R, w, t);
@@ -143,29 +224,10 @@ level_kernel(const uint8_t* __restrict__ ext_rk, const uint8_t* __restrict__ con
       }
       continue;
     }
-    // Element e = 2 (blk - 1) + (t >> 1): its low word in thread 2h, its high
-    // word in thread 2h + 1.  Each of the two takes 16 of the 32 reports.
-    const int e = 2 * (blk - 1) + (t >> 1);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint32_t got = __shfl_xor_sync(FULL_WARP, odd ? s[2 * i] : s[2 * i + 1], 1, 4);
-      const uint32_t mine = odd ? s[2 * i + 1] : s[2 * i];
-      uint64_t v = odd ? (static_cast<uint64_t>(mine) << 32) | got
-                       : (static_cast<uint64_t>(got) << 32) | mine;
-      const int j = 2 * i + odd;
-      const size_t r = static_cast<size_t>(32 * w + j);
-      if (live && e < value_len && r < static_cast<size_t>(R)) {
-        if (v >= F64_P) okmask &= ~(1u << j);
-        if ((tb >> j) & 1u)
-          v = f64_add(v, limbs64(__ldg(reinterpret_cast<const int4*>(wcw + (r * value_len + e) * 4))));
-        int4 out;
-        out.x = static_cast<int32_t>(v & 0xFFFF);
-        out.y = static_cast<int32_t>((v >> 16) & 0xFFFF);
-        out.z = static_cast<int32_t>((v >> 32) & 0xFFFF);
-        out.w = static_cast<int32_t>(v >> 48);
-        *reinterpret_cast<int4*>(w_out + ((r * n2 + node) * value_len + e) * 4) = out;
-      }
-    }
+    if constexpr (NL == 4)
+      payload_f64(s, okmask, tb, wcw, w_out, live, R, w, t, n2, node, blk, value_len);
+    else
+      payload_f128(s, okmask, tb, wcw, w_out, live, R, w, t, n2, node, blk, value_len);
   }
   okmask &= __shfl_xor_sync(FULL_WARP, okmask, 1, 4);
   okmask &= __shfl_xor_sync(FULL_WARP, okmask, 2, 4);
@@ -223,11 +285,12 @@ extern "C" int level_step(const void* ext_rk, const void* conv_rk, const void* p
                           const void* wcw, const void* pcw, const void* tmpl, int nb,
                           int plen, void* next_seed, void* ct, void* w_out, void* ok,
                           void* proof, int R, int N, int convert_blocks, int value_len,
-                          void* stream) {
+                          int num_limbs, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long threads = 4LL * 2 * N * ((R + 31) / 32);  // four per (child, word)
   const int blocks = static_cast<int>((threads + LEVEL_THREADS - 1) / LEVEL_THREADS);
-  level_kernel<<<blocks, LEVEL_THREADS, 0, st>>>(
+  auto kernel = num_limbs == 8 ? level_kernel<8> : level_kernel<4>;
+  kernel<<<blocks, LEVEL_THREADS, 0, st>>>(
       static_cast<const uint8_t*>(ext_rk), static_cast<const uint8_t*>(conv_rk),
       static_cast<const uint8_t*>(pseed), static_cast<const uint8_t*>(pctrl),
       static_cast<const uint8_t*>(seed_cw), static_cast<const uint8_t*>(ctrl_cw),

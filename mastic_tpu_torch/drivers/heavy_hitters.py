@@ -3,9 +3,13 @@ port of `mastic_tpu/drivers/heavy_hitters.py`).
 
 Per level: one incremental round for both aggregators (kernel K3 for
 the level, K1 for the binders and the eval proof), the FLP weight check
-on level 0, the accept-mask combine and the masked aggregation, all on
-the device; then one sync, the unshard and the threshold pruning on the
-host.  The padded node width grows on demand.
+on level 0 (with the joint-rand confirmation for the circuits that use
+joint randomness), the accept-mask combine and the masked aggregation,
+all on the device; then one sync, the unshard and decode, and the
+threshold pruning on the host.  The padded node width grows on demand.
+`HeavyHittersRun` prunes on `count >= threshold`, so it serves the
+scalar circuits (MasticCount, MasticSum), as in the JAX package; the
+resident runner (`IncrementalRunner`) serves every circuit.
 
 Reports whose XOF rejection sampling fired (`ok` False, about 2^-32 per
 sampled Field64 element) are excluded from both aggregates from the
@@ -27,7 +31,7 @@ import torch
 from .. import resolve_device
 from ..backend.incremental import (Carry, IncrementalMastic, RoundPlan,
                                    round_inputs)
-from ..backend.mastic import BatchedMastic, MasticCount, ReportBatch
+from ..backend.mastic import BatchedMastic, Mastic, ReportBatch
 
 
 def get_threshold(thresholds: dict, prefix: tuple) -> int:
@@ -76,12 +80,15 @@ class IncrementalRunner:
         self.max_width = self.width
 
     def _grow(self, width: int) -> None:
+        """Pad both carries to `width`, one after the other, so that
+        only one aggregator's old carry lives beside the new ones."""
         pad = width - self.width
-        self.carries = [
-            Carry(w=_pad_nodes(c.w, 2, pad), proof=_pad_nodes(c.proof, 2, pad),
-                  seed=_pad_nodes(c.seed, 1, pad),
-                  ctrl=_pad_nodes(c.ctrl, 1, pad))
-            for c in self.carries]
+        for (a, c) in enumerate(self.carries):
+            self.carries[a] = Carry(
+                w=_pad_nodes(c.w, 2, pad), proof=_pad_nodes(c.proof, 2, pad),
+                seed=_pad_nodes(c.seed, 1, pad),
+                ctrl=_pad_nodes(c.ctrl, 1, pad))
+            del c
         self.width = width
         self.max_width = max(self.max_width, width)
         self.engine = IncrementalMastic(self.bm, width)
@@ -115,6 +122,8 @@ class IncrementalRunner:
                 self.verify_key, self.ctx, level, self.batch,
                 c0.w[:, 0, :2], c1.w[:, 0, :2])
             accept = accept & checks["weight_check"]
+            if "joint_rand" in checks:
+                accept = accept & checks["joint_rand"]
             ok = ok & wc_ok
         self.excluded |= ~ok
         accept = accept & ~self.excluded
@@ -123,8 +132,9 @@ class IncrementalRunner:
         return {"agg_param": agg_param, "agg": agg}
 
     def round_collect(self, handle: dict) -> list:
-        """The blocking half: one sync, the unshard.  Returns one
-        weighted count per prefix."""
+        """The blocking half: one sync, the unshard and decode.  Returns
+        one decoded aggregate per prefix (a weighted count for the
+        scalar circuits, a list for the vector ones)."""
         (_level, prefixes, _wc) = handle["agg_param"]
         rows = len(prefixes) * (1 + self.bm.m.valid.OUTPUT_LEN)
         shares = [self.bm.agg_share_to_host(a[:rows]) for a in handle["agg"]]
@@ -135,7 +145,7 @@ class HeavyHittersRun:
     """A heavy-hitters collection over a device-resident report batch:
     one `step()` per tree level."""
 
-    def __init__(self, mastic: MasticCount, ctx: bytes, thresholds: dict,
+    def __init__(self, mastic: Mastic, ctx: bytes, thresholds: dict,
                  verify_key: bytes, batch: ReportBatch,
                  valid: Optional[torch.Tensor] = None, device="cuda"):
         dev = resolve_device(device)
@@ -203,7 +213,7 @@ class HeavyHittersRun:
         return self.runner.excluded.cpu().numpy()
 
 
-def compute_heavy_hitters(mastic: MasticCount, ctx: bytes, thresholds: dict,
+def compute_heavy_hitters(mastic: Mastic, ctx: bytes, thresholds: dict,
                           verify_key: bytes, batch: ReportBatch,
                           valid: Optional[torch.Tensor] = None,
                           device="cuda") -> list:

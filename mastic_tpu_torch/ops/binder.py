@@ -8,16 +8,18 @@ that the carry and a round's index lists define (the JAX package's
 `IncrementalMastic._eval_proof`, mastic_tpu/backend/incremental.py):
 
 * onehot: the 32-byte node proofs `proof[r, onehot_idx[k]]`, in order;
-* payload: `le64(sub(w[par_k, e], add(w[left_k, e], w[right_k, e])))`
+* payload: `le(sub(w[par_k, e], add(w[left_k, e], w[right_k, e])))`
   for each row k and element e < VALUE_LEN, with FieldSpec's add and
   sub (also on carried values >= p, which the level step stores where
-  its in-range mask fails).
+  its in-range mask fails), 8 bytes a Field64 element and 16 a Field128
+  one.
 
 The kernel gathers the rows itself, computes the payload difference in
 registers and absorbs the words where they fall in the rate lanes, so
 no gathered copy, limb temporary or message exists in device memory.
 One launch hashes both checks of every aggregator given.  It counts as
-"keccak_binder" in `ops.kernels.launches`.
+"keccak_binder" in `ops.kernels.launches` on Field64 carries and as
+"keccak_binder_f128" on Field128 ones.
 """
 
 import torch
@@ -26,6 +28,8 @@ from . import kernels
 from .keccak import turbo_shake128_dynamic_plain
 
 PROOF_SIZE = 32
+# The launch counter of each payload field, by limb count.
+COUNTERS = {4: "keccak_binder", 8: "keccak_binder_f128"}
 
 
 def binder_checks(spec, ws: tuple, proofs: tuple, onehot_idx: torch.Tensor,
@@ -77,12 +81,15 @@ def _prefix_lanes(prefix: bytes, device) -> torch.Tensor:
 def _checks_cuda(spec, ws: tuple, proofs: tuple, onehot_idx: torch.Tensor,
                  par: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
                  prefix_onehot: bytes, prefix_payload: bytes) -> tuple:
-    if spec.num_limbs != 4:
-        raise NotImplementedError("the binder sponge serves Field64 only")
+    if spec.num_limbs not in COUNTERS:
+        raise ValueError(f"no binder sponge for {spec.num_limbs}-limb "
+                         f"payloads")
     if len(prefix_onehot) != len(prefix_payload):
         raise ValueError("the two checks' prefixes must have one length")
     shape = ws[0].shape
     (num_reports, bits, width, value_len, n) = shape
+    if n != spec.num_limbs:
+        raise ValueError("binder_checks: carry limbs differ from the field's")
     for (w_all, proof_all) in zip(ws, proofs):
         if w_all.shape != shape \
                 or proof_all.shape != (num_reports, bits, width, PROOF_SIZE):
@@ -104,10 +111,10 @@ def _checks_cuda(spec, ws: tuple, proofs: tuple, onehot_idx: torch.Tensor,
         kernels.launch(
             "keccak", "binder_sponge", proofs[0].data_ptr(),
             proofs[last].data_ptr(), ws[0].data_ptr(), ws[last].data_ptr(),
-            bits * width, value_len, onehot_idx.data_ptr(),
+            bits * width, value_len, n, onehot_idx.data_ptr(),
             onehot_idx.shape[0], par.data_ptr(), left.data_ptr(),
             right.data_ptr(), par.shape[0], pre[0].data_ptr(),
             pre[1].data_ptr(), len(prefix_onehot), out.data_ptr(),
             num_reports, num_aggs, kernels.stream_ptr(dev),
-            counter="keccak_binder")
+            counter=COUNTERS[n])
     return (out[0], out[1])

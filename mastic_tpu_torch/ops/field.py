@@ -1,18 +1,19 @@
-"""Batched Field64 arithmetic in PyTorch: 16-bit limbs, Montgomery
-multiplication (port of `mastic_tpu/ops/field_jax.py`).
+"""Batched Field64 and Field128 arithmetic in PyTorch: 16-bit limbs,
+Montgomery multiplication (port of `mastic_tpu/ops/field_jax.py`).
 
 Layout as in the JAX package: shape (..., n), little-endian limb order,
-n = 4 for Field64, limb values < 2^16.  Limbs cross function boundaries
-as int32 and are computed in int64, where a 16x16-bit product and every
-column sum fit exactly, so each step below is the JAX package's uint32
-step with the same values.  Elements the FLP multiplies live in the
-Montgomery domain; payloads stay plain.  Only Field64 is ported so far.
+n = 4 for Field64 and 8 for Field128, limb values < 2^16.  Limbs cross
+function boundaries as int32 and are computed in int64, where a
+16x16-bit product and every column sum fit exactly (at n = 8 a column
+sums at most 2n + 2 halves of products, below 2^21), so each step below
+is the JAX package's uint32 step with the same values.  Elements the
+FLP multiplies live in the Montgomery domain; payloads stay plain.
 """
 
 import numpy as np
 import torch
 
-from ..field import Field64
+from ..field import Field64, Field128
 from .bits import I32, I64
 
 _MASK16 = 0xFFFF
@@ -188,9 +189,13 @@ def field_sum(spec: FieldSpec, x: torch.Tensor, axis: int) -> torch.Tensor:
 
 FIELD64 = FieldSpec(Field64.MODULUS, Field64.ENCODED_SIZE,
                     Field64.GEN_ORDER)
+FIELD128 = FieldSpec(Field128.MODULUS, Field128.ENCODED_SIZE,
+                     Field128.GEN_ORDER)
 
 
 def spec_for(field) -> FieldSpec:
     if field is Field64:
         return FIELD64
-    raise NotImplementedError(f"no batched spec for {field} in the port yet")
+    if field is Field128:
+        return FIELD128
+    raise ValueError(f"no batched spec for {field}")

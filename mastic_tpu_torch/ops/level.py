@@ -6,36 +6,100 @@ every parent (2 fixed-key AES blocks), correct seeds and control bits,
 convert each child (`convert_blocks` AES blocks: next seed, payload
 limbs with the in-range mask, w_cw added mod p where the child holds
 ctrl), and the node proof (TurboSHAKE128 over prefix | next seed |
-binder, XORed with proof_cw where the child holds ctrl).
+binder, XORed with proof_cw where the child holds ctrl).  Payloads are
+Field64 or Field128 elements of any number: the TPU kernel's limit of
+8 convert blocks is its VMEM envelope's, not the reference semantics
+(the JAX package's incremental round hashes any payload through XLA).
 
 The binder length is a runtime argument: the TPU kernel bakes it in,
 so the JAX package's incremental round (whose binder grows with the
 level) never reaches it; here `IncrementalMastic._eval_step_dynamic`
-goes through K3 as well.  The node-proof message takes as many rate
-blocks as prefix, seed and binder need (the TPU kernel's one-block
+goes through K3 as well, and so does `BatchedVidpf.get_beta_share` (a
+depth-0 step from the root key).  The node-proof message takes as many
+rate blocks as prefix, seed and binder need (the TPU kernel's one-block
 limit is its own).  On a CUDA tensor the wrapper builds the per-node
 message template and launches `csrc/level.cu` on the report-major
 inputs as they are (the level kernel, then the node-proof kernel: one
-launch call, counted once); on a CPU tensor it runs `level_step_plain`,
-which is `backend.vidpf.level_core` plus the plain TurboSHAKE sponge.
+launch call, counted once, as "level" for Field64 payloads and
+"level_f128" for Field128); on a CPU tensor it runs `level_step_plain`,
+which is `level_core` plus the plain TurboSHAKE sponge.
 """
 
 import numpy as np
 import torch
 
-from ..backend.vidpf import level_core
+from ..backend.xof import fixed_key_blocks_planes, sample_vec
 from . import kernels
+from .aes import bitslice_keys, bitslice_pack, bitslice_unpack, pack_mask, \
+    unpack_mask
 from .bits import I32
+from .field import FieldSpec
 from .keccak import RATE, turbo_shake128_dynamic_plain
 
-_MAX_CONVERT_BLOCKS = 8
+# The launch counter of each payload field, by limb count.
+COUNTERS = {4: "level", 8: "level_f128"}
 
 
-def supports(convert_blocks: int) -> bool:
-    """Shapes the fused level step serves: the convert stays a few AES
-    blocks.  The node-proof message may take any number of rate
-    blocks (a long `ctx` makes it longer than one)."""
-    return convert_blocks <= _MAX_CONVERT_BLOCKS
+def level_core(spec: FieldSpec, convert_blocks: int, value_len: int,
+               ext_rk: torch.Tensor, conv_rk: torch.Tensor,
+               parent_seed: torch.Tensor, parent_ctrl: torch.Tensor,
+               cw_slice) -> tuple:
+    """extend + correct + convert for one level (everything but the
+    node proof), in the bitsliced plane domain: one bitslice_pack of
+    the parent seeds in, one unpack of the next seeds and payload out,
+    corrections as mask ANDs on packed words.  Reports are padded to a
+    multiple of 32 with zero lanes.  Returns (next_seed (R, 2N, 16), ct
+    (R, 2N) bool, w plain limbs (R, 2N, VL, n), ok (R, 2N)); children
+    interleave (left0, right0, left1, ...), i.e. lexicographic order.
+    It runs the AES on its plain version: this is K3's plain version."""
+    (seed_cw, ctrl_cw, w_cw, _proof_cw) = cw_slice
+    (num_reports, num_parents) = parent_ctrl.shape
+    pad = (-num_reports) % 32
+
+    def padded(x):
+        if not pad:
+            return x
+        return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+
+    ext_kp = bitslice_keys(padded(ext_rk)).contiguous()   # (11,8,16,W)
+    conv_kp = bitslice_keys(padded(conv_rk)).contiguous()
+    sp = bitslice_pack(padded(parent_seed))               # (8,16,N,W)
+    pctrl = pack_mask(padded(parent_ctrl))                # (N, W)
+
+    ext = fixed_key_blocks_planes(ext_kp, sp, 2)        # (8,16,N,2,W)
+    s_l = ext[..., 0, :].clone()
+    s_r = ext[..., 1, :].clone()
+    # Control bits are plane (0, byte 0); clear them in the seeds.
+    t_l = s_l[0, 0].clone()
+    t_r = s_r[0, 0].clone()
+    s_l[0, 0] = 0
+    s_r[0, 0] = 0
+
+    cw_planes = bitslice_pack(padded(seed_cw))            # (8, 16, W)
+    sel = cw_planes[:, :, None, :] & pctrl[None, None, :, :]
+    s_l = s_l ^ sel
+    s_r = s_r ^ sel
+    cw_ctrl = pack_mask(padded(ctrl_cw))                  # (2, W)
+    t_l = t_l ^ (pctrl & cw_ctrl[0])
+    t_r = t_r ^ (pctrl & cw_ctrl[1])
+
+    cs = torch.stack([s_l, s_r], dim=3).reshape(
+        (8, 16, 2 * num_parents) + sp.shape[-1:])
+    ct_words = torch.stack([t_l, t_r], dim=1).reshape(2 * num_parents, -1)
+
+    stream = fixed_key_blocks_planes(conv_kp, cs, convert_blocks)
+    next_seed = bitslice_unpack(stream[..., 0, :])[:num_reports]
+    tail = stream[..., 1:, :]
+    tail = bitslice_unpack(
+        tail.reshape(tail.shape[:2] + (-1,) + tail.shape[-1:]))
+    stream_bytes = tail[:num_reports].reshape(num_reports,
+                                              2 * num_parents, -1)
+    (w, ok) = sample_vec(spec, stream_bytes, value_len)
+
+    ct = unpack_mask(ct_words, num_reports)               # (R, 2N)
+    w = torch.where(ct[..., None, None], spec.add(w, w_cw[:, None]), w)
+    return (next_seed.contiguous(), ct, w, ok)
+
 
 
 def level_step(spec, convert_blocks: int, value_len: int,
@@ -54,10 +118,10 @@ def level_step(spec, convert_blocks: int, value_len: int,
     bool, w (R, 2N, VL, n) int32 plain limbs, ok (R, 2N) bool, proof
     (R, 2N, 32) uint8); children interleave (left0, right0, left1,
     ...)."""
-    if not supports(convert_blocks):
-        raise ValueError("shape outside the fused level step")
     if binder_len > node_binder.shape[-1]:
         raise ValueError("binder_len exceeds the binder rows")
+    if convert_blocks != 1 + (value_len * spec.encoded_size + 15) // 16:
+        raise ValueError("convert_blocks does not match the payload")
     if parent_seed.is_cuda:
         return _level_cuda(spec, convert_blocks, value_len, ext_rk, conv_rk,
                            parent_seed, parent_ctrl, cw_slice, prefix,
@@ -115,8 +179,9 @@ def _level_cuda(spec, convert_blocks: int, value_len: int,
                 parent_seed: torch.Tensor, parent_ctrl: torch.Tensor,
                 cw_slice, prefix: bytes, node_binder: torch.Tensor,
                 binder_len: int) -> tuple:
-    if spec.num_limbs != 4:
-        raise NotImplementedError("the level kernel serves Field64 only")
+    n = spec.num_limbs
+    if n not in COUNTERS:
+        raise ValueError(f"no level kernel for {n}-limb payloads")
     (seed_cw, ctrl_cw, w_cw, proof_cw) = cw_slice
     (num_reports, num_parents) = parent_ctrl.shape
     dev = parent_seed.device
@@ -125,7 +190,7 @@ def _level_cuda(spec, convert_blocks: int, value_len: int,
             or conv_rk.shape != (num_reports, 11, 16) \
             or seed_cw.shape != (num_reports, 16) \
             or ctrl_cw.shape != (num_reports, 2) \
-            or w_cw.shape != (num_reports, value_len, 4) \
+            or w_cw.shape != (num_reports, value_len, n) \
             or proof_cw.shape != (num_reports, 32) \
             or node_binder.shape[0] != 2 * num_parents:
         raise ValueError("level_step: inconsistent input shapes")
@@ -146,7 +211,7 @@ def _level_cuda(spec, convert_blocks: int, value_len: int,
     next_seed = torch.empty((num_reports, n2, 16), dtype=torch.uint8,
                             device=dev)
     ct = torch.empty((num_reports, n2), dtype=torch.bool, device=dev)
-    w = torch.empty((num_reports, n2, value_len, 4), dtype=I32, device=dev)
+    w = torch.empty((num_reports, n2, value_len, n), dtype=I32, device=dev)
     ok = torch.empty((num_reports, n2), dtype=torch.bool, device=dev)
     proof = torch.empty((num_reports, n2, 32), dtype=torch.uint8, device=dev)
     if num_reports:
@@ -154,6 +219,6 @@ def _level_cuda(spec, convert_blocks: int, value_len: int,
             "level", "level_step", *(x.data_ptr() for x in ins),
             tmpl.data_ptr(), nb, len(prefix), next_seed.data_ptr(),
             ct.data_ptr(), w.data_ptr(), ok.data_ptr(), proof.data_ptr(),
-            num_reports, num_parents, convert_blocks, value_len,
-            kernels.stream_ptr(dev))
+            num_reports, num_parents, convert_blocks, value_len, n,
+            kernels.stream_ptr(dev), counter=COUNTERS[n])
     return (next_seed, ct, w, ok, proof)

@@ -1,14 +1,17 @@
 """Where the round time of chip_smoke.py's collection goes, by phase.
 
-    python3 profile_smoke.py [--seed N] [--levels L]
+    python3 profile_smoke.py [--seed N] [--levels L] [--path count|sum]
 
 Runs chip_smoke.py's main path (MasticCount(256), 4096 reports, the same
-measurements from --seed) with a synchronising host timer around each
+measurements from --seed), or with `--path sum` its weighted
+heavy-hitters path (MasticSum(256, 255) through compute_heavy_hitters,
+all levels), with a synchronising host timer around each
 phase of a round: the host RoundPlan, the index upload, kernel K3's
 level step, the binder sponges (kernel K1's gathered sponge, both
 aggregators in one launch), the eval proofs (binders, counter check,
-eval-proof XOF), both aggregators' round, the level-0 weight check, the
-masked aggregation and the collect (sync and unshard). Each phase is
+eval-proof XOF), both aggregators' round, the truncation of the out
+shares, the level-0 weight check, the masked aggregation and the collect
+(sync and unshard). Each phase is
 summed over all levels and over the deepest quarter. The timers
 synchronise the card around every phase, so the rounds run somewhat
 slower than in chip_smoke.py.
@@ -23,7 +26,7 @@ after a one-level pass of the same path, which loads every kernel.
 
 Then it traces two of the deepest levels with torch.profiler and prints
 the card's busy share of their wall time and the top device operations.
-Then it times the two ways to launch K1's binder sponge over two
+On the Count path it then times the two ways to launch K1's binder sponge over two
 aggregators' level-255 carries: both in one launch (the main path's)
 and one launch per aggregator.  Last it times K2 over growing grids
 (4096 reports, 2 blocks, 1 to 64 seeds a report): the whole
@@ -171,7 +174,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--levels", type=int, default=chip_smoke.BITS)
+    parser.add_argument("--path", choices=("count", "sum"), default="count")
     args = parser.parse_args()
+    if args.path == "sum":
+        args.levels = chip_smoke.BITS
     if not torch.cuda.is_available():
         print("profile_smoke: no CUDA card", file=sys.stderr)
         return 2
@@ -211,6 +217,7 @@ def main() -> int:
     bm = mastic.BatchedMastic
     bm.weight_check_device = timed("weight check", bm.weight_check_device)
     bm.aggregate = timed("masked aggregation", bm.aggregate)
+    bm.truncate = timed("truncate (out shares)", bm.truncate)
     runner = heavy_hitters.IncrementalRunner
     runner.round_collect = timed("collect (sync + unshard)",
                                  runner.round_collect)
@@ -243,8 +250,11 @@ def main() -> int:
     for timings in (total, deep, shard):
         timings.clear()
     state["warm"] = True
-    result = chip_smoke.main_path(torch.device("cuda"), args.seed,
-                                  args.levels)
+    if args.path == "sum":
+        result = chip_smoke.sum_path(torch.device("cuda"), args.seed)
+    else:
+        result = chip_smoke.main_path(torch.device("cuda"), args.seed,
+                                      args.levels)
     print({k: v for (k, v) in result.items() if k != "shard_launches"})
     print_shard(shard, result["shard_s"])
     for (name, secs) in sorted(total.items(), key=lambda kv: -kv[1]):
@@ -260,8 +270,9 @@ def main() -> int:
     print(averages.table(sort_by="self_cuda_time_total", row_limit=15))
     del result, averages, trace
     torch.cuda.empty_cache()
-    binder_launch_forms(args.seed)
-    fixed_key_grids(args.seed)
+    if args.path == "count":
+        binder_launch_forms(args.seed)
+        fixed_key_grids(args.seed)
     return 0
 
 

@@ -18,6 +18,7 @@ from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
 from mastic_tpu_torch.backend.xof import fixed_key_blocks
 from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
 from mastic_tpu_torch.ops import kernels, level
+from mastic_tpu_torch.ops.field import FIELD128
 from mastic_tpu_torch.ops.keccak import turbo_shake128
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -90,12 +91,16 @@ def test_kernel_argument_checks():
     t = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.check_cuda(t, torch.int32, "x")
-    assert level.supports(2)
-    assert not level.supports(9)
     with pytest.raises(ValueError, match="binder_len"):
         level.level_step(None, 2, 2, None, None, None, None, None,
                          bytes(28), torch.zeros((2, 4), dtype=torch.uint8),
                          6)
+    # Any payload length is served (the TPU kernel's 8-block limit is
+    # gone); the block count must match the payload.
+    with pytest.raises(ValueError, match="convert_blocks"):
+        level.level_step(FIELD128, 10, 10, None, None, None, None, None,
+                         bytes(28), torch.zeros((2, 4), dtype=torch.uint8),
+                         4)
 
 
 def test_kernel_build_is_keyed_by_every_source():
