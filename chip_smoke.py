@@ -27,7 +27,14 @@
    alone at depth 256, where the plain version does not fit the card)
    and on two Field128 carries at the Histogram path's last level
    (values >= p planted in both); K2 at 10, 18 and 1026 blocks.
-3. Drives four paths, each with every launch counter set to 0 just
+   And at the from-root shapes: K3 at the attribute round's 10 000
+   reports (not a multiple of 32) x 64 parents; K1's binder sponge on
+   that round's flat tree (one aggregator, the schedule's index lists,
+   2.3 G limbs), checked at its full size, and on the SumVec round's
+   Field128 tree (1025-element rows, 8.5 G limbs), timed there and
+   checked on the same tree with the index lists cut to a few rows at
+   both ends of the node axis.
+3. Drives six paths, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
    runs (K1's binder sponge and K3 count Field128 launches apart):
    a. Count: MasticCount(256) over Field64 with R = 4096 reports (32
@@ -38,6 +45,10 @@
       over the reports that were not rejected, and the heavy hitters
       must be the planted strings.  `--levels L` stops after L levels
       (a cut of depth, printed on its own line).
+   a'. Count from the root: the Count path's last level again as one
+      `run_round` (the whole grid for both aggregators) over the reports
+      the incremental runner kept: its aggregates must equal the
+      incremental runner's.
    b. Sum (weighted heavy hitters): MasticSum(256, 255), the same
       strings with weights uniform in [0, 255], through
       `HeavyHittersRun` (the loop of `compute_heavy_hitters`) at all 256
@@ -48,11 +59,22 @@
       of the resident runner with the attributes' ancestors as the
       frontier and the weight check (joint rand confirmed) at level 0;
       every level's 16-bucket aggregates must equal numpy's.
-   d. SumVec (long payload): MasticSumVec(128, 1024, 1, 32), R = 4096,
-      sharded (K3 at 1026 blocks for the joint-rand parts), then both
-      aggregators' weight check from their depth-0 payloads: every
-      honest report must be accepted.  No rounds: its carry does not
-      fit a 128-level tree at this R.
+   d. SumVec (long payload): MasticSumVec(128, 1024, 1, 32), R = 4096
+      (four in five reports on 4 hashed attributes), sharded (K3 at
+      1026 blocks for the joint-rand parts), then both aggregators'
+      weight check from their depth-0 payloads: every honest report must
+      be accepted.  Then `aggregate_by_attribute` from the root over the
+      first 1024 reports (a cut: the flat tree is about 33 MB a report):
+      every attribute's 1024-entry vector must equal numpy's.  No
+      incremental rounds: its carry does not fit a 128-level tree.
+   e. Attributes: MasticSum(32, 255) over 10 000 reports and 64
+      attributes of interest (BASELINE.json's attribute-metrics
+      configuration), 100 reports with a flipped correction-word byte
+      and 100 with a changed leader proof limb; the one round of
+      `AttributeMetricsRun` (what `aggregate_by_attribute` steps): the
+      accept mask must reject exactly the tampered reports, RoundMetrics
+      attribute them to the eval proof and the weight check, and every
+      attribute's aggregate must equal numpy's weight sum.
 4. Prints the `kernels` JSON line (every kernel and instantiation), the
    card, each path's figures, and last `{"ok": true, "device": {...}}`.
    Any failure exits non-zero before that line.
@@ -95,14 +117,29 @@ SUM_VALUE_LEN = 1 + 2 * SUM_MAX.bit_length()
 HIST = (64, 16, 4)
 HIST_ATTRS = 16
 SUMVEC = (128, 1024, 1, 32)
+# Attribute metrics: BASELINE.json's "Mastic<Sum(2^8), BITS=32>, 10k
+# clients, single agg round", MasticSum(32, 255) over 10 000 reports
+# and 64 attributes of interest (four in five reports take one of
+# them), with 100 reports of each tampered kind (~1%).
+ATTR_BITS = 32
+ATTR_R = 10_000
+ATTR_ASKED = 64
+ATTR_TAMPERED = 100
+# SumVec from the root: 4 attributes over the first 1024 of the sumvec
+# path's 4096 reports (its flat tree is about 33 MB a report).
+SUMVEC_ASKED = 4
+SUMVEC_ROOT_R = 1024
 # The launch counters each path must reach (ops/kernels.py): K1's
 # in-place sponge and its binder sponge (per field), K2's fixed-key
-# entry, K3 (per field).
+# entry, K3 (per field).  The from-root cross-check of the Count path
+# runs no shard, so no K2.
 PATH_COUNTERS = {
     "count": ("keccak", "keccak_binder", "aes", "level"),
+    "count_from_root": ("keccak", "keccak_binder", "level"),
     "sum": ("keccak", "keccak_binder", "aes", "level"),
     "histogram": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
-    "sumvec": ("keccak", "aes", "level_f128"),
+    "sumvec": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
+    "attributes": ("keccak", "keccak_binder", "aes", "level"),
 }
 CTX = b"mastic chip smoke"
 LONG_CTX = bytes(range(150))
@@ -313,12 +350,12 @@ def field_values(spec, shape: tuple, dev: torch.device,
 
 def check_level(dev: torch.device, gen: torch.Generator, spec,
                 value_len: int, parents: int, ctx: bytes, name: str,
-                reports: int = R) -> dict:
+                reports: int = R, binder_len: int = 36) -> dict:
     """K3 against its plain version at `reports` x `parents` with a
-    36-byte node binder (level 255's) and payloads of `value_len`
-    elements of `spec`'s field (w_cw holding values >= p): the whole
-    call by CUDA events, its two kernels' device time from a profiler
-    trace, the plain version's time and the bound."""
+    `binder_len`-byte node binder (level 255's by default) and payloads
+    of `value_len` elements of `spec`'s field (w_cw holding values >=
+    p): the whole call by CUDA events, its two kernels' device time from
+    a profiler trace, the plain version's time and the bound."""
     from mastic_tpu_torch.backend.vidpf import BatchedVidpf
     from mastic_tpu_torch.backend.xof import ts_prefix
     from mastic_tpu_torch.dst import USAGE_NODE_PROOF, dst
@@ -334,10 +371,10 @@ def check_level(dev: torch.device, gen: torch.Generator, spec,
     cw = (rand_u8(reports, 16), rand_u8(reports, 2) >= 128,
           field_values(spec, (reports, value_len), dev, gen),
           rand_u8(reports, 32))
-    binder = rand_u8(2 * parents, 36)
+    binder = rand_u8(2 * parents, binder_len)
     args = (spec, vid.convert_blocks, value_len, ext_rk, conv_rk,
             rand_u8(reports, parents, 16), rand_u8(reports, parents) >= 128,
-            cw, prefix, binder, 36)
+            cw, prefix, binder, binder_len)
     err = _max_err(level.level_step(*args), level.level_step_plain(*args))
     # The whole call by CUDA events (what the main path pays: the
     # wrapper's template and copies, and the kernels), as in PR 1; the
@@ -348,7 +385,7 @@ def check_level(dev: torch.device, gen: torch.Generator, spec,
     ms = _time(lambda: level.level_step(*args), reps)
     plain_ms = _time(lambda: level.level_step_plain(*args), 1)
     pairs = (reports + 31) // 32 * parents
-    nb = (len(prefix) + 16 + 36) // 168 + 1
+    nb = (len(prefix) + 16 + binder_len) // 168 + 1
     elem = spec.num_limbs * 4
     in_bytes = 2 * 11 * 16 * reports + reports * parents * 17 \
         + reports * (16 + 2 + value_len * elem + 32) + len(prefix) \
@@ -465,6 +502,130 @@ def check_new_shapes(dev: torch.device, gen: torch.Generator) -> list:
                      "bound_ms": bound, "bound_by": by, "library_ms": None,
                      "shape": f"fixed_key_blocks, {R} reports x 2 seeds x "
                               f"{blocks} blocks"})
+    for row in rows:
+        if row["max_abs_err"]:
+            raise AssertionError(f"{row['name']} disagrees with its plain "
+                                 f"version: {row['max_abs_err']}")
+    return rows
+
+
+def flat_binder_inputs(dev: torch.device, gen: torch.Generator, sched,
+                       reports: int, spec, value_len: int,
+                       alg_id: int) -> tuple:
+    """The arguments of `binder_checks` as the from-root prep passes
+    them: one aggregator's random flat tree (reports, 1, T, value_len,
+    n) with values >= p (`field_values`) and its node proofs, and the
+    schedule's index lists into the flat node axis."""
+    from mastic_tpu_torch.backend.xof import ts_prefix
+    from mastic_tpu_torch.dst import (USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK,
+                                      dst_alg)
+
+    total = sched.total_nodes
+    w = field_values(spec, (reports, 1, total, value_len), dev, gen)
+    proof = torch.randint(0, 256, (reports, 1, total, 32), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    idx = tuple(torch.as_tensor(x, device=dev) for x in sched.check_indices())
+    pre = tuple(ts_prefix(dst_alg(CTX, usage, alg_id), 0)
+                for usage in (USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK))
+    return (spec, (w,), (proof,), *idx, *pre)
+
+
+def _flat_binder_row(name: str, args: tuple, compare: tuple,
+                     elem_ops: int, what: str) -> dict:
+    """K1's binder sponge on a from-root flat tree: held bit-exact
+    against its plain version on the inputs `compare`, the kernel timed
+    and bounded on `args` (the path's shape)."""
+    from mastic_tpu_torch.ops import binder
+
+    got = binder.binder_checks(*compare)
+    t0 = time.perf_counter()
+    want = binder.binder_checks_plain(*compare)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _max_err(got, want)
+    del got, want
+    (ms, bound, by, shape) = _binder_cost(args, elem_ops)
+    print(f"{name}: {shape}, {ms:.4f} ms (bound {bound:.4f} ms by {by}); "
+          f"against the plain version ({plain_ms:.1f} ms) {what}: "
+          f"max_abs_err {err}")
+    return {"name": name, "route": "cuda",
+            "source": "mastic_tpu_torch/csrc/keccak.cu",
+            "replaces": "mastic_tpu/ops/keccak_pallas.py:72",
+            "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "shape": f"{shape}; checked {what}"}
+
+
+def _end_rows(args: tuple, onehot: int, payload: int) -> tuple:
+    """`flat_binder_inputs`' arguments with the index lists cut to
+    their first entry and their last ones (`onehot` onehot rows,
+    `payload` payload rows in all), on the same tree: every report's
+    rows, the last reports' past 2^32 limbs, at the far end of the node
+    axis."""
+    (spec, ws, proofs, *idx) = args[:7]
+
+    def ends(t, k):
+        return torch.cat((t[:1], t[t.shape[0] - (k - 1):]))
+
+    return (spec, ws, proofs, ends(idx[0], onehot),
+            *(ends(t, payload) for t in idx[1:]), *args[7:])
+
+
+def check_from_root(dev: torch.device, gen: torch.Generator,
+                    seed: int) -> list:
+    """The kernels at the from-root paths' shapes: K3 at the attribute
+    round's (R = 10 000, not a multiple of 32, x 64 parents, Field64
+    VALUE_LEN 17, an 8-byte binder); K1's binder sponge on that round's
+    flat tree (one aggregator, its schedule's index lists), checked at
+    the full R; and on the SumVec round's Field128 tree (1025-element
+    rows, 1024 reports x 1008 nodes, 8.5 G limbs), timed there and
+    checked against the plain version on that same tree with the index
+    lists cut by `_end_rows` (the plain sponge runs its rate blocks one
+    by one: the path's 49 000-block payload message would take it tens
+    of minutes)."""
+    from mastic_tpu_torch import hash_attribute
+    from mastic_tpu_torch.backend.mastic import MasticSum, MasticSumVec
+    from mastic_tpu_torch.backend.schedule import LevelSchedule
+    from mastic_tpu_torch.ops.field import FIELD64, FIELD128
+
+    row = check_level(dev, gen, FIELD64, SUM_VALUE_LEN, ATTR_ASKED, CTX,
+                      "level_step_from_root_sum", reports=ATTR_R,
+                      binder_len=4 + ATTR_BITS // 8)
+    print(f"K3 (level_step_from_root_sum): whole call {row['ms']:.4f} ms, "
+          f"kernels {row['device_ms']:.4f} ms (plain {row['plain_ms']:.3f} "
+          f"ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
+          f"{row['shape']}, max_abs_err {row['max_abs_err']}")
+    rows = [row]
+
+    mastic = MasticSum(ATTR_BITS, SUM_MAX)
+    asked = attribute_measurements(seed)[0]
+    sched = LevelSchedule(sorted(hash_attribute(mastic, a) for a in asked),
+                          ATTR_BITS - 1, ATTR_BITS)
+    args = flat_binder_inputs(dev, gen, sched, ATTR_R, FIELD64,
+                              SUM_VALUE_LEN, MasticSum.ID)
+    rows.append(_flat_binder_row(
+        "keccak_binder_sponge_from_root_sum", args, args, PAYLOAD_ELEM_OPS,
+        f"at the same {ATTR_R} reports x {sched.total_nodes} nodes"))
+    del args
+    torch.cuda.empty_cache()
+
+    vec = MasticSumVec(*SUMVEC)
+    paths = sorted(hash_attribute(vec, f"vector-{i}")
+                   for i in range(SUMVEC_ASKED))
+    sched = LevelSchedule(paths, vec.bits - 1, vec.bits)
+    args = flat_binder_inputs(dev, gen, sched, SUMVEC_ROOT_R, FIELD128,
+                              vec.value_len, MasticSumVec.ID)
+    compare = _end_rows(args, onehot=8, payload=3)
+    limbs = args[1][0].numel()
+    rows.append(_flat_binder_row(
+        "keccak_binder_sponge_from_root_sumvec", args, compare,
+        PAYLOAD_ELEM_OPS_F128,
+        f"on the same {SUMVEC_ROOT_R} reports x {sched.total_nodes} nodes "
+        f"({limbs} limbs, {limbs / 2 ** 32:.2f} x 2^32) with the index "
+        f"lists cut to onehot rows {compare[3].tolist()} and payload rows "
+        f"(par, left, right) {list(zip(*(t.tolist() for t in compare[4:7])))}"))
+    del args, compare
+    torch.cuda.empty_cache()
     for row in rows:
         if row["max_abs_err"]:
             raise AssertionError(f"{row['name']} disagrees with its plain "
@@ -662,6 +823,7 @@ def _binder_cost(args: tuple, elem_ops: int) -> tuple:
     ms = _time(lambda: binder.binder_checks(*args), 3)
     (spec, ws, _proofs, *idx, prefix_onehot, _prefix_payload) = args
     (onehot_rows, payload_rows) = (idx[0].numel(), idx[1].numel())
+    (reports, aggs) = (ws[0].shape[0], len(ws))
     value_len = ws[0].shape[3]
     row_bytes = value_len * spec.encoded_size
     plen = len(prefix_onehot)
@@ -672,15 +834,15 @@ def _binder_cost(args: tuple, elem_ops: int) -> tuple:
     # and the index lists.
     payload_nodes = torch.unique(torch.cat(idx[1:])).numel()
     w_row = value_len * spec.num_limbs * 4
-    in_bytes = 2 * R * (32.0 * onehot_rows + w_row * payload_nodes) \
+    in_bytes = aggs * reports * (32.0 * onehot_rows + w_row * payload_nodes) \
         + 8.0 * (onehot_rows + 3 * payload_rows)
-    out_bytes = 2 * 2 * R * 32.0
-    ops = 2 * R * (blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS)
-                   + value_len * payload_rows * elem_ops)
+    out_bytes = 2 * aggs * reports * 32.0
+    ops = aggs * reports * (blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS)
+                            + value_len * payload_rows * elem_ops)
     (bound, by) = _bound(in_bytes + out_bytes, float(ops))
-    shape = (f"binder sponge, 2 aggregators x {R} reports x (prefix {plen} B "
-             f"+ onehot {onehot_rows} x 32 B, + payload {payload_rows} x "
-             f"{row_bytes} B)")
+    shape = (f"binder sponge, {aggs} aggregator{'s' if aggs > 1 else ''} x "
+             f"{reports} reports x (prefix {plen} B + onehot {onehot_rows} x "
+             f"32 B, + payload {payload_rows} x {row_bytes} B)")
     return (ms, bound, by, shape)
 
 
@@ -807,13 +969,42 @@ def main_path(dev: torch.device, seed: int, levels: int) -> dict:
     live = sum(2 * R * 2 * len({p[:-1] for p in prefixes})
                for (prefixes, _c) in run.level_results)
     padded = 2 * R * sum(widths)
-    return {"levels": done, "shard_s": shard_s, "rounds_s": rounds_s,
+    # What the from-root cross-check reads: the last level's prefixes and
+    # aggregates, and the reports the incremental runner left out.
+    handoff = (bm, vk, batch, excluded_per_level[-1], run.level_results[-1])
+    return {"handoff": handoff, "levels": done, "shard_s": shard_s,
+            "rounds_s": rounds_s,
             "rejected": int((~valid).sum()),
             "shard_rejected": int((~shard_ok).sum()),
             "live_evals": live, "padded_evals": padded,
             "max_frontier": max_frontier,
             "max_width": run.runner.max_width,
             "heavy_hitters": len(got), "shard_launches": shard_launches}
+
+
+def count_from_root(dev: torch.device, handoff: tuple) -> dict:
+    """The Count path's last level again, as one round from the root
+    (`run_round`: the whole grid of that level's prefixes for both
+    aggregators, no weight check) over the reports the incremental
+    runner kept: its aggregates must equal the incremental runner's."""
+    from mastic_tpu_torch.drivers.heavy_hitters import run_round
+
+    (bm, vk, batch, excluded, (prefixes, counts)) = handoff
+    level = len(prefixes[0]) - 1
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run_round(bm, vk, CTX, (level, tuple(prefixes), False), batch,
+                    valid=torch.as_tensor(~excluded, device=dev),
+                    metrics_out=metrics)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    if got != counts:
+        raise AssertionError(f"from the root at level {level}: aggregates "
+                             f"differ from the incremental runner's")
+    return {"level": level, "prefixes": len(prefixes), "round_s": round_s,
+            "nodes": metrics[0].padded_width,
+            "accepted": metrics[0].accepted}
 
 
 def sum_measurements(seed: int) -> tuple:
@@ -837,13 +1028,14 @@ def survivors(alphas: np.ndarray, weights: np.ndarray, valid: np.ndarray,
     return sorted(tuple(bool(b) for b in row) for row in bits)
 
 
-def _path_inputs(dev: torch.device, seed: int, rand_size: int) -> tuple:
+def _path_inputs(dev: torch.device, seed: int, rand_size: int,
+                 reports: int = R) -> tuple:
     """Nonces, client randomness and the verify key of a path, drawn on
     the card from `seed`."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    nonces = torch.randint(0, 256, (R, 16), dtype=torch.uint8, device=dev,
-                           generator=gen)
-    rand = torch.randint(0, 256, (R, rand_size), dtype=torch.uint8,
+    nonces = torch.randint(0, 256, (reports, 16), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    rand = torch.randint(0, 256, (reports, rand_size), dtype=torch.uint8,
                          device=dev, generator=gen)
     vk = bytes(torch.randint(0, 256, (32,), dtype=torch.uint8, device=dev,
                              generator=gen).cpu().tolist())
@@ -965,19 +1157,43 @@ def histogram_path(dev: torch.device, seed: int) -> dict:
             "max_width": runner.max_width, "shard_launches": shard_launches}
 
 
+def _head(batch, n: int):
+    """The first n reports of a ReportBatch, copied (so that the whole
+    batch can be freed)."""
+    def cut(x):
+        return None if x is None else x[:n].clone()
+
+    return batch._replace(
+        nonces=cut(batch.nonces), cws=type(batch.cws)(*map(cut, batch.cws)),
+        keys=cut(batch.keys), leader_proofs=cut(batch.leader_proofs),
+        helper_seeds=cut(batch.helper_seeds),
+        leader_seeds=cut(batch.leader_seeds),
+        peer_parts=tuple(map(cut, batch.peer_parts)))
+
+
 def sumvec_path(dev: torch.device, seed: int) -> dict:
-    """The long payload: MasticSumVec(128, 1024, 1, 32) sharded (the
-    joint-rand parts from both beta shares: K3 at depth 0 with 1026
-    convert blocks), then both aggregators' weight check from their
-    depth-0 payloads; every honest report must be accepted and the two
-    beta shares must sum to the encoded measurement."""
+    """The long payload: MasticSumVec(128, 1024, 1, 32), R = 4096
+    reports of which four in five take one of 4 hashed attributes,
+    sharded (the joint-rand parts from both beta shares: K3 at depth 0
+    with 1026 convert blocks), then both aggregators' weight check from
+    their depth-0 payloads: every honest report must be accepted and
+    the two beta shares must sum to the encoded measurement.  Then the
+    attribute-metrics round from the root over the first 1024 reports
+    (`aggregate_by_attribute`: 128 depths of 1026-block level steps for
+    each aggregator, K1 on Field128 rows of 1025 elements): each attribute's
+    1024-entry vector must equal numpy's sum."""
+    from mastic_tpu_torch import aggregate_by_attribute, hash_attribute
     from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticSumVec
 
     (bits, length, vbits, _chunk) = SUMVEC
     rng = np.random.default_rng(seed + 6)
-    alphas = rng.integers(0, 2, (R, bits)).astype(bool)
-    values = rng.integers(0, 2 ** vbits, (R, length))
     mastic = MasticSumVec(*SUMVEC)
+    asked = [f"vector-{i}" for i in range(SUMVEC_ASKED)]
+    paths = np.array([hash_attribute(mastic, a) for a in asked], bool)
+    alphas = np.where((rng.random(R) < 0.8)[:, None],
+                      paths[rng.integers(0, SUMVEC_ASKED, R)],
+                      rng.integers(0, 2, (R, bits)).astype(bool))
+    values = rng.integers(0, 2 ** vbits, (R, length))
     bm = BatchedMastic(mastic)
     (nonces, rand, vk) = _path_inputs(dev, seed + 7, mastic.RAND_SIZE)
     meas = [(tuple(bool(b) for b in alphas[r]), values[r].tolist())
@@ -986,12 +1202,13 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
     shard_peak = torch.cuda.max_memory_allocated(dev)
 
     t0 = time.perf_counter()
-    pairs = [bm.vidpf.root_children(a, batch.cws, batch.keys[:, a], CTX,
-                                    batch.nonces) for a in range(2)]
-    (checks, wc_ok) = bm.weight_check_device(vk, CTX, 0, batch, pairs[0][0],
-                                             pairs[1][0])
+    root = bm.schedule((0, ((False,), (True,)), True), dev)
+    trees = [bm.vidpf.eval_full(a, batch.cws, batch.keys[:, a], root, CTX,
+                                batch.nonces) for a in range(2)]
+    (checks, wc_ok) = bm.weight_check_device(vk, CTX, 0, batch, trees[0][0],
+                                             trees[1][0])
     accept = checks["weight_check"] & checks["joint_rand"] & wc_ok \
-        & pairs[0][1] & pairs[1][1] & shard_ok
+        & trees[0][3] & trees[1][3] & shard_ok
     torch.cuda.synchronize()
     check_s = time.perf_counter() - t0
     if not bool(accept.all()):
@@ -1000,17 +1217,137 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
             f"(weight_check {int((~checks['weight_check']).sum())}, "
             f"joint_rand {int((~checks['joint_rand']).sum())})")
     spec = bm.spec
-    beta = spec.add(spec.add(pairs[0][0][:, 0], pairs[0][0][:, 1]),
-                    spec.neg(spec.add(pairs[1][0][:, 0], pairs[1][0][:, 1])))
+    (w0, w1) = (trees[0][0], trees[1][0])
+    beta = spec.add(spec.add(w0[:, 0], w0[:, 1]),
+                    spec.neg(spec.add(w1[:, 0], w1[:, 1])))
     (_alphas, betas) = bm.encode_measurements(meas[:64], dev)
     if not torch.equal(beta[:64], betas):
         raise AssertionError("MasticSumVec: the beta shares do not sum to "
                              "the encoded measurements")
     cw_bytes = batch.cws.w.numel() * batch.cws.w.element_size()
+    accepted = int(accept.sum())
+    sub = _head(batch, SUMVEC_ROOT_R)
+    valid = shard_ok[:SUMVEC_ROOT_R].clone()
+    del batch, trees, checks, wc_ok, accept, beta, w0, w1, shard_ok
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    metrics = []
+    t0 = time.perf_counter()
+    got = aggregate_by_attribute(mastic, CTX, asked, vk, sub, valid=valid,
+                                 metrics_out=metrics, device=dev)
+    torch.cuda.synchronize()
+    root_s = time.perf_counter() - t0
+    kept = valid.cpu().numpy()
+    if metrics[0].xof_fallbacks != int((~kept).sum()) \
+            or metrics[0].accepted != int(kept.sum()):
+        raise AssertionError(f"MasticSumVec from the root: {metrics[0]}")
+    head = alphas[:SUMVEC_ROOT_R]
+    want = [(a, values[:SUMVEC_ROOT_R][(head == p).all(axis=1)
+                                       & kept].sum(axis=0).tolist())
+            for (a, p) in zip(asked, paths)]
+    if got != want:
+        raise AssertionError("MasticSumVec from the root: per-attribute "
+                             "vectors differ from numpy's")
     return {"shard_s": shard_s, "check_s": check_s,
+            "shard_rejected": int((~kept).sum()),
+            "accepted": accepted, "cws_w_bytes": cw_bytes,
+            "shard_peak": shard_peak, "root_s": root_s,
+            "root_peak": torch.cuda.max_memory_allocated(dev),
+            "root_nodes": metrics[0].padded_width,
+            "root_accepted": metrics[0].accepted,
+            "root_in_set": int(sum((head == p).all(axis=1).sum()
+                                   for p in paths))}
+
+
+def attribute_measurements(seed: int) -> tuple:
+    """The attribute path's reports: 64 attributes of interest, each
+    report's attribute one of them (four in five) or one of 2^40 others,
+    weights uniform in [0, 255].  (asked, names, weights)."""
+    rng = np.random.default_rng(seed + 8)
+    asked = [f"attribute-{i}" for i in range(ATTR_ASKED)]
+    inside = rng.random(ATTR_R) < 0.8
+    names = [asked[int(rng.integers(0, ATTR_ASKED))] if inside[r]
+             else f"other-{int(rng.integers(0, 2 ** 40))}"
+             for r in range(ATTR_R)]
+    return (asked, names, rng.integers(0, SUM_MAX + 1, ATTR_R))
+
+
+def attributes_path(dev: torch.device, seed: int) -> dict:
+    """Attribute metrics: MasticSum(32, 255) over 10 000 reports and 64
+    attributes of interest, sharded on the card, 100 reports with a
+    flipped correction-word byte at a random depth (among reports that
+    take an attribute of interest, so the byte is on the evaluated
+    grid) and 100 others with a changed leader proof limb; then the one
+    weight-checked round from the root through `AttributeMetricsRun`
+    (the run `aggregate_by_attribute` steps), its accept mask read from
+    the round's handle.  Exactly the tampered reports must be rejected,
+    attributed to the eval proof and the weight check, and each
+    attribute's aggregate must equal numpy's weight sum over the rest."""
+    from mastic_tpu_torch import AttributeMetricsRun, hash_attribute
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticSum
+
+    (asked, names, weights) = attribute_measurements(seed)
+    mastic = MasticSum(ATTR_BITS, SUM_MAX)
+    bm = BatchedMastic(mastic)
+    path_of = {n: hash_attribute(mastic, n) for n in set(names) | set(asked)}
+    alphas = np.array([path_of[n] for n in names], bool)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 9, mastic.RAND_SIZE, ATTR_R)
+    meas = [(path_of[n], int(w)) for (n, w) in zip(names, weights)]
+    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+
+    rng = np.random.default_rng(seed + 10)
+    asked_paths = np.array([path_of[a] for a in asked], bool)
+    in_set = (alphas[:, None, :] == asked_paths[None]).all(-1).any(-1)
+    cw_rows = np.sort(rng.choice(np.flatnonzero(in_set), ATTR_TAMPERED,
+                                 replace=False))
+    proof_rows = np.sort(rng.choice(np.setdiff1d(np.arange(ATTR_R), cw_rows),
+                                    ATTR_TAMPERED, replace=False))
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    batch.cws.seed[t(cw_rows), t(rng.integers(0, ATTR_BITS, ATTR_TAMPERED)),
+                   t(rng.integers(0, 16, ATTR_TAMPERED))] ^= t(
+        rng.integers(1, 256, ATTR_TAMPERED).astype(np.uint8))
+    batch.leader_proofs[t(proof_rows), t(rng.integers(
+        0, mastic.valid.PROOF_LEN, ATTR_TAMPERED)), 0] ^= 1
+
+    run = AttributeMetricsRun(mastic, CTX, asked, vk, batch, valid=shard_ok,
+                              device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = run.step_begin()
+    more = run.step_finish(handle)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    (_agg0, _agg1, accept, ok, _checks) = handle["out"]
+    (accept, ok) = (accept.cpu().numpy(), ok.cpu().numpy())
+    tampered = np.zeros(ATTR_R, bool)
+    tampered[cw_rows] = tampered[proof_rows] = True
+    m = run.metrics[0]
+    if more or not np.array_equal(accept & ok, ok & ~tampered):
+        raise AssertionError("attribute metrics: the accept mask does not "
+                             "reject exactly the tampered reports")
+    if (m.rejected_eval_proof, m.rejected_weight_check, m.rejected_joint_rand,
+            m.accepted, m.xof_fallbacks) != (
+            int(ok[cw_rows].sum()), int(ok[proof_rows].sum()), 0,
+            int((ok & ~tampered).sum()), int((~ok).sum())):
+        raise AssertionError(f"attribute metrics: rejections misattributed: "
+                             f"{m}")
+    keep = ok & ~tampered
+    want = [(a, int(weights[(alphas == path_of[a]).all(axis=1) & keep].sum()))
+            for a in asked]
+    if run.result() != want:
+        raise AssertionError("attribute metrics: per-attribute sums differ "
+                             "from numpy's")
+    return {"shard_s": shard_s, "round_s": round_s, "nodes": m.padded_width,
+            "in_set": int(in_set.sum()), "accepted": m.accepted,
+            "rejected_eval_proof": m.rejected_eval_proof,
+            "rejected_weight_check": m.rejected_weight_check,
+            "xof_fallbacks": m.xof_fallbacks,
             "shard_rejected": int((~shard_ok).sum()),
-            "accepted": int(accept.sum()), "cws_w_bytes": cw_bytes,
-            "shard_peak": shard_peak}
+            "node_evals": m.node_evals}
 
 
 def _print_launches(counts: dict, result: dict) -> None:
@@ -1053,7 +1390,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip()
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rows = check_kernels(dev, gen) + check_new_shapes(dev, gen)
+    rows = check_kernels(dev, gen) + check_new_shapes(dev, gen) \
+        + check_from_root(dev, gen, args.seed)
     torch.cuda.empty_cache()
 
     # Each path with every count set to 0 just before it and read just
@@ -1061,9 +1399,12 @@ def main() -> int:
     (results, counts, peaks) = ({}, {}, {})
     for (name, drive) in (
             ("count", lambda: main_path(dev, args.seed, args.levels)),
+            ("count_from_root", lambda: count_from_root(
+                dev, results["count"].pop("handoff"))),
             ("sum", lambda: sum_path(dev, args.seed)),
             ("histogram", lambda: histogram_path(dev, args.seed)),
-            ("sumvec", lambda: sumvec_path(dev, args.seed))):
+            ("sumvec", lambda: sumvec_path(dev, args.seed)),
+            ("attributes", lambda: attributes_path(dev, args.seed))):
         torch.cuda.empty_cache()
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1089,7 +1430,11 @@ def main() -> int:
         "keccak_binder_sponge_f128": ("histogram", "keccak_binder_f128"),
         "aes_fixed_key_blocks_sum": ("sum", "aes"),
         "aes_fixed_key_blocks_histogram": ("histogram", "aes"),
-        "aes_fixed_key_blocks_sumvec": ("sumvec", "aes")}
+        "aes_fixed_key_blocks_sumvec": ("sumvec", "aes"),
+        "level_step_from_root_sum": ("attributes", "level"),
+        "keccak_binder_sponge_from_root_sum": ("attributes", "keccak_binder"),
+        "keccak_binder_sponge_from_root_sumvec": ("sumvec",
+                                                  "keccak_binder_f128")}
     for row in rows:
         (path, counter) = row_counter[row["name"]]
         row["launches"] = counts[path][counter]
@@ -1117,6 +1462,15 @@ def main() -> int:
           f"({peaks['count'] / 2 ** 30:.2f} GiB); largest frontier "
           f"{result['max_frontier']} prefixes, padded width "
           f"{result['max_width']}")
+    result = results["count_from_root"]
+    print(f"count from the root: level {result['level']} ({result['prefixes']} "
+          f"prefixes, {result['nodes']} nodes a report) as one run_round: "
+          f"aggregates = the incremental runner's, {result['accepted']} "
+          f"reports accepted; round {result['round_s']:.3f} s; peak device "
+          f"memory {peaks['count_from_root']} B "
+          f"({peaks['count_from_root'] / 2 ** 30:.2f} GiB); launches "
+          + ", ".join(f"{k} {v}" for (k, v) in
+                      counts["count_from_root"].items() if v))
 
     result = results["sum"]
     print(f"sum path: MasticSum({BITS}, {SUM_MAX}) through "
@@ -1154,10 +1508,31 @@ def main() -> int:
           f"sharding); peak device memory {peaks['sumvec']} B "
           f"({peaks['sumvec'] / 2 ** 30:.2f} GiB); launches "
           + ", ".join(f"{k} {v}" for (k, v) in counts["sumvec"].items()))
-    print("sumvec path: no incremental rounds: the carry (about 33 KB a "
-          "node) does not fit a 128-level tree at this R; the JAX package "
-          "runs this instantiation from the root, which the port has not "
-          "ported yet")
+    print(f"sumvec from the root: {SUMVEC_ASKED} attributes over the first "
+          f"{SUMVEC_ROOT_R} of the {R} reports (cut: the flat tree is about "
+          f"33 MB a report), {result['root_in_set']} of them in the set, "
+          f"{result['root_nodes']} nodes a report; each attribute's "
+          f"{SUMVEC[1]}-entry vector = numpy's, {result['root_accepted']} "
+          f"reports accepted; round {result['root_s']:.3f} s; peak device "
+          f"memory of the round {result['root_peak']} B "
+          f"({result['root_peak'] / 2 ** 30:.2f} GiB)")
+    result = results["attributes"]
+    print(f"attributes path: MasticSum({ATTR_BITS}, {SUM_MAX}), {ATTR_R} "
+          f"reports ({result['in_set']} with one of the {ATTR_ASKED} "
+          f"attributes of interest), {result['nodes']} nodes a report; "
+          f"every attribute's sum = numpy's; {ATTR_TAMPERED} tampered "
+          f"correction words and {ATTR_TAMPERED} tampered proof shares: "
+          f"rejected_eval_proof {result['rejected_eval_proof']}, "
+          f"rejected_weight_check {result['rejected_weight_check']}, "
+          f"accepted {result['accepted']}, xof_fallbacks "
+          f"{result['xof_fallbacks']} ({result['shard_rejected']} at "
+          f"sharding); shard {result['shard_s']:.3f} s; round "
+          f"{result['round_s']:.3f} s ({result['node_evals']} node evals, "
+          f"{result['node_evals'] / result['round_s']:.4g} evals/s); peak "
+          f"device memory {peaks['attributes']} B "
+          f"({peaks['attributes'] / 2 ** 30:.2f} GiB); launches "
+          + ", ".join(f"{k} {v}" for (k, v) in counts["attributes"].items()
+                      if v))
     print("path seconds: " + ", ".join(
         f"{name} {r['path_s']:.1f}" for (name, r) in results.items()))
     print(card)

@@ -1,15 +1,20 @@
 """mastic_tpu_torch: the PyTorch/CUDA port of mastic_tpu.
 
 A second package beside the JAX reference `mastic_tpu/`, built slice by
-slice.  It runs heavy-hitters collections on the resident incremental
-runner: batched client sharding (`backend.mastic.BatchedMastic.
-shard_device`, with the joint-rand parts of the Field128 circuits),
-per-level incremental rounds for both aggregators
-(`backend.incremental.IncrementalMastic.agg_round`), the level-0 FLP
-weight check, masked aggregation, unshard and decode, and threshold
-pruning (`drivers.heavy_hitters.HeavyHittersRun`).  All five circuits
-are served: MasticCount and MasticSum over Field64, MasticSumVec,
-MasticHistogram and MasticMultihotCountVec over Field128.
+slice.  It serves both user modes.  Heavy-hitters collections run on
+the resident incremental runner: batched client sharding
+(`backend.mastic.BatchedMastic.shard_device`, with the joint-rand parts
+of the Field128 circuits), per-level incremental rounds for both
+aggregators (`backend.incremental.IncrementalMastic.agg_round`), the
+level-0 FLP weight check, masked aggregation, unshard and decode, and
+threshold pruning (`drivers.heavy_hitters.HeavyHittersRun`).  Attribute
+metrics (`aggregate_by_attribute`) is one weight-checked round from the
+root (`BatchedMastic.prep` over `backend.vidpf.BatchedVidpf.eval_full`),
+which also serves heavy hitters with `incremental=False`; each such
+round gives a `RoundMetrics` record.  Wire reports enter through
+`BatchedMastic.marshal_reports`.  All five circuits are served:
+MasticCount and MasticSum over Field64, MasticSumVec, MasticHistogram
+and MasticMultihotCountVec over Field128.
 
 The three TPU kernels under that path are hand-written CUDA C++ for
 sm_90a in `csrc/` (built with nvcc at first use by `ops.kernels`):
@@ -36,3 +41,13 @@ def resolve_device(device) -> torch.device:
             "device 'cuda' requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain versions")
     return dev
+
+
+# Imported last: the drivers import resolve_device from this package.
+from .drivers.attribute_metrics import (AttributeMetricsRun,  # noqa: E402
+                                        aggregate_by_attribute,
+                                        hash_attribute)
+from .metrics import RoundMetrics  # noqa: E402
+
+__all__ = ["AttributeMetricsRun", "RoundMetrics", "aggregate_by_attribute",
+           "hash_attribute", "resolve_device"]

@@ -21,14 +21,12 @@ import numpy as np
 import torch
 
 from ..common import to_le_bytes
-from ..dst import (USAGE_EVAL_PROOF, USAGE_NODE_PROOF, USAGE_ONEHOT_CHECK,
-                   USAGE_PAYLOAD_CHECK, dst, dst_alg)
-from ..ops.binder import binder_checks
+from ..dst import USAGE_NODE_PROOF, dst
 from ..ops.level import level_step
 from ..vidpf import KEY_SIZE, PROOF_SIZE, encode_path
 from .mastic import BatchedMastic
 from .vidpf import EvalState
-from .xof import ts_prefix, turboshake_xof
+from .xof import ts_prefix
 
 
 class Carry(NamedTuple):
@@ -260,16 +258,12 @@ class IncrementalMastic:
         out = []
         for (agg_id, carry, (child, ok), eval_proof) in zip(
                 agg_ids, carries, steps, eval_proofs):
-            num_reports = carry.w.shape[0]
             out_w = child.w[:, rnd.out_idx]
             if agg_id == 1:
                 out_w = spec.neg(out_w)
-            counter = out_w[..., :1, :]
-            trunc = bm.truncate(out_w[..., 1:, :])
-            out_share = torch.cat([counter, trunc], dim=-2).reshape(
-                num_reports, -1, spec.num_limbs)
             out.append((Carry(w=carry.w, proof=carry.proof, seed=child.seed,
-                              ctrl=child.ctrl), eval_proof, out_share, ok))
+                              ctrl=child.ctrl), eval_proof,
+                        bm.out_share(out_w), ok))
         return out
 
     def _eval_step_dynamic(self, ext_rk: torch.Tensor,
@@ -301,27 +295,9 @@ class IncrementalMastic:
     def _eval_proofs(self, agg_ids: tuple, verify_key: bytes, ctx: bytes,
                      ws: tuple, proofs: tuple,
                      rnd: IncrementalRound) -> list:
-        """`_eval_proof` for each aggregator: the onehot and payload
-        checks of all of them in one `binder_checks` call (kernel K1
-        reads the live rows where they lie in the carry; the plain
-        version gathers them), then the counter check and the
-        eval-proof XOF per aggregator."""
-        bm = self.bm
-        spec = bm.spec
-        (onehot, payload) = binder_checks(
-            spec, ws, proofs, rnd.onehot_idx, rnd.payload_parent,
-            rnd.payload_left, rnd.payload_right,
-            ts_prefix(dst_alg(ctx, USAGE_ONEHOT_CHECK, bm.m.ID), 0),
-            ts_prefix(dst_alg(ctx, USAGE_PAYLOAD_CHECK, bm.m.ID), 0))
-        out = []
-        for (i, (agg_id, w_all)) in enumerate(zip(agg_ids, ws)):
-            counter = spec.add(w_all[:, 0, 0, 0], w_all[:, 0, 1, 0])
-            if agg_id == 1:
-                one = np.zeros(spec.num_limbs, np.int64)
-                one[0] = 1
-                counter = spec.add(counter, one)
-            out.append(turboshake_xof(
-                dst_alg(ctx, USAGE_EVAL_PROOF, bm.m.ID), verify_key,
-                (onehot[i], spec.plain_to_le_bytes(counter), payload[i]),
-                PROOF_SIZE, (w_all.shape[0],), w_all.device))
-        return out
+        """`_eval_proof` for each aggregator, in one `binder_checks`
+        call (`BatchedMastic.eval_proofs`, which the from-root prep
+        calls too) over the carries and the round's index lists."""
+        return self.bm.eval_proofs(agg_ids, verify_key, ctx, ws, proofs,
+                                   rnd.onehot_idx, rnd.payload_parent,
+                                   rnd.payload_left, rnd.payload_right)

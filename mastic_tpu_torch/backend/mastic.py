@@ -17,15 +17,20 @@ import torch
 
 from .. import resolve_device
 from ..common import to_le_bytes
-from ..dst import (USAGE_JOINT_RAND, USAGE_JOINT_RAND_PART,
-                   USAGE_JOINT_RAND_SEED, USAGE_PROOF_SHARE,
-                   USAGE_PROVE_RAND, USAGE_QUERY_RAND, dst_alg)
+from ..dst import (USAGE_EVAL_PROOF, USAGE_JOINT_RAND,
+                   USAGE_JOINT_RAND_PART, USAGE_JOINT_RAND_SEED,
+                   USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK,
+                   USAGE_PROOF_SHARE, USAGE_PROVE_RAND, USAGE_QUERY_RAND,
+                   dst_alg)
 from ..flp.circuits import (Count, Histogram, MultihotCountVec, Sum,
                             SumVec)
 from ..flp.flp import BatchedFlp
+from ..ops.binder import binder_checks
 from ..ops.field import field_sum, spec_for
+from ..vidpf import PROOF_SIZE
+from .schedule import LevelSchedule, ScheduleInputs, schedule_inputs
 from .vidpf import BatchedCorrectionWords, BatchedVidpf
-from .xof import sample_vec, turboshake_xof
+from .xof import sample_vec, turboshake_xof, ts_prefix
 
 SEED_SIZE = 32  # XofTurboShake128.SEED_SIZE
 
@@ -120,6 +125,25 @@ class ReportBatch(NamedTuple):
     peer_parts: tuple = (None, None)  # per aggregator: (R, 32) or None
 
 
+class BatchedPrep(NamedTuple):
+    """Per-report results of one aggregator's from-root prep.
+
+    out_share    (R, P*(1+OUTPUT_LEN), n) plain limbs
+    eval_proof   (R, 32) uint8
+    verifier     (R, VERIFIER_LEN, n) plain limbs: this aggregator's FLP
+                 verifier share (weight-check rounds), else None
+    joint_rand_part / joint_rand_seed  (R, 32) uint8 (joint-rand
+                 circuits on weight-check rounds), else None
+    ok           (R,) bool: False where XOF rejection sampling fired
+    """
+    out_share: torch.Tensor
+    eval_proof: torch.Tensor
+    verifier: Optional[torch.Tensor]
+    joint_rand_part: Optional[torch.Tensor]
+    joint_rand_seed: Optional[torch.Tensor]
+    ok: torch.Tensor
+
+
 class BatchedMastic:
     """Batched execution engine for one Mastic instantiation."""
 
@@ -176,6 +200,48 @@ class BatchedMastic:
             return w[..., data_dev, :]
         prods = self.spec.mul(w[..., None, :, :], data_dev)
         return field_sum(self.spec, prods, axis=-2)
+
+    def out_share(self, out_w: torch.Tensor) -> torch.Tensor:
+        """Per prefix [counter] + truncate(weight): payload shares (R,
+        P, VALUE_LEN, n) -> (R, P*(1+OUTPUT_LEN), n)."""
+        trunc = self.truncate(out_w[..., 1:, :])
+        return torch.cat([out_w[..., :1, :], trunc], dim=-2).reshape(
+            out_w.shape[0], -1, self.spec.num_limbs)
+
+    # -- the eval proof --------------------------------------------
+
+    def eval_proofs(self, agg_ids: tuple, verify_key: bytes, ctx: bytes,
+                    ws: tuple, proofs: tuple, onehot_idx: torch.Tensor,
+                    par: torch.Tensor, left: torch.Tensor,
+                    right: torch.Tensor) -> list:
+        """The eval proof of each aggregator in `agg_ids` over its tree:
+        ws[i] (R, D, W, VALUE_LEN, n) unnegated payloads and proofs[i]
+        (R, D, W, 32) node proofs, whose nodes 0 and 1 of depth 0 are
+        the root's children (an incremental carry, or a from-root
+        buffer viewed as D = 1); the index lists name rows of the
+        flattened (D * W) node axis.  The onehot and payload checks of
+        all aggregators are one `binder_checks` call (kernel K1 reads
+        the rows where they lie; the plain version gathers them); then,
+        per aggregator, the counter check (the root children's share of
+        the counter, plus agg_id, so the parties agree iff it is 1) and
+        the eval-proof XOF.  Returns one (R, 32) uint8 per aggregator."""
+        spec = self.spec
+        (onehot, payload) = binder_checks(
+            spec, ws, proofs, onehot_idx, par, left, right,
+            ts_prefix(dst_alg(ctx, USAGE_ONEHOT_CHECK, self.m.ID), 0),
+            ts_prefix(dst_alg(ctx, USAGE_PAYLOAD_CHECK, self.m.ID), 0))
+        out = []
+        for (i, (agg_id, w_all)) in enumerate(zip(agg_ids, ws)):
+            counter = spec.add(w_all[:, 0, 0, 0], w_all[:, 0, 1, 0])
+            if agg_id == 1:
+                one = np.zeros(spec.num_limbs, np.int64)
+                one[0] = 1
+                counter = spec.add(counter, one)
+            out.append(turboshake_xof(
+                dst_alg(ctx, USAGE_EVAL_PROOF, self.m.ID), verify_key,
+                (onehot[i], spec.plain_to_le_bytes(counter), payload[i]),
+                PROOF_SIZE, (w_all.shape[0],), w_all.device))
+        return out
 
     # -- batched XOF derivations -----------------------------------
 
@@ -304,14 +370,14 @@ class BatchedMastic:
                       seeds: Optional[torch.Tensor],
                       peer_jr_parts: Optional[torch.Tensor]) -> tuple:
         """One aggregator's FLP weight check over its beta share.
-        Returns (verifier, joint_rand_seed or None, ok)."""
+        Returns (verifier, joint_rand_part, joint_rand_seed, ok), the
+        joint-rand values None for circuits without joint randomness."""
         (query_rand, ok) = self.query_rand(verify_key, ctx, nonces, level)
         expanded_proof = proof_shares
         if agg_id == 1:
             (expanded_proof, pok) = self.helper_proof_share(ctx, seeds)
             ok = ok & pok
-        joint_rand = None
-        jr_seed = None
+        (joint_rand, part, jr_seed) = (None, None, None)
         if self.m.valid.JOINT_RAND_LEN > 0:
             part = self.joint_rand_part(ctx, seeds, beta_share[..., 1:, :],
                                         nonces)
@@ -323,7 +389,7 @@ class BatchedMastic:
         (verifier, vok) = self.bflp.query(
             beta_share[..., 1:, :], expanded_proof, query_rand, joint_rand,
             2)
-        return (verifier, jr_seed, ok & vok)
+        return (verifier, part, jr_seed, ok & vok)
 
     def weight_check_device(self, verify_key: bytes, ctx: bytes,
                             level: int, batch: ReportBatch,
@@ -340,7 +406,7 @@ class BatchedMastic:
             beta_share = self.spec.add(w_pair[:, 0], w_pair[:, 1])
             if agg_id == 1:
                 beta_share = self.spec.neg(beta_share)
-            (verifier, jr_seed, aok) = self._weight_check(
+            (verifier, _part, jr_seed, aok) = self._weight_check(
                 agg_id, verify_key, ctx, level, batch.nonces, beta_share,
                 batch.leader_proofs if agg_id == 0 else None,
                 batch.leader_seeds if agg_id == 0 else batch.helper_seeds,
@@ -354,6 +420,125 @@ class BatchedMastic:
                                              dim=-1)
         return (checks, ok)
 
+    # -- from-root prep and the round finish ------------------------
+
+    def schedule(self, agg_param, device) -> ScheduleInputs:
+        """The round's grid (`LevelSchedule`) uploaded to `device`."""
+        (level, prefixes, _wc) = agg_param
+        return schedule_inputs(LevelSchedule(prefixes, level, self.m.bits),
+                               device)
+
+    def prep(self, agg_id: int, verify_key: bytes, ctx: bytes, agg_param,
+             nonces: torch.Tensor, cws: BatchedCorrectionWords,
+             keys: torch.Tensor, proof_shares: Optional[torch.Tensor] = None,
+             seeds: Optional[torch.Tensor] = None,
+             peer_jr_parts: Optional[torch.Tensor] = None,
+             sched: Optional[ScheduleInputs] = None) -> BatchedPrep:
+        """One aggregator's prep over the report batch, from the root:
+        the whole grid through `eval_full` (K3 a depth), the eval proof
+        over the flat tree (K1's binder sponge), the truncated out
+        shares, and on weight-check rounds the FLP query over the beta
+        share the depth-0 children give.
+
+        keys (R, 16): this aggregator's VIDPF keys; proof_shares: the
+        leader's FLP proof shares (R, PROOF_LEN, n) (aggregator 0);
+        seeds: the helper's FLP seeds (aggregator 1), or the leader's
+        joint-rand seeds; peer_jr_parts: the other party's joint-rand
+        parts (joint-rand circuits only); sched: the round's uploaded
+        grid, built here when None.  Only the returned BatchedPrep
+        outlives the call, so one tree buffer is alive at a time."""
+        (level, _prefixes, do_weight_check) = agg_param
+        if sched is None:
+            sched = self.schedule(agg_param, nonces.device)
+        (w_all, proof_all, out_w, ok) = self.vidpf.eval_full(
+            agg_id, cws, keys, sched, ctx, nonces)
+        (eval_proof,) = self.eval_proofs(
+            (agg_id,), verify_key, ctx, (w_all[:, None],),
+            (proof_all[:, None],), sched.onehot_idx, sched.payload_parent,
+            sched.payload_left, sched.payload_right)
+        (verifier, jr_part, jr_seed) = (None, None, None)
+        if do_weight_check:
+            beta_share = self.spec.add(w_all[:, 0], w_all[:, 1])
+            if agg_id == 1:
+                beta_share = self.spec.neg(beta_share)
+            (verifier, jr_part, jr_seed, wok) = self._weight_check(
+                agg_id, verify_key, ctx, level, nonces, beta_share,
+                proof_shares, seeds, peer_jr_parts)
+            ok = ok & wok
+        return BatchedPrep(out_share=self.out_share(out_w),
+                           eval_proof=eval_proof, verifier=verifier,
+                           joint_rand_part=jr_part, joint_rand_seed=jr_seed,
+                           ok=ok)
+
+    def prep_both(self, verify_key: bytes, ctx: bytes, agg_param,
+                  batch: ReportBatch,
+                  sched: Optional[ScheduleInputs] = None) -> tuple:
+        """Both aggregators' prep on one batch, aggregator 0 first, over
+        one upload of the round's grid (`sched`, built here when None)."""
+        if sched is None:
+            sched = self.schedule(agg_param, batch.nonces.device)
+        p0 = self.prep(0, verify_key, ctx, agg_param, batch.nonces,
+                       batch.cws, batch.keys[:, 0],
+                       proof_shares=batch.leader_proofs,
+                       seeds=batch.leader_seeds,
+                       peer_jr_parts=batch.peer_parts[0], sched=sched)
+        p1 = self.prep(1, verify_key, ctx, agg_param, batch.nonces,
+                       batch.cws, batch.keys[:, 1], seeds=batch.helper_seeds,
+                       peer_jr_parts=batch.peer_parts[1], sched=sched)
+        return (p0, p1)
+
+    def accept_checks(self, prep0: BatchedPrep, prep1: BatchedPrep,
+                      do_weight_check: bool) -> dict:
+        """Per-check verdict masks (R,) bool: "eval_proof" (the two eval
+        proofs equal), on weight-check rounds "weight_check" (FLP decide
+        over the summed verifier shares), and for joint-rand circuits
+        "joint_rand" (the two joint-rand seeds agree).  Only the checks
+        this round runs have keys."""
+        checks = {"eval_proof": torch.all(
+            prep0.eval_proof == prep1.eval_proof, dim=-1)}
+        if do_weight_check:
+            verifier = self.spec.add(prep0.verifier, prep1.verifier)
+            checks["weight_check"] = self.bflp.decide(verifier)
+        if prep0.joint_rand_seed is not None:
+            checks["joint_rand"] = torch.all(
+                prep0.joint_rand_seed == prep1.joint_rand_seed, dim=-1)
+        return checks
+
+    def accept_mask(self, prep0: BatchedPrep, prep1: BatchedPrep,
+                    do_weight_check: bool) -> torch.Tensor:
+        """The AND of accept_checks: the round's accept verdict."""
+        return _all_checks(self.accept_checks(prep0, prep1,
+                                              do_weight_check))
+
+    def round_device(self, verify_key: bytes, ctx: bytes, agg_param,
+                     batch: ReportBatch,
+                     valid: Optional[torch.Tensor] = None) -> tuple:
+        """One whole from-root round on the device: both preps, every
+        check, masked aggregation.  Returns (agg_share0, agg_share1,
+        accept, ok)."""
+        return self.round_device_checks(verify_key, ctx, agg_param, batch,
+                                        valid)[:4]
+
+    def round_device_checks(self, verify_key: bytes, ctx: bytes, agg_param,
+                            batch: ReportBatch,
+                            valid: Optional[torch.Tensor] = None,
+                            sched: Optional[ScheduleInputs] = None) -> tuple:
+        """round_device plus the per-check masks: (agg0, agg1, accept,
+        ok, checks).  Lanes with `ok` False (XOF rejection sampling
+        fired in either prep, or `valid` False, e.g. at sharding) carry
+        garbage and are left out of both aggregates.  sched: the round's
+        uploaded grid, built here when None."""
+        (_level, _prefixes, do_weight_check) = agg_param
+        (p0, p1) = self.prep_both(verify_key, ctx, agg_param, batch, sched)
+        checks = self.accept_checks(p0, p1, do_weight_check)
+        accept = _all_checks(checks)
+        ok = p0.ok & p1.ok
+        if valid is not None:
+            ok = ok & valid
+        agg0 = self.aggregate(p0.out_share, accept & ok)
+        agg1 = self.aggregate(p1.out_share, accept & ok)
+        return (agg0, agg1, accept, ok, checks)
+
     def aggregate(self, out_share: torch.Tensor,
                   accept: torch.Tensor) -> torch.Tensor:
         """Sum accepted reports' out shares: (R, L, n) -> (L, n)."""
@@ -364,3 +549,43 @@ class BatchedMastic:
     def agg_share_to_host(self, agg_share: torch.Tensor) -> list:
         arr = agg_share.cpu().numpy()
         return [self.spec.limbs_to_int(arr[i]) for i in range(arr.shape[0])]
+
+    def marshal_reports(self, reports: list, device="cuda") -> ReportBatch:
+        """Scalar-layer reports [(nonce, public_share, input_shares)] as
+        a ReportBatch on `device` (the aggregators' upload ingestion).
+        The public share is the correction words (see
+        `BatchedVidpf.cws_from_host`); input share a is (key, proof
+        shares or None, seed or None, peer joint-rand part or None), the
+        leader's proof shares read through `.int()`."""
+        device = resolve_device(device)
+
+        def stack(get, dtype=np.uint8):
+            return torch.as_tensor(np.stack([
+                np.frombuffer(get(r), dtype) for r in reports]),
+                device=device)
+
+        cws = self.vidpf.cws_from_host([ps for (_, ps, _) in reports],
+                                       device)
+        keys = torch.stack([stack(lambda r, a=a: r[2][a][0])
+                            for a in range(2)], dim=1)
+        leader_proofs = torch.as_tensor(np.stack([
+            np.stack([self.spec.int_to_limbs(x.int()) for x in sh[0][1]])
+            for (_, _, sh) in reports]), device=device)
+        (leader_seeds, peer_parts) = (None, (None, None))
+        if self.m.valid.JOINT_RAND_LEN > 0:
+            leader_seeds = stack(lambda r: r[2][0][2])
+            peer_parts = tuple(stack(lambda r, a=a: r[2][a][3])
+                               for a in range(2))
+        return ReportBatch(
+            nonces=stack(lambda r: r[0]), cws=cws, keys=keys,
+            leader_proofs=leader_proofs,
+            helper_seeds=stack(lambda r: r[2][1][2]),
+            leader_seeds=leader_seeds, peer_parts=peer_parts)
+
+
+def _all_checks(checks: dict) -> torch.Tensor:
+    accept = checks["eval_proof"]
+    for (name, mask) in checks.items():
+        if name != "eval_proof":
+            accept = accept & mask
+    return accept

@@ -15,12 +15,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..common import to_le_bytes
 from ..dst import USAGE_CONVERT, USAGE_EXTEND, USAGE_NODE_PROOF, dst
 from ..ops.field import FIELD64, FieldSpec
 from ..ops.keccak import turbo_shake128_dynamic
 from ..ops.level import level_step
-from ..vidpf import KEY_SIZE, PROOF_SIZE, encode_path
+from ..vidpf import KEY_SIZE, PROOF_SIZE
+from .schedule import LevelSchedule, ScheduleInputs, schedule_inputs
 from .xof import fixed_key_blocks, fixed_key_schedule, sample_vec, ts_prefix
 
 _U8 = torch.uint8
@@ -206,39 +208,130 @@ class BatchedVidpf:
             ctrl = t_k
         return (cws, keys, ok)
 
-    # -- the beta share (client side, for the joint-rand parts) -----
+    # -- evaluation from the root (aggregator side) ------------------
 
-    def root_children(self, agg_id: int, cws: BatchedCorrectionWords,
-                      keys: torch.Tensor, ctx: bytes,
-                      nonces: torch.Tensor) -> tuple:
-        """One party's two depth-0 payloads, unnegated, from its root
-        key: one level step, kernel K3 on the card, with the root as its
-        one parent (the JAX package's depth-0 `eval_full`).  keys (R,
-        16).  Returns (w (R, 2, VALUE_LEN, n), ok (R,))."""
+    def root_state(self, agg_id: int, keys: torch.Tensor) -> EvalState:
+        """The pre-level-0 state: root seed = the party's key (R, 16),
+        root ctrl = agg_id."""
+        return EvalState(
+            seed=keys[:, None, :],
+            ctrl=torch.full((keys.shape[0], 1), bool(agg_id),
+                            dtype=torch.bool, device=keys.device),
+            w=None, proof=None)
+
+    def eval_step(self, ext_rk: torch.Tensor, conv_rk: torch.Tensor,
+                  parents: EvalState, cw_slice, ctx: bytes,
+                  node_binder: torch.Tensor, binder_len: int) -> tuple:
+        """One tree level through kernel K3: extend every parent,
+        correct, convert and hash both children, with the first
+        `binder_len` bytes of each row of node_binder (2N, B) uint8 as
+        the node-proof binders.  Returns (EvalState of the children,
+        ok (R,))."""
+        prefix = ts_prefix(dst(ctx, USAGE_NODE_PROOF), KEY_SIZE)
+        (next_seed, ct, w, ok, proof) = level_step(
+            self.spec, self.convert_blocks, self.VALUE_LEN, ext_rk, conv_rk,
+            parents.seed, parents.ctrl, cw_slice, prefix, node_binder,
+            binder_len)
+        return (EvalState(seed=next_seed, ctrl=ct, w=w, proof=proof),
+                torch.all(ok, dim=-1))
+
+    def eval_full(self, agg_id: int, cws: BatchedCorrectionWords,
+                  keys: torch.Tensor, sched: ScheduleInputs, ctx: bytes,
+                  nonces: torch.Tensor) -> tuple:
+        """Evaluate the whole grid of `sched` from the root, one level
+        step a depth.  Each depth's children are copied into one flat
+        buffer at the depth's offset; only the newest depth's seeds and
+        ctrl bits are kept besides.
+
+        Returns (w (R, T, VALUE_LEN, n) unnegated payloads, proof (R, T,
+        32) node proofs, both over the T = total_nodes nodes in BFS
+        order; out_w (R, P, VALUE_LEN, n) payload shares in the caller's
+        prefix order, negated for aggregator 1; ok (R,))."""
         (ext_rk, conv_rk) = self.roundkeys(ctx, nonces)
         num_reports = keys.shape[0]
-        ctrl = torch.full((num_reports, 1), bool(agg_id), dtype=torch.bool,
-                          device=keys.device)
-        cw_slice = tuple(x[:, 0] for x in cws)
-        head = to_le_bytes(self.BITS, 2) + to_le_bytes(0, 2)
-        binder = torch.as_tensor(np.stack([
-            np.frombuffer(head + encode_path(path), np.uint8)
-            for path in ((False,), (True,))]), device=keys.device)
-        prefix = ts_prefix(dst(ctx, USAGE_NODE_PROOF), KEY_SIZE)
-        (_seed, _ct, w, ok, _proof) = level_step(
-            self.spec, self.convert_blocks, self.VALUE_LEN, ext_rk, conv_rk,
-            keys[:, None, :], ctrl, cw_slice, prefix, binder,
-            binder.shape[-1])
-        return (w, torch.all(ok, dim=-1))
+        dev = keys.device
+        total = sched.total_nodes
+        w_all = torch.empty((num_reports, total, self.VALUE_LEN,
+                             self.spec.num_limbs), dtype=torch.int32,
+                            device=dev)
+        proof_all = torch.empty((num_reports, total, PROOF_SIZE), dtype=_U8,
+                                device=dev)
+        state = self.root_state(agg_id, keys)
+        ok = torch.ones(num_reports, dtype=torch.bool, device=dev)
+        for d in range(sched.level + 1):
+            if d:
+                pidx = sched.parents(d)
+                state = EvalState(seed=state.seed[:, pidx],
+                                  ctrl=state.ctrl[:, pidx], w=None,
+                                  proof=None)
+            cw_slice = (cws.seed[:, d], cws.ctrl[:, d], cws.w[:, d],
+                        cws.proof[:, d])
+            (lo, hi) = sched.offset[d:d + 2]
+            (state, step_ok) = self.eval_step(
+                ext_rk, conv_rk, state, cw_slice, ctx,
+                sched.node_binder[lo:hi], sched.binder_len[d])
+            ok = ok & step_ok
+            w_all[:, lo:hi] = state.w
+            proof_all[:, lo:hi] = state.proof
+        out_w = state.w[:, sched.out_index]
+        if agg_id == 1:
+            out_w = self.spec.neg(out_w)
+        return (w_all, proof_all, out_w, ok)
 
     def get_beta_share(self, agg_id: int, cws: BatchedCorrectionWords,
                        keys: torch.Tensor, ctx: bytes,
                        nonces: torch.Tensor) -> tuple:
-        """Each party's beta share: the sum of its two depth-0 payloads,
-        negated for aggregator 1.  Returns (share (R, VALUE_LEN, n), ok
-        (R,))."""
-        (w, ok) = self.root_children(agg_id, cws, keys, ctx, nonces)
+        """Each party's beta share: the sum of its two depth-0 payloads
+        from a depth-0 `eval_full`, negated for aggregator 1.  Returns
+        (share (R, VALUE_LEN, n), ok (R,))."""
+        sched = schedule_inputs(LevelSchedule([(False,), (True,)], 0,
+                                              self.BITS), keys.device)
+        (w, _proof, _out, ok) = self.eval_full(agg_id, cws, keys, sched,
+                                               ctx, nonces)
         share = self.spec.add(w[:, 0], w[:, 1])
         if agg_id == 1:
             share = self.spec.neg(share)
         return (share, ok)
+
+    # -- scalar correction words in and out (test and wire boundary) --
+
+    def cws_from_host(self, batches: list,
+                      device="cuda") -> BatchedCorrectionWords:
+        """Scalar correction words, one list of (seed, [ctrl_l, ctrl_r],
+        payload, proof) per report, as tensors on `device`.  Payload
+        elements are read through their `.int()`."""
+        num_reports = len(batches)
+        seed = np.zeros((num_reports, self.BITS, KEY_SIZE), np.uint8)
+        ctrl = np.zeros((num_reports, self.BITS, 2), bool)
+        w = np.zeros((num_reports, self.BITS, self.VALUE_LEN,
+                      self.spec.num_limbs), np.int32)
+        proof = np.zeros((num_reports, self.BITS, PROOF_SIZE), np.uint8)
+        for (r, cws) in enumerate(batches):
+            for (d, (s, c, wv, p)) in enumerate(cws):
+                seed[r, d] = np.frombuffer(s, np.uint8)
+                ctrl[r, d] = c
+                for (j, el) in enumerate(wv):
+                    w[r, d, j] = self.spec.int_to_limbs(el.int())
+                proof[r, d] = np.frombuffer(p, np.uint8)
+        device = resolve_device(device)
+        return BatchedCorrectionWords(*(torch.as_tensor(x, device=device)
+                                        for x in (seed, ctrl, w, proof)))
+
+    def cws_to_host(self, cws: BatchedCorrectionWords, report: int,
+                    field=int) -> list:
+        """One report's correction words as scalar (seed, [ctrl_l,
+        ctrl_r], payload, proof) tuples, payload elements built by
+        `field` from their integer values."""
+        (seed, ctrl, w, proof) = (x[report].cpu().numpy() for x in cws)
+        return [(seed[d].tobytes(), [bool(ctrl[d, 0]), bool(ctrl[d, 1])],
+                 self.w_to_host(w[d], field), proof[d].tobytes())
+                for d in range(self.BITS)]
+
+    def w_to_host(self, w, field=int) -> list:
+        """(..., VALUE_LEN, n) plain limbs -> nested lists of `field`
+        elements built from their integer values."""
+        arr = w.cpu().numpy() if isinstance(w, torch.Tensor) else w
+        if arr.ndim == 2:
+            return [field(self.spec.limbs_to_int(arr[j]))
+                    for j in range(arr.shape[0])]
+        return [self.w_to_host(arr[i], field) for i in range(arr.shape[0])]

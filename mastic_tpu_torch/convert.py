@@ -2,9 +2,11 @@
 
 Turns the JAX package's arrays, as numpy, into the port's tensors and
 back: a report batch (`ReportBatch`, with the joint-rand circuits'
-leader seeds and peer parts) and an aggregator's incremental carry
-under the key names of the JAX package's `carry_to_arrays` /
-`carry_from_arrays` (w, proof, seed, ctrl).  Field64 and Field128
+leader seeds and peer parts), an aggregator's incremental carry under
+the key names of the JAX package's `carry_to_arrays` /
+`carry_from_arrays` (w, proof, seed, ctrl), a from-root prep
+(`BatchedPrep`), and the JAX package's from-root tree (`eval_full`'s
+list of levels) as the port's flat buffer.  Field64 and Field128
 limbs travel alike, as (..., n) uint32.  The
 numpy side uses the JAX package's dtypes: uint32 for limbs, uint8 for
 bytes, bool for bits; the torch side carries uint32 words as int32
@@ -17,7 +19,7 @@ import torch
 
 from . import resolve_device
 from .backend.incremental import Carry
-from .backend.mastic import ReportBatch
+from .backend.mastic import BatchedPrep, ReportBatch
 from .backend.vidpf import BatchedCorrectionWords
 
 
@@ -111,3 +113,37 @@ def carry_from_arrays(arrays, prefix: str = "", device="cuda") -> Carry:
                         device),
         seed=to_tensor(np.asarray(arrays[prefix + "seed"], np.uint8), device),
         ctrl=to_tensor(np.asarray(arrays[prefix + "ctrl"], np.bool_), device))
+
+
+_PREP_WORDS = ("out_share", "verifier")
+
+
+def prep_to_arrays(prep: BatchedPrep, prefix: str = "") -> dict:
+    """A BatchedPrep as named numpy arrays (limbs as uint32); fields
+    that are None are left out."""
+    return {prefix + k: to_numpy(v, words=k in _PREP_WORDS)
+            for (k, v) in prep._asdict().items() if v is not None}
+
+
+def prep_from_arrays(arrays, prefix: str = "", device="cuda") -> BatchedPrep:
+    """Inverse of prep_to_arrays (any mapping of arrays; a missing
+    field is None)."""
+    def t(key):
+        if prefix + key not in arrays:
+            return None
+        arr = np.asarray(arrays[prefix + key])
+        return to_tensor(arr.astype(np.uint32) if key in _PREP_WORDS
+                         else arr, device)
+
+    return BatchedPrep(**{k: t(k) for k in BatchedPrep._fields})
+
+
+def tree_from_levels(ws: list, proofs: list, device="cuda") -> tuple:
+    """The JAX package's from-root tree, per depth d the children's w
+    (R, N_d, VALUE_LEN, n) uint32 and proof (R, N_d, 32) uint8 (its
+    `eval_full` levels as numpy), as the port's flat buffer: (w (R, T,
+    VALUE_LEN, n) int32, proof (R, T, 32) uint8) on `device`."""
+    return (to_tensor(np.concatenate(
+                [np.asarray(w, np.uint32) for w in ws], axis=1), device),
+            to_tensor(np.concatenate(
+                [np.asarray(p, np.uint8) for p in proofs], axis=1), device))

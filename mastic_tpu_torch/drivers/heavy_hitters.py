@@ -1,28 +1,42 @@
-"""Weighted heavy hitters on the resident incremental runner (a lean
-port of `mastic_tpu/drivers/heavy_hitters.py`).
+"""Weighted heavy hitters (a lean port of
+`mastic_tpu/drivers/heavy_hitters.py`), on two round engines.
 
-Per level: one incremental round for both aggregators (kernel K3 for
-the level, K1 for the binders and the eval proof), the FLP weight check
-on level 0 (with the joint-rand confirmation for the circuits that use
-joint randomness), the accept-mask combine and the masked aggregation,
-all on the device; then one sync, the unshard and decode, and the
+The resident incremental runner (the default): per level one
+incremental round for both aggregators (kernel K3 for the level, K1
+for the binders and the eval proof), the FLP weight check on level 0
+(with the joint-rand confirmation for the circuits that use joint
+randomness), the accept-mask combine and the masked aggregation, all
+on the device; then one sync, the unshard and decode, and the
 threshold pruning on the host.  The padded node width grows on demand.
+
+The from-root round (`run_round`, and `HeavyHittersRun(...,
+incremental=False)`): each level re-evaluates the whole grid from the
+root for both aggregators (`BatchedMastic.round_device_checks`: K3 a
+depth, K1 over the flat tree), then one sync, a `RoundMetrics` record
+per round with rejections attributed per check, and the unshard.  It
+is the differential reference for the incremental runner, and the
+attribute-metrics round.
+
 `HeavyHittersRun` prunes on `count >= threshold`, so it serves the
 scalar circuits (MasticCount, MasticSum), as in the JAX package; the
-resident runner (`IncrementalRunner`) serves every circuit.
+resident runner (`IncrementalRunner`) and the from-root round serve
+every circuit.
 
 Reports whose XOF rejection sampling fired (`ok` False, about 2^-32 per
-sampled Field64 element) are excluded from both aggregates from the
-round where it fired on, and counted: the JAX package recomputes them
-through its scalar layer (`splice_rejected`), which the port has not
-brought over yet.  The AOT programs, the pipeline, metrics and
-checkpointing are left for later slices.
+sampled Field64 element) are excluded from both aggregates (the
+incremental runner from the round where it fired on) and counted, in
+`RoundMetrics.xof_fallbacks` and `rejected_fallback` on the from-root
+round: the JAX package recomputes them through its scalar layer
+(`splice_rejected`), which the port has not brought over yet.  The AOT
+programs, the pipeline and checkpointing are left for later slices, and
+so are the incremental rounds' metrics.
 
 Thresholds: a dict mapping prefix tuples to ints with a "default" key;
 a prefix takes the threshold of its longest strict ancestor present in
 the dict, else the default.
 """
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -32,6 +46,8 @@ from .. import resolve_device
 from ..backend.incremental import (Carry, IncrementalMastic, RoundPlan,
                                    round_inputs)
 from ..backend.mastic import BatchedMastic, Mastic, ReportBatch
+from ..metrics import (RoundMetrics, attribute_rejections,
+                       count_round_bytes, count_round_ops)
 
 
 def get_threshold(thresholds: dict, prefix: tuple) -> int:
@@ -141,13 +157,80 @@ class IncrementalRunner:
         return self.bm.m.unshard(shares)
 
 
+# -- the from-root round ---------------------------------------------
+
+def run_round_stage(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
+                    agg_param, batch: ReportBatch,
+                    valid: Optional[torch.Tensor] = None) -> dict:
+    """Dispatch one from-root round without blocking: both preps, the
+    checks and the masked aggregates, on the device.  Returns the
+    handle `run_round_collect` reads."""
+    sched = bm.schedule(agg_param, batch.nonces.device)
+    return {"out": bm.round_device_checks(verify_key, ctx, agg_param, batch,
+                                          valid, sched),
+            "nodes": sched.total_nodes}
+
+
+def run_round_collect(bm: BatchedMastic, agg_param, handle: dict,
+                      metrics_out: Optional[list] = None) -> list:
+    """The blocking half of `run_round_stage`: one sync (the downloads),
+    the metrics record and the unshard.  Returns the per-prefix
+    aggregates; appends a RoundMetrics record to `metrics_out`."""
+    (agg0, agg1, _accept, ok, checks) = handle["out"]
+    ok = ok.cpu().numpy()
+    checks = {k: v.cpu().numpy() for (k, v) in checks.items()}
+    agg_shares = [bm.agg_share_to_host(a) for a in (agg0, agg1)]
+    nodes = handle["nodes"]
+    return finalize_round(bm, agg_param, ok, checks, agg_shares,
+                          padded_width=nodes, nodes_evaluated=nodes,
+                          metrics_out=metrics_out)
+
+
+def run_round(bm: BatchedMastic, verify_key: bytes, ctx: bytes, agg_param,
+              batch: ReportBatch, valid: Optional[torch.Tensor] = None,
+              metrics_out: Optional[list] = None) -> list:
+    """One from-root aggregation round: `run_round_stage` then
+    `run_round_collect`."""
+    handle = run_round_stage(bm, verify_key, ctx, agg_param, batch, valid)
+    return run_round_collect(bm, agg_param, handle, metrics_out=metrics_out)
+
+
+def finalize_round(bm: BatchedMastic, agg_param, ok: np.ndarray,
+                   checks: dict, agg_shares: list, padded_width: int,
+                   nodes_evaluated: int, metrics_out: Optional[list]) -> list:
+    """The from-root round's host side: the metrics record with the
+    rejections attributed per check, then the unshard.  Lanes with `ok`
+    False are rejected (the device aggregates already leave them out)
+    and counted in `xof_fallbacks` and `rejected_fallback`; the JAX
+    package recomputes them through its scalar layer instead."""
+    (level, prefixes, _wc) = agg_param
+    num_reports = ok.shape[0]
+    metrics = RoundMetrics(level=level, frontier_width=len(prefixes),
+                           padded_width=padded_width,
+                           reports_total=num_reports)
+    attribute_rejections(metrics, checks["eval_proof"],
+                         checks.get("weight_check"),
+                         checks.get("joint_rand"), device_ok=ok)
+    count_round_ops(metrics, bm.m, num_reports, nodes_evaluated,
+                    include_key_setup=True)
+    count_round_bytes(metrics, bm.m, agg_param, num_reports)
+    metrics.xof_fallbacks = int((~ok).sum())
+    metrics.rejected_fallback = metrics.xof_fallbacks
+    if metrics_out is not None:
+        metrics_out.append(metrics)
+    return bm.m.unshard(agg_shares)
+
+
 class HeavyHittersRun:
     """A heavy-hitters collection over a device-resident report batch:
-    one `step()` per tree level."""
+    one `step()` per tree level, on the incremental runner or, with
+    `incremental=False`, one from-root round a level (which appends a
+    RoundMetrics record per level to `metrics`)."""
 
     def __init__(self, mastic: Mastic, ctx: bytes, thresholds: dict,
                  verify_key: bytes, batch: ReportBatch,
-                 valid: Optional[torch.Tensor] = None, device="cuda"):
+                 valid: Optional[torch.Tensor] = None, device="cuda",
+                 incremental: bool = True):
         dev = resolve_device(device)
         if batch.nonces.device.type != dev.type:
             raise ValueError(f"the report batch is not on {dev}")
@@ -156,8 +239,13 @@ class HeavyHittersRun:
         self.thresholds = thresholds
         self.verify_key = verify_key
         self.bm = BatchedMastic(mastic)
-        self.runner = IncrementalRunner(self.bm, verify_key, ctx, batch,
-                                        valid)
+        self.batch = batch
+        self.valid = valid
+        self.runner = (IncrementalRunner(self.bm, verify_key, ctx, batch,
+                                         valid) if incremental else None)
+        self.metrics: list = []
+        # The from-root rounds' lanes left out of the last aggregates.
+        self._excluded = np.zeros(int(batch.nonces.shape[0]), bool)
         self.level = 0
         self.prefixes: list = [(False,), (True,)]
         self.prev_agg_params: list = []
@@ -184,13 +272,25 @@ class HeavyHittersRun:
         agg_param = (self.level, tuple(self.prefixes), self.level == 0)
         if not self.mastic.is_valid(agg_param, self.prev_agg_params):
             raise ValueError("invalid aggregation parameter sequence")
-        return self.runner.round_stage(agg_param)
+        if self.runner is not None:
+            return self.runner.round_stage(agg_param)
+        handle = run_round_stage(self.bm, self.verify_key, self.ctx,
+                                 agg_param, self.batch, self.valid)
+        handle.update(agg_param=agg_param, t0=time.perf_counter())
+        return handle
 
     def step_finish(self, handle: dict) -> bool:
         """Collect the staged round, prune at the threshold, and
         advance the frontier.  Returns True while more rounds remain."""
-        counts = self.runner.round_collect(handle)
         (level, prefixes, _wc) = handle["agg_param"]
+        if self.runner is not None:
+            counts = self.runner.round_collect(handle)
+        else:
+            counts = run_round_collect(self.bm, handle["agg_param"], handle,
+                                       metrics_out=self.metrics)
+            self._excluded = ~handle["out"][3].cpu().numpy()
+            self.metrics[-1].extra["round_wall_ms"] = \
+                (time.perf_counter() - handle["t0"]) * 1e3
         self.prev_agg_params.append(handle["agg_param"])
         self.level_results.append((list(prefixes), counts))
         survivors = [p for (p, c) in zip(prefixes, counts)
@@ -209,17 +309,22 @@ class HeavyHittersRun:
         return self.heavy_hitters
 
     def excluded(self) -> np.ndarray:
-        """Reports excluded from the aggregates so far (bool (R,))."""
+        """Reports excluded from the aggregates (bool (R,)): so far on
+        the incremental runner, in the last round from the root."""
+        if self.runner is None:
+            return self._excluded
         return self.runner.excluded.cpu().numpy()
 
 
 def compute_heavy_hitters(mastic: Mastic, ctx: bytes, thresholds: dict,
                           verify_key: bytes, batch: ReportBatch,
                           valid: Optional[torch.Tensor] = None,
-                          device="cuda") -> list:
-    """The full collector loop over a sharded report batch."""
+                          device="cuda", incremental: bool = True) -> list:
+    """The full collector loop over a sharded report batch.  With
+    `incremental=False` every level is one round from the root: the
+    differential reference of the incremental runner."""
     run = HeavyHittersRun(mastic, ctx, thresholds, verify_key, batch,
-                          valid, device)
+                          valid, device, incremental)
     while run.step():
         pass
     return run.result()

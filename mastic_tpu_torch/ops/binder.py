@@ -17,7 +17,9 @@ that the carry and a round's index lists define (the JAX package's
 The kernel gathers the rows itself, computes the payload difference in
 registers and absorbs the words where they fall in the rate lanes, so
 no gathered copy, limb temporary or message exists in device memory.
-One launch hashes both checks of every aggregator given.  It counts as
+One launch hashes both checks of every aggregator given.  The from-root
+prep passes its flat tree (R, T, ...) as (R, 1, T, ...), its index
+lists naming rows of the T-node axis.  It counts as
 "keccak_binder" in `ops.kernels.launches` on Field64 carries and as
 "keccak_binder_f128" on Field128 ones.
 """

@@ -14,8 +14,9 @@ Field64 or Field128 elements of any number: the TPU kernel's limit of
 The binder length is a runtime argument: the TPU kernel bakes it in,
 so the JAX package's incremental round (whose binder grows with the
 level) never reaches it; here `IncrementalMastic._eval_step_dynamic`
-goes through K3 as well, and so does `BatchedVidpf.get_beta_share` (a
-depth-0 step from the root key).  The node-proof message takes as many
+goes through K3 as well, and so does the from-root
+`BatchedVidpf.eval_full` (every depth of a from-root round, with the
+static per-depth binder; `get_beta_share` is its depth 0).  The node-proof message takes as many
 rate blocks as prefix, seed and binder need (the TPU kernel's one-block
 limit is its own).  On a CUDA tensor the wrapper builds the per-node
 message template and launches `csrc/level.cu` on the report-major

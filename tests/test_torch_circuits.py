@@ -391,8 +391,8 @@ def test_get_beta_share_matches_jax(circuits):
 
 @pytest.mark.parametrize("name", ["sum", "histogram"])
 def test_weight_check_matches_jax(circuits, name):
-    """Both aggregators' weight check from their depth-0 payloads (the
-    FLP query over two shares): the checks ("weight_check", and
+    """Both aggregators' weight check from their depth-0 payloads (a
+    depth-0 `eval_full`; the FLP query over two shares): the checks ("weight_check", and
     "joint_rand" for the joint-rand circuits) and ok, port against
     JAX.  Honest reports pass; for the joint-rand circuit a tampered
     peer part in half the reports must fail "joint_rand" in both
@@ -401,8 +401,9 @@ def test_weight_check_matches_jax(circuits, name):
     (batch, ok) = _port_batch(c)
     assert bool(ok.all())
     (bm, jbm) = (c.tbm, c.jbm)
-    pairs = [bm.vidpf.root_children(a, batch.cws, batch.keys[:, a], CTX,
-                                    batch.nonces)[0] for a in range(2)]
+    root = bm.schedule((0, ((False,), (True,)), True), "cpu")
+    pairs = [bm.vidpf.eval_full(a, batch.cws, batch.keys[:, a], root, CTX,
+                                batch.nonces)[0] for a in range(2)]
     check = jax.jit(lambda b, w0, w1: jbm.weight_check_device(
         VK, CTX, 0, b, w0, w1))
     batches = [batch]
