@@ -34,9 +34,16 @@
    Field128 tree (1025-element rows, 8.5 G limbs), timed there and
    checked on the same tree with the index lists cut to a few rows at
    both ends of the node axis.
-3. Drives six paths, each with every launch counter set to 0 just
+   K3's in-range predicate (`ok`, row level_step_ok_predicate): at the
+   attribute row's shape, fresh parent seeds drawn until a launch
+   returns ok False (about 200 launches expected, at most 3000), and
+   that launch held bit-exact against `level_step_plain`, ok included.
+3. Drives eight phases, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
-   runs (K1's binder sponge and K3 count Field128 launches apart):
+   runs (K1's binder sponge and K3 count Field128 launches apart).
+   Every path hands its runs the scalar reports behind its batch
+   (`ScalarReports`: lane r's scalar shard, built only if the lane's XOF
+   sampling fires and the splice reads it):
    a. Count: MasticCount(256) over Field64 with R = 4096 reports (32
       planted 256-bit strings x 64 reports each plus 2048 uniform
       ones, weights 0/1, all from --seed), sharded on the card, then
@@ -74,7 +81,20 @@
       `AttributeMetricsRun` (what `aggregate_by_attribute` steps): the
       accept mask must reject exactly the tampered reports, RoundMetrics
       attribute them to the eval proof and the weight check, and every
-      attribute's aggregate must equal numpy's weight sum.
+      attribute's aggregate must equal numpy's weight sum over every
+      report but the tampered ones.
+   f. A forced splice from the root: the attributes round again with
+      the `ok` of an honest report and of a report with a tampered proof
+      share cleared after the prep (`BatchedMastic.prep_both` wrapped);
+      both lanes' scalar reports must marshal to the batch's rows, and
+      the splice must give the unforced result, the honest lane
+      accepted and the tampered one rejected at the weight check.
+   g. A forced splice and a checkpoint on the resident runner:
+      MasticCount(16) over the Count path's report layout (depth cut
+      from 256: at depth 256 each later level reruns a 44 s scalar
+      round), lanes forced at levels 0 and 9, checkpointed after level
+      8, restored into a fresh run on the card and finished; every
+      level must equal the unforced run's and numpy's.
 4. Prints the `kernels` JSON line (every kernel and instantiation), the
    card, each path's figures, and last `{"ok": true, "device": {...}}`.
    Any failure exits non-zero before that line.
@@ -129,6 +149,18 @@ ATTR_TAMPERED = 100
 # path's 4096 reports (its flat tree is about 33 MB a report).
 SUMVEC_ASKED = 4
 SUMVEC_ROOT_R = 1024
+# K3's in-range predicate on the card: fresh parents at the attribute
+# row's shape (10 000 x 64 parents x 2 children x 17 Field64 elements,
+# 21.76 M samples a launch, each rejected with probability about
+# 2^-32) until a launch returns ok False: about 200 launches expected,
+# and a miss in OK_DRAWS launches has probability about e^-15.
+OK_DRAWS = 3000
+# The resident checkpoint phase: MasticCount(16) over the Count path's
+# report layout, lanes forced to the XOF fallback at levels 0 and 9,
+# checkpointed after level 8.
+CKPT_BITS = 16
+CKPT_FORCED_LEVELS = (0, 9)
+CKPT_SPLIT = 9
 # The launch counters each path must reach (ops/kernels.py): K1's
 # in-place sponge and its binder sponge (per field), K2's fixed-key
 # entry, K3 (per field).  The from-root cross-check of the Count path
@@ -140,6 +172,8 @@ PATH_COUNTERS = {
     "histogram": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
     "sumvec": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
     "attributes": ("keccak", "keccak_binder", "aes", "level"),
+    "attributes_splice": ("keccak", "keccak_binder", "level"),
+    "resident_checkpoint": ("keccak", "keccak_binder", "aes", "level"),
 }
 CTX = b"mastic chip smoke"
 LONG_CTX = bytes(range(150))
@@ -236,7 +270,7 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
     """Each kernel against its plain version at main-path shapes."""
     from mastic_tpu_torch.backend.mastic import MasticCount
     from mastic_tpu_torch.backend.xof import ts_prefix
-    from mastic_tpu_torch.dst import USAGE_ONEHOT_CHECK, dst_alg
+    from mastic_tpu_torch.scalar.dst import USAGE_ONEHOT_CHECK, dst_alg
     from mastic_tpu_torch.ops import keccak
     from mastic_tpu_torch.ops.field import FIELD64
 
@@ -350,15 +384,20 @@ def field_values(spec, shape: tuple, dev: torch.device,
 
 def check_level(dev: torch.device, gen: torch.Generator, spec,
                 value_len: int, parents: int, ctx: bytes, name: str,
-                reports: int = R, binder_len: int = 36) -> dict:
+                reports: int = R, binder_len: int = 36,
+                until_reject: bool = False) -> dict:
     """K3 against its plain version at `reports` x `parents` with a
     `binder_len`-byte node binder (level 255's by default) and payloads
     of `value_len` elements of `spec`'s field (w_cw holding values >=
     p): the whole call by CUDA events, its two kernels' device time from
-    a profiler trace, the plain version's time and the bound."""
+    a profiler trace, the plain version's time and the bound.  With
+    `until_reject`, fresh parent seeds and control bits are drawn until
+    a launch returns `ok` False somewhere (the kernel's in-range
+    predicate fired), at most OK_DRAWS launches; that launch's inputs
+    are the ones held against the plain version and timed."""
     from mastic_tpu_torch.backend.vidpf import BatchedVidpf
     from mastic_tpu_torch.backend.xof import ts_prefix
-    from mastic_tpu_torch.dst import USAGE_NODE_PROOF, dst
+    from mastic_tpu_torch.scalar.dst import USAGE_NODE_PROOF, dst
     from mastic_tpu_torch.ops import level
 
     def rand_u8(*shape):
@@ -372,10 +411,27 @@ def check_level(dev: torch.device, gen: torch.Generator, spec,
           field_values(spec, (reports, value_len), dev, gen),
           rand_u8(reports, 32))
     binder = rand_u8(2 * parents, binder_len)
-    args = (spec, vid.convert_blocks, value_len, ext_rk, conv_rk,
-            rand_u8(reports, parents, 16), rand_u8(reports, parents) >= 128,
-            cw, prefix, binder, binder_len)
-    err = _max_err(level.level_step(*args), level.level_step_plain(*args))
+
+    def draw():
+        return (spec, vid.convert_blocks, value_len, ext_rk, conv_rk,
+                rand_u8(reports, parents, 16),
+                rand_u8(reports, parents) >= 128, cw, prefix, binder,
+                binder_len)
+
+    args = draw()
+    draws = 1
+    t0 = time.perf_counter()
+    while until_reject and bool(level.level_step(*args)[3].all()):
+        if draws == OK_DRAWS:
+            raise AssertionError(f"K3 returned no ok False in {draws} "
+                                 f"launches at {reports} x {parents}")
+        args = draw()
+        draws += 1
+    draw_s = time.perf_counter() - t0
+    got = level.level_step(*args)
+    err = _max_err(got, level.level_step_plain(*args))
+    false_slots = int((~got[3]).sum())
+    del got
     # The whole call by CUDA events (what the main path pays: the
     # wrapper's template and copies, and the kernels), as in PR 1; the
     # kernels' own device time from a profiler trace beside it.
@@ -397,8 +453,12 @@ def check_level(dev: torch.device, gen: torch.Generator, spec,
                    + 64 * nb * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
     (bound, by) = _bound(float(in_bytes + out_bytes), float(ops))
     field = "Field128" if spec.num_limbs == 8 else "Field64"
+    drawn = {}
+    if until_reject:
+        drawn = {"draws": draws, "ok_false_slots": false_slots,
+                 "draw_s": draw_s}
     return {
-        "name": name, "route": "cuda",
+        **drawn, "name": name, "route": "cuda",
         "source": "mastic_tpu_torch/csrc/level.cu",
         "replaces": "mastic_tpu/ops/level_pallas.py:521",
         "max_abs_err": err, "kernel_ms": ms, "ms": ms,
@@ -517,8 +577,8 @@ def flat_binder_inputs(dev: torch.device, gen: torch.Generator, sched,
     n) with values >= p (`field_values`) and its node proofs, and the
     schedule's index lists into the flat node axis."""
     from mastic_tpu_torch.backend.xof import ts_prefix
-    from mastic_tpu_torch.dst import (USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK,
-                                      dst_alg)
+    from mastic_tpu_torch.scalar.dst import (USAGE_ONEHOT_CHECK,
+                                             USAGE_PAYLOAD_CHECK, dst_alg)
 
     total = sched.total_nodes
     w = field_values(spec, (reports, 1, total, value_len), dev, gen)
@@ -596,6 +656,22 @@ def check_from_root(dev: torch.device, gen: torch.Generator,
           f"ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
           f"{row['shape']}, max_abs_err {row['max_abs_err']}")
     rows = [row]
+
+    # K3's in-range predicate: the same shape, fresh parents until a
+    # launch rejects a sample (Field64 only: Field128 rejects about
+    # 7 x 2^-62 of its samples, so no launch would).
+    row = check_level(dev, gen, FIELD64, SUM_VALUE_LEN, ATTR_ASKED, CTX,
+                      "level_step_ok_predicate", reports=ATTR_R,
+                      binder_len=4 + ATTR_BITS // 8, until_reject=True)
+    row["shape"] += (f"; drawn {row['draws']} launches until ok False "
+                     f"({row.pop('draw_s'):.3f} s), at "
+                     f"{row['ok_false_slots']} (report, child) slots")
+    print(f"K3 ok predicate (level_step_ok_predicate): ok False after "
+          f"{row['draws']} launches at {row['ok_false_slots']} (report, "
+          f"child) slots, bit-exact against level_step_plain (ok "
+          f"included), max_abs_err {row['max_abs_err']}; whole call "
+          f"{row['ms']:.4f} ms at {row['shape']}")
+    rows.append(row)
 
     mastic = MasticSum(ATTR_BITS, SUM_MAX)
     asked = attribute_measurements(seed)[0]
@@ -766,8 +842,8 @@ def binder_inputs(dev: torch.device, gen: torch.Generator, bits: int,
     Count path's), each with values >= p from a different first element
     (`field_values`), with RoundPlan-shaped index lists."""
     from mastic_tpu_torch.backend.xof import ts_prefix
-    from mastic_tpu_torch.dst import (USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK,
-                                      dst_alg)
+    from mastic_tpu_torch.scalar.dst import (USAGE_ONEHOT_CHECK,
+                                             USAGE_PAYLOAD_CHECK, dst_alg)
     from mastic_tpu_torch.ops.field import FIELD64
 
     spec = spec or FIELD64
@@ -875,12 +951,14 @@ def check_binder_sponge(dev: torch.device, gen: torch.Generator) -> dict:
     return row
 
 
-def measurements(seed: int) -> tuple:
-    """32 planted 256-bit strings x 64 reports plus 2048 uniform strings
-    (weights 0 or 1), shuffled: (alphas (R, BITS) bool, weights (R,))."""
+def measurements(seed: int, bits: int = BITS) -> tuple:
+    """32 planted `bits`-bit strings x 64 reports plus 2048 uniform
+    strings (weights 0 or 1), shuffled: (alphas (R, bits) bool, weights
+    (R,), planted)."""
     rng = np.random.default_rng(seed)
-    planted = rng.integers(0, 2, (PLANTED, BITS)).astype(bool)
-    uniform = rng.integers(0, 2, (R - PLANTED * PER_PLANTED, BITS)).astype(bool)
+    planted = rng.integers(0, 2, (PLANTED, bits)).astype(bool)
+    uniform = rng.integers(0, 2, (R - PLANTED * PER_PLANTED, bits))
+    uniform = uniform.astype(bool)
     alphas = np.concatenate([np.repeat(planted, PER_PLANTED, axis=0), uniform])
     weights = np.concatenate([np.ones(PLANTED * PER_PLANTED, np.int64),
                               rng.integers(0, 2, len(uniform))])
@@ -927,8 +1005,9 @@ def main_path(dev: torch.device, seed: int, levels: int) -> dict:
     shard_s = time.perf_counter() - t0
     shard_launches = dict(kernels.launches)
 
+    reports = ScalarReports(mastic, meas, nonces, rand)
     run = HeavyHittersRun(mastic, CTX, {"default": THRESHOLD}, vk, batch,
-                          valid=shard_ok, device=dev)
+                          valid=shard_ok, device=dev, reports=reports)
     excluded_per_level = []
     widths = []
     max_frontier = 0
@@ -971,10 +1050,12 @@ def main_path(dev: torch.device, seed: int, levels: int) -> dict:
     padded = 2 * R * sum(widths)
     # What the from-root cross-check reads: the last level's prefixes and
     # aggregates, and the reports the incremental runner left out.
-    handoff = (bm, vk, batch, excluded_per_level[-1], run.level_results[-1])
+    handoff = (bm, vk, batch, excluded_per_level[-1], run.level_results[-1],
+               reports)
     return {"handoff": handoff, "levels": done, "shard_s": shard_s,
             "rounds_s": rounds_s,
             "rejected": int((~valid).sum()),
+            "xof_fallbacks": run.metrics[-1].xof_fallbacks,
             "shard_rejected": int((~shard_ok).sum()),
             "live_evals": live, "padded_evals": padded,
             "max_frontier": max_frontier,
@@ -989,14 +1070,14 @@ def count_from_root(dev: torch.device, handoff: tuple) -> dict:
     runner kept: its aggregates must equal the incremental runner's."""
     from mastic_tpu_torch.drivers.heavy_hitters import run_round
 
-    (bm, vk, batch, excluded, (prefixes, counts)) = handoff
+    (bm, vk, batch, excluded, (prefixes, counts), reports) = handoff
     level = len(prefixes[0]) - 1
     metrics = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = run_round(bm, vk, CTX, (level, tuple(prefixes), False), batch,
                     valid=torch.as_tensor(~excluded, device=dev),
-                    metrics_out=metrics)
+                    metrics_out=metrics, reports=reports)
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
     if got != counts:
@@ -1054,6 +1135,51 @@ def _shard(dev: torch.device, bm, meas: list, nonces: torch.Tensor,
     return (batch, ok, time.perf_counter() - t0)
 
 
+class ScalarReports:
+    """The scalar reports behind a path's batch, each built on first
+    access: lane r's scalar shard (`Mastic.scalar().shard`) of the same
+    measurement, nonce and rand, then `tamper(r, report)` where the path
+    tampers with its batch.  The drivers read a lane only where its XOF
+    sampling fired, so a run where none fires builds none."""
+
+    def __init__(self, mastic, meas: list, nonces: torch.Tensor,
+                 rand: torch.Tensor, tamper=None):
+        self.scalar = mastic.scalar()
+        self.meas = meas
+        self.nonces = nonces.cpu().numpy()
+        self.rand = rand.cpu().numpy()
+        self.tamper = tamper
+        self.built: dict = {}
+
+    def __len__(self) -> int:
+        return len(self.meas)
+
+    def __getitem__(self, r: int):
+        if r not in self.built:
+            nonce = self.nonces[r].tobytes()
+            report = (nonce,) + self.scalar.shard(
+                CTX, self.meas[r], nonce, self.rand[r].tobytes())
+            if self.tamper is not None:
+                report = self.tamper(r, report)
+            self.built[r] = report
+        return self.built[r]
+
+
+def _marshal_matches(dev: torch.device, bm, batch, reports, lanes) -> None:
+    """`marshal_reports` of each lane's scalar report equals that lane's
+    row of the device batch."""
+    from mastic_tpu_torch import convert
+
+    rows = convert.report_batch_to_arrays(batch)
+    for r in lanes:
+        got = convert.report_batch_to_arrays(
+            bm.marshal_reports([reports[r]], dev))
+        for (key, arr) in got.items():
+            if not np.array_equal(arr[0], rows[key][r]):
+                raise AssertionError(f"lane {r}: the scalar report's {key} "
+                                     f"differs from the device batch's")
+
+
 def sum_path(dev: torch.device, seed: int) -> dict:
     """Weighted heavy hitters: MasticSum(256, 255) at full depth through
     HeavyHittersRun, one step a level (compute_heavy_hitters' loop);
@@ -1072,7 +1198,8 @@ def sum_path(dev: torch.device, seed: int) -> dict:
     shard_launches = dict(kernels.launches)
 
     run = HeavyHittersRun(mastic, CTX, {"default": SUM_THRESHOLD}, vk, batch,
-                          valid=shard_ok, device=dev)
+                          valid=shard_ok, device=dev,
+                          reports=ScalarReports(mastic, meas, nonces, rand))
     excluded = []
     t0 = time.perf_counter()
     more = True
@@ -1104,6 +1231,7 @@ def sum_path(dev: torch.device, seed: int) -> dict:
                for (prefixes, _c, _e) in levels)
     return {"levels": len(levels), "shard_s": shard_s, "rounds_s": rounds_s,
             "rejected": int(levels[-1][2].sum()),
+            "xof_fallbacks": run.metrics[-1].xof_fallbacks,
             "shard_rejected": int((~shard_ok).sum()), "live_evals": live,
             "max_frontier": max(len(p) for (p, _c, _e) in levels),
             "heavy_hitters": len(hh),
@@ -1135,14 +1263,17 @@ def histogram_path(dev: torch.device, seed: int) -> dict:
     (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
     shard_launches = dict(kernels.launches)
 
-    runner = IncrementalRunner(bm, vk, CTX, batch, valid=shard_ok)
+    runner = IncrementalRunner(bm, vk, CTX, batch, valid=shard_ok,
+                               reports=ScalarReports(mastic, meas, nonces,
+                                                     rand))
+    valid = shard_ok.cpu().numpy()
+    metrics = []
     t0 = time.perf_counter()
     for level in range(bits):
         prefixes = sorted({tuple(bool(b) for b in a[:level + 1])
                            for a in attrs})
         handle = runner.round_stage((level, tuple(prefixes), level == 0))
-        got = runner.round_collect(handle)
-        valid = ~runner.excluded.cpu().numpy()
+        got = runner.round_collect(handle, metrics_out=metrics)
         want = [np.bincount(buckets[valid & (alphas[:, :level + 1]
                                              == np.array(p)).all(axis=1)],
                             minlength=length).tolist() for p in prefixes]
@@ -1152,7 +1283,8 @@ def histogram_path(dev: torch.device, seed: int) -> dict:
     torch.cuda.synchronize()
     rounds_s = time.perf_counter() - t0
     return {"levels": bits, "shard_s": shard_s, "rounds_s": rounds_s,
-            "rejected": int(runner.excluded.sum()),
+            "rejected": int((~valid).sum()),
+            "xof_fallbacks": metrics[-1].xof_fallbacks,
             "shard_rejected": int((~shard_ok).sum()),
             "max_width": runner.max_width, "shard_launches": shard_launches}
 
@@ -1234,12 +1366,15 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
 
     metrics = []
     t0 = time.perf_counter()
-    got = aggregate_by_attribute(mastic, CTX, asked, vk, sub, valid=valid,
-                                 metrics_out=metrics, device=dev)
+    got = aggregate_by_attribute(
+        mastic, CTX, asked, vk, sub, valid=valid, metrics_out=metrics,
+        device=dev, reports=ScalarReports(mastic, meas[:SUMVEC_ROOT_R],
+                                          nonces[:SUMVEC_ROOT_R],
+                                          rand[:SUMVEC_ROOT_R]))
     torch.cuda.synchronize()
     root_s = time.perf_counter() - t0
     kept = valid.cpu().numpy()
-    if metrics[0].xof_fallbacks != int((~kept).sum()) \
+    if metrics[0].extra["excluded_invalid"] != int((~kept).sum()) \
             or metrics[0].accepted != int(kept.sum()):
         raise AssertionError(f"MasticSumVec from the root: {metrics[0]}")
     head = alphas[:SUMVEC_ROOT_R]
@@ -1271,6 +1406,13 @@ def attribute_measurements(seed: int) -> tuple:
              else f"other-{int(rng.integers(0, 2 ** 40))}"
              for r in range(ATTR_R)]
     return (asked, names, rng.integers(0, SUM_MAX + 1, ATTR_R))
+
+
+def attribute_sums(asked: list, path_of: dict, alphas: np.ndarray,
+                   weights: np.ndarray, keep: np.ndarray) -> list:
+    """numpy's weight sum of each attribute of interest over `keep`."""
+    return [(a, int(weights[(alphas == path_of[a]).all(axis=1)
+                            & keep].sum())) for a in asked]
 
 
 def attributes_path(dev: torch.device, seed: int) -> dict:
@@ -1307,47 +1449,252 @@ def attributes_path(dev: torch.device, seed: int) -> dict:
     def t(x):
         return torch.as_tensor(x, device=dev)
 
-    batch.cws.seed[t(cw_rows), t(rng.integers(0, ATTR_BITS, ATTR_TAMPERED)),
-                   t(rng.integers(0, 16, ATTR_TAMPERED))] ^= t(
-        rng.integers(1, 256, ATTR_TAMPERED).astype(np.uint8))
-    batch.leader_proofs[t(proof_rows), t(rng.integers(
-        0, mastic.valid.PROOF_LEN, ATTR_TAMPERED)), 0] ^= 1
+    cw_at = (rng.integers(0, ATTR_BITS, ATTR_TAMPERED),
+             rng.integers(0, 16, ATTR_TAMPERED),
+             rng.integers(1, 256, ATTR_TAMPERED).astype(np.uint8))
+    batch.cws.seed[t(cw_rows), t(cw_at[0]), t(cw_at[1])] ^= t(cw_at[2])
+    proof_at = rng.integers(0, mastic.valid.PROOF_LEN, ATTR_TAMPERED)
+    batch.leader_proofs[t(proof_rows), t(proof_at), 0] ^= 1
+    tamper_cw = {int(r): (int(d), int(i), int(x))
+                 for (r, d, i, x) in zip(cw_rows, *cw_at)}
+    tamper_proof = {int(r): int(j) for (r, j) in zip(proof_rows, proof_at)}
 
+    def tamper(r: int, report: tuple) -> tuple:
+        """The batch's tampering, on lane r's scalar report: the
+        correction word's seed byte, or the leader proof share's
+        element whose low limb lost or gained its bit 0."""
+        (nonce, public_share, shares) = report
+        if r in tamper_cw:
+            (d, i, x) = tamper_cw[r]
+            public_share = list(public_share)
+            (seed, ctrl, w, proof) = public_share[d]
+            seed = bytearray(seed)
+            seed[i] ^= x
+            public_share[d] = (bytes(seed), ctrl, w, proof)
+        if r in tamper_proof:
+            j = tamper_proof[r]
+            (key, proof_share, seed, part) = shares[0]
+            proof_share = list(proof_share)
+            proof_share[j] = type(proof_share[j])(proof_share[j].int() ^ 1)
+            shares = [(key, proof_share, seed, part), shares[1]]
+        return (nonce, public_share, shares)
+
+    reports = ScalarReports(mastic, meas, nonces, rand, tamper)
     run = AttributeMetricsRun(mastic, CTX, asked, vk, batch, valid=shard_ok,
-                              device=dev)
+                              device=dev, reports=reports)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handle = run.step_begin()
     more = run.step_finish(handle)
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
-    (_agg0, _agg1, accept, ok, _checks) = handle["out"]
-    (accept, ok) = (accept.cpu().numpy(), ok.cpu().numpy())
+    accept = handle["accept"]
+    valid = shard_ok.cpu().numpy()
     tampered = np.zeros(ATTR_R, bool)
     tampered[cw_rows] = tampered[proof_rows] = True
     m = run.metrics[0]
-    if more or not np.array_equal(accept & ok, ok & ~tampered):
+    if more or not np.array_equal(accept, valid & ~tampered):
         raise AssertionError("attribute metrics: the accept mask does not "
                              "reject exactly the tampered reports")
+    # Lanes whose XOF sampling fired are recomputed by the splice: a
+    # tampered one is rejected there (rejected_fallback, its check in
+    # extra["rejected_fallback_by"]), the others by their check.
+    fallback = ~handle["out"][3].cpu().numpy() & valid
+    live = valid & ~fallback
     if (m.rejected_eval_proof, m.rejected_weight_check, m.rejected_joint_rand,
-            m.accepted, m.xof_fallbacks) != (
-            int(ok[cw_rows].sum()), int(ok[proof_rows].sum()), 0,
-            int((ok & ~tampered).sum()), int((~ok).sum())):
+            m.rejected_fallback, m.accepted, m.xof_fallbacks) != (
+            int(live[cw_rows].sum()), int(live[proof_rows].sum()), 0,
+            int((fallback & tampered).sum()), int((valid & ~tampered).sum()),
+            int(fallback.sum())):
         raise AssertionError(f"attribute metrics: rejections misattributed: "
                              f"{m}")
-    keep = ok & ~tampered
-    want = [(a, int(weights[(alphas == path_of[a]).all(axis=1) & keep].sum()))
-            for a in asked]
+    want = attribute_sums(asked, path_of, alphas, weights, valid & ~tampered)
     if run.result() != want:
         raise AssertionError("attribute metrics: per-attribute sums differ "
                              "from numpy's")
-    return {"shard_s": shard_s, "round_s": round_s, "nodes": m.padded_width,
+    handoff = {"bm": bm, "vk": vk, "batch": batch, "shard_ok": shard_ok,
+               "reports": reports, "asked": asked, "result": run.result(),
+               "metrics": m, "fallback": fallback, "tampered_mask": tampered,
+               "honest": int(np.flatnonzero(in_set & ~tampered & valid)[0]),
+               "tampered": int(proof_rows[0])}
+    return {"handoff": handoff, "shard_s": shard_s, "round_s": round_s,
+            "nodes": m.padded_width,
             "in_set": int(in_set.sum()), "accepted": m.accepted,
             "rejected_eval_proof": m.rejected_eval_proof,
             "rejected_weight_check": m.rejected_weight_check,
             "xof_fallbacks": m.xof_fallbacks,
             "shard_rejected": int((~shard_ok).sum()),
             "node_evals": m.node_evals}
+
+
+def attributes_splice(dev: torch.device, handoff: dict) -> dict:
+    """A forced splice on the from-root engine at full size: the
+    attribute round again over the same batch, with two lanes' `ok`
+    cleared after the prep (`BatchedMastic.prep_both` wrapped here and
+    restored after), one honest report and one with a tampered proof
+    share.  Their scalar reports (the port's scalar shard of the same
+    measurement, nonce and rand, tampered alike) must marshal to the
+    device batch's rows.  The result must equal the unforced round's
+    (itself numpy's over every report but the tampered ones), the two
+    lanes must count as XOF fallbacks, the honest one accepted and the
+    tampered one rejected by the splice, at the weight check."""
+    from mastic_tpu_torch import AttributeMetricsRun
+    from mastic_tpu_torch.backend.mastic import BatchedMastic
+
+    h = handoff
+    lanes = [h["honest"], h["tampered"]]
+    t0 = time.perf_counter()
+    _marshal_matches(dev, h["bm"], h["batch"], h["reports"], lanes)
+    scalar_s = time.perf_counter() - t0
+    real = BatchedMastic.prep_both
+    cleared = torch.as_tensor(lanes, device=dev)
+
+    def prep_both(self, *args, **kwargs):
+        (p0, p1) = real(self, *args, **kwargs)
+        ok = p0.ok.clone()
+        ok[cleared] = False
+        return (p0._replace(ok=ok), p1)
+
+    BatchedMastic.prep_both = prep_both
+    try:
+        run = AttributeMetricsRun(h["bm"].m, CTX, h["asked"], h["vk"],
+                                  h["batch"], valid=h["shard_ok"], device=dev,
+                                  reports=h["reports"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = run.step_begin()
+        run.step_finish(handle)
+        round_s = time.perf_counter() - t0
+    finally:
+        BatchedMastic.prep_both = real
+    (m, base) = (run.metrics[0], h["metrics"])
+    accept = handle["accept"]
+    forced = h["fallback"].copy()
+    forced[lanes] = True
+    newly = int(not h["fallback"][h["tampered"]])
+    if run.result() != h["result"]:
+        raise AssertionError("forced splice from the root: the result "
+                             "differs from the unforced round's")
+    if (m.xof_fallbacks, m.accepted, m.rejected_fallback,
+            m.rejected_weight_check, m.rejected_eval_proof) != (
+            int(forced.sum()), base.accepted,
+            int((forced & h["tampered_mask"]).sum()),
+            base.rejected_weight_check - newly, base.rejected_eval_proof) \
+            or not accept[h["honest"]] or accept[h["tampered"]] \
+            or m.extra["rejected_fallback_by"].get("weight_check", 0) < 1:
+        raise AssertionError(f"forced splice from the root: {m}")
+    return {"round_s": round_s, "scalar_shard_s": scalar_s,
+            "splice_ms": m.extra["splice_ms"], "lanes": lanes,
+            "xof_fallbacks": m.xof_fallbacks,
+            "rejected_fallback": m.rejected_fallback,
+            "rejected_fallback_by": m.extra["rejected_fallback_by"],
+            "accepted": m.accepted}
+
+
+def resident_checkpoint(dev: torch.device, seed: int) -> dict:
+    """A forced splice and a checkpoint on the resident runner:
+    MasticCount(16) over the Count path's report layout (32 planted
+    strings x 64 reports and 2048 uniform ones; depth cut from 256 to 16
+    because the splice reruns the scalar round at every later level),
+    with the frontier up to 64.  A planted report's `ok` is cleared at
+    level 0 and another's at level 9 (`IncrementalMastic.agg_rounds`
+    wrapped here and restored after); the run is checkpointed after
+    level 8, with the first lane in `fallback`, dropped, restored from
+    the checkpoint into a fresh run on the card and finished.  Every
+    level's counts must equal the uninterrupted unforced run's and
+    numpy's over all reports."""
+    from mastic_tpu_torch.backend.incremental import IncrementalMastic
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
+    from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
+
+    (alphas, weights, planted) = measurements(seed, CKPT_BITS)
+    mastic = MasticCount(CKPT_BITS)
+    bm = BatchedMastic(mastic)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 11, mastic.RAND_SIZE)
+    meas = [(tuple(bool(b) for b in alphas[r]), int(weights[r]))
+            for r in range(R)]
+    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+    reports = ScalarReports(mastic, meas, nonces, rand)
+    thresholds = {"default": THRESHOLD}
+
+    def new_run() -> HeavyHittersRun:
+        return HeavyHittersRun(mastic, CTX, thresholds, vk, batch,
+                               valid=shard_ok, device=dev, reports=reports)
+
+    t0 = time.perf_counter()
+    want = new_run()
+    while want.step():
+        pass
+    torch.cuda.synchronize()
+    unforced_s = time.perf_counter() - t0
+
+    rows = np.flatnonzero((alphas[:, None, :] == planted[None])
+                          .all(-1).any(-1))
+    lanes = dict(zip(CKPT_FORCED_LEVELS, (int(rows[0]), int(rows[1]))))
+    real = IncrementalMastic.agg_rounds
+
+    def agg_rounds(self, agg_ids, verify_key, ctx, carries, rnd, *args):
+        out = real(self, agg_ids, verify_key, ctx, carries, rnd, *args)
+        if rnd.level in lanes:
+            (carry, proof, share, ok) = out[0]
+            ok = ok.clone()
+            ok[lanes[rnd.level]] = False
+            out[0] = (carry, proof, share, ok)
+        return out
+
+    IncrementalMastic.agg_rounds = agg_rounds
+    try:
+        t0 = time.perf_counter()
+        run = new_run()
+        for _ in range(CKPT_SPLIT):
+            run.step()
+        split_fallback = np.flatnonzero(run.runner.fallback.cpu().numpy())
+        t1 = time.perf_counter()
+        ckpt = run.to_bytes()
+        save_s = time.perf_counter() - t1
+        (levels, metrics) = (run.level_results, run.metrics)
+        del run
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        back = HeavyHittersRun.from_bytes(mastic, CTX, thresholds, vk, batch,
+                                          ckpt, valid=shard_ok, device=dev,
+                                          reports=reports)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        while back.step():
+            pass
+        torch.cuda.synchronize()
+        forced_s = time.perf_counter() - t0
+    finally:
+        IncrementalMastic.agg_rounds = real
+    levels = levels + back.level_results
+    metrics = metrics + back.metrics
+    valid = shard_ok.cpu().numpy()
+    if levels != want.level_results or back.result() != want.result():
+        raise AssertionError("resident checkpoint: the forced, restored run "
+                             "differs from the uninterrupted unforced one")
+    for (prefixes, counts) in levels:
+        if counts != plaintext_counts(alphas, weights, valid, prefixes):
+            raise AssertionError(f"resident checkpoint: level "
+                                 f"{len(prefixes[0]) - 1} differs from numpy")
+    expect = sorted(tuple(bool(b) for b in p) for p in planted)
+    fell = [m.xof_fallbacks for m in metrics]
+    want_fell = [1 + (level >= CKPT_FORCED_LEVELS[1])
+                 for level in range(len(fell))]
+    if sorted(back.result()) != expect or len(levels) != CKPT_BITS \
+            or split_fallback.tolist() != [lanes[CKPT_FORCED_LEVELS[0]]] \
+            or fell != want_fell:
+        raise AssertionError(f"resident checkpoint: heavy hitters "
+                             f"{len(back.result())} of {len(expect)}, "
+                             f"fallback at the split "
+                             f"{split_fallback.tolist()}, xof_fallbacks "
+                             f"{fell}")
+    return {"shard_s": shard_s, "unforced_s": unforced_s,
+            "forced_s": forced_s, "save_s": save_s, "restore_s": restore_s,
+            "ckpt_bytes": len(ckpt), "lanes": lanes,
+            "splice_ms": sum(m.extra["splice_ms"] for m in metrics),
+            "max_frontier": max(len(p) for (p, _c) in levels),
+            "heavy_hitters": len(back.result())}
 
 
 def _print_launches(counts: dict, result: dict) -> None:
@@ -1371,6 +1718,7 @@ def main() -> int:
     from mastic_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     paths = kernels.build()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
@@ -1404,7 +1752,11 @@ def main() -> int:
             ("sum", lambda: sum_path(dev, args.seed)),
             ("histogram", lambda: histogram_path(dev, args.seed)),
             ("sumvec", lambda: sumvec_path(dev, args.seed)),
-            ("attributes", lambda: attributes_path(dev, args.seed))):
+            ("attributes", lambda: attributes_path(dev, args.seed)),
+            ("attributes_splice", lambda: attributes_splice(
+                dev, results["attributes"].pop("handoff"))),
+            ("resident_checkpoint", lambda: resident_checkpoint(
+                dev, args.seed))):
         torch.cuda.empty_cache()
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1432,6 +1784,7 @@ def main() -> int:
         "aes_fixed_key_blocks_histogram": ("histogram", "aes"),
         "aes_fixed_key_blocks_sumvec": ("sumvec", "aes"),
         "level_step_from_root_sum": ("attributes", "level"),
+        "level_step_ok_predicate": ("attributes", "level"),
         "keccak_binder_sponge_from_root_sum": ("attributes", "keccak_binder"),
         "keccak_binder_sponge_from_root_sumvec": ("sumvec",
                                                   "keccak_binder_f128")}
@@ -1450,7 +1803,9 @@ def main() -> int:
           f"{THRESHOLD}, {result['levels']} levels, {result['heavy_hitters']} "
           f"heavy hitters = the planted strings")
     print(f"rejected reports (excluded from the aggregates): "
-          f"{result['rejected']} ({result['shard_rejected']} at sharding)")
+          f"{result['rejected']} ({result['shard_rejected']} at sharding); "
+          f"XOF fallbacks spliced through the scalar layer: "
+          f"{result['xof_fallbacks']}")
     print(f"shard: {result['shard_s']:.3f} s; rounds: "
           f"{result['rounds_s']:.3f} s; node evals (both aggregators): "
           f"{result['padded_evals']} computed "
@@ -1480,7 +1835,8 @@ def main() -> int:
           f"strings (lightest planted weight {result['planted_weight']}); "
           f"every level's weighted counts and survivors = numpy's")
     print(f"sum path: rejected {result['rejected']} "
-          f"({result['shard_rejected']} at sharding); shard "
+          f"({result['shard_rejected']} at sharding), XOF fallbacks spliced "
+          f"{result['xof_fallbacks']}; shard "
           f"{result['shard_s']:.3f} s; rounds {result['rounds_s']:.3f} s; "
           f"{result['live_evals']} node evals under live parents "
           f"({result['live_evals'] / result['rounds_s']:.4g} evals/s); "
@@ -1493,7 +1849,8 @@ def main() -> int:
           f"{HIST_ATTRS} attributes, {result['levels']} levels of the "
           f"resident runner, every level's {HIST[1]}-bucket aggregates = "
           f"numpy's; rejected {result['rejected']} "
-          f"({result['shard_rejected']} at sharding); shard "
+          f"({result['shard_rejected']} at sharding), XOF fallbacks spliced "
+          f"{result['xof_fallbacks']}; shard "
           f"{result['shard_s']:.3f} s; rounds {result['rounds_s']:.3f} s; "
           f"padded width {result['max_width']}; peak device memory "
           f"{peaks['histogram']} B ({peaks['histogram'] / 2 ** 30:.2f} GiB)")
@@ -1533,8 +1890,33 @@ def main() -> int:
           f"({peaks['attributes'] / 2 ** 30:.2f} GiB); launches "
           + ", ".join(f"{k} {v}" for (k, v) in counts["attributes"].items()
                       if v))
+    result = results["attributes_splice"]
+    print(f"forced splice from the root: the attributes round again with "
+          f"lanes {result['lanes']} (an honest report, a tampered proof "
+          f"share) cleared after the prep; their scalar reports marshal to "
+          f"the batch's rows ({result['scalar_shard_s']:.3f} s for both "
+          f"scalar shards); result = the unforced round's = numpy's, "
+          f"xof_fallbacks {result['xof_fallbacks']}, accepted "
+          f"{result['accepted']}, rejected_fallback "
+          f"{result['rejected_fallback']} by "
+          f"{result['rejected_fallback_by']}; round {result['round_s']:.3f} "
+          f"s of which the scalar splice {result['splice_ms'] / 1e3:.3f} s; "
+          f"phase {result['path_s']:.3f} s")
+    result = results["resident_checkpoint"]
+    print(f"resident checkpoint: MasticCount({CKPT_BITS}), {R} reports "
+          f"(depth cut from {BITS} to {CKPT_BITS}), largest frontier "
+          f"{result['max_frontier']}, {result['heavy_hitters']} heavy hitters "
+          f"= the planted strings; lanes forced at levels {result['lanes']}, "
+          f"checkpoint after level {CKPT_SPLIT - 1} ({result['ckpt_bytes']} "
+          f"B, {result['save_s']:.3f} s to write, {result['restore_s']:.3f} s "
+          f"to restore on the card); every level = the unforced run's = "
+          f"numpy's; unforced run {result['unforced_s']:.3f} s, forced run "
+          f"with the checkpoint {result['forced_s']:.3f} s of which the "
+          f"scalar splices {result['splice_ms'] / 1e3:.3f} s; phase "
+          f"{result['path_s']:.3f} s")
     print("path seconds: " + ", ".join(
         f"{name} {r['path_s']:.1f}" for (name, r) in results.items()))
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,18 @@ level-0 FLP weight check, masked aggregation, unshard and decode, and
 threshold pruning (`drivers.heavy_hitters.HeavyHittersRun`).  Attribute
 metrics (`aggregate_by_attribute`) is one weight-checked round from the
 root (`BatchedMastic.prep` over `backend.vidpf.BatchedVidpf.eval_full`),
-which also serves heavy hitters with `incremental=False`; each such
-round gives a `RoundMetrics` record.  Wire reports enter through
-`BatchedMastic.marshal_reports`.  All five circuits are served:
+which also serves heavy hitters with `incremental=False`; every round
+of either engine gives a `RoundMetrics` record.  Wire reports enter
+through `BatchedMastic.marshal_reports`.  All five circuits are served:
 MasticCount and MasticSum over Field64, MasticSumVec, MasticHistogram
 and MasticMultihotCountVec over Field128.
+
+The scalar layer (`scalar/`, a standard-library copy of the JAX
+package's) recomputes, one report at a time, the lanes whose batched
+XOF sampling drew a value outside the field
+(`drivers.heavy_hitters.splice_rejected`), and a heavy-hitters run
+checkpoints between levels in the JAX package's format
+(`HeavyHittersRun.to_bytes` / `from_bytes`).
 
 The three TPU kernels under that path are hand-written CUDA C++ for
 sm_90a in `csrc/` (built with nvcc at first use by `ops.kernels`):

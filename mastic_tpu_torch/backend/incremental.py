@@ -20,12 +20,12 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..common import to_le_bytes
-from ..dst import USAGE_NODE_PROOF, dst
 from ..ops.level import level_step
-from ..vidpf import KEY_SIZE, PROOF_SIZE, encode_path
+from ..scalar.common import to_le_bytes
+from ..scalar.dst import USAGE_NODE_PROOF, dst
+from ..scalar.vidpf import PROOF_SIZE, encode_path
 from .mastic import BatchedMastic
-from .vidpf import EvalState
+from .vidpf import KEY_SIZE, EvalState
 from .xof import ts_prefix
 
 

@@ -3,8 +3,10 @@ aggregation over whole report batches (port of
 `mastic_tpu/backend/mastic_jax.py`).
 
 The five instantiations (`MasticCount`, `MasticSum`, `MasticSumVec`,
-`MasticHistogram`, `MasticMultihotCountVec`) carry their parameters in
-place of the JAX package's scalar Mastic instances.  The three
+`MasticHistogram`, `MasticMultihotCountVec`) carry the parameters the
+batched engine reads; `Mastic.scalar()` gives the matching instance of
+the scalar layer (`scalar/mastic.py`), which the drivers run one report
+at a time where the batched XOF sampling fired.  The three
 ParallelSum circuits run over Field128 with joint randomness: the
 client derives both aggregators' joint-rand parts from their depth-0
 beta shares, and each aggregator's input share carries its peer's part.
@@ -16,35 +18,39 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..common import to_le_bytes
-from ..dst import (USAGE_EVAL_PROOF, USAGE_JOINT_RAND,
-                   USAGE_JOINT_RAND_PART, USAGE_JOINT_RAND_SEED,
-                   USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK,
-                   USAGE_PROOF_SHARE, USAGE_PROVE_RAND, USAGE_QUERY_RAND,
-                   dst_alg)
 from ..flp.circuits import (Count, Histogram, MultihotCountVec, Sum,
                             SumVec)
 from ..flp.flp import BatchedFlp
 from ..ops.binder import binder_checks
 from ..ops.field import field_sum, spec_for
-from ..vidpf import PROOF_SIZE
+from ..scalar import mastic as scalar_mastic
+from ..scalar.common import to_le_bytes
+from ..scalar.dst import (USAGE_EVAL_PROOF, USAGE_JOINT_RAND,
+                          USAGE_JOINT_RAND_PART, USAGE_JOINT_RAND_SEED,
+                          USAGE_ONEHOT_CHECK, USAGE_PAYLOAD_CHECK,
+                          USAGE_PROOF_SHARE, USAGE_PROVE_RAND,
+                          USAGE_QUERY_RAND, dst_alg)
+from ..scalar.vidpf import PROOF_SIZE, Vidpf
+from ..scalar.xof import XofTurboShake128
 from .schedule import LevelSchedule, ScheduleInputs, schedule_inputs
 from .vidpf import BatchedCorrectionWords, BatchedVidpf
 from .xof import sample_vec, turboshake_xof, ts_prefix
 
-SEED_SIZE = 32  # XofTurboShake128.SEED_SIZE
+SEED_SIZE = XofTurboShake128.SEED_SIZE
 
 
 class Mastic:
     """Mastic over one validity circuit with `bits`-bit inputs: the
-    parameters the batched engine reads."""
+    parameters the batched engine reads.  Each instantiation names its
+    scalar twin (`SCALAR`) and the arguments both are built from."""
 
     ID = 0xFFFFFFFF
-    NONCE_SIZE = 16
+    NONCE_SIZE = scalar_mastic.Mastic.NONCE_SIZE
     VERIFY_KEY_SIZE = SEED_SIZE
-    VIDPF_RAND_SIZE = 32
+    VIDPF_RAND_SIZE = Vidpf.RAND_SIZE
+    SCALAR: Optional[type] = None
 
-    def __init__(self, bits: int, valid):
+    def __init__(self, bits: int, valid, *args):
         self.bits = bits
         self.valid = valid
         self.field = valid.field
@@ -52,6 +58,17 @@ class Mastic:
         self.RAND_SIZE = self.VIDPF_RAND_SIZE + 2 * SEED_SIZE
         if valid.JOINT_RAND_LEN > 0:  # the leader's joint-rand seed
             self.RAND_SIZE += SEED_SIZE
+        self._args = (bits,) + args
+        self._scalar = None
+
+    def scalar(self):
+        """The matching instance of the scalar layer (`scalar/mastic.py`:
+        the same ID, bits and circuit parameters), built once."""
+        if self.SCALAR is None:
+            raise TypeError(f"{type(self).__name__} has no scalar twin")
+        if self._scalar is None:
+            self._scalar = self.SCALAR(*self._args)
+        return self._scalar
 
     def is_valid(self, agg_param, previous_agg_params: list) -> bool:
         """The weight check happens exactly once, on the first round,
@@ -78,6 +95,7 @@ class Mastic:
 
 class MasticCount(Mastic):
     ID = 0xFFFF0001
+    SCALAR = scalar_mastic.MasticCount
 
     def __init__(self, bits: int):
         super().__init__(bits, Count())
@@ -85,33 +103,40 @@ class MasticCount(Mastic):
 
 class MasticSum(Mastic):
     ID = 0xFFFF0002
+    SCALAR = scalar_mastic.MasticSum
 
     def __init__(self, bits: int, max_measurement: int):
-        super().__init__(bits, Sum(max_measurement))
+        super().__init__(bits, Sum(max_measurement), max_measurement)
 
 
 class MasticSumVec(Mastic):
     ID = 0xFFFF0003
+    SCALAR = scalar_mastic.MasticSumVec
 
     def __init__(self, bits: int, length: int, sum_vec_bits: int,
                  chunk_length: int):
-        super().__init__(bits, SumVec(length, sum_vec_bits, chunk_length))
+        super().__init__(bits, SumVec(length, sum_vec_bits, chunk_length),
+                         length, sum_vec_bits, chunk_length)
 
 
 class MasticHistogram(Mastic):
     ID = 0xFFFF0004
+    SCALAR = scalar_mastic.MasticHistogram
 
     def __init__(self, bits: int, length: int, chunk_length: int):
-        super().__init__(bits, Histogram(length, chunk_length))
+        super().__init__(bits, Histogram(length, chunk_length), length,
+                         chunk_length)
 
 
 class MasticMultihotCountVec(Mastic):
     ID = 0xFFFF0005
+    SCALAR = scalar_mastic.MasticMultihotCountVec
 
     def __init__(self, bits: int, length: int, max_weight: int,
                  chunk_length: int):
         super().__init__(bits, MultihotCountVec(length, max_weight,
-                                                chunk_length))
+                                                chunk_length),
+                         length, max_weight, chunk_length)
 
 
 class ReportBatch(NamedTuple):
@@ -507,7 +532,7 @@ class BatchedMastic:
     def accept_mask(self, prep0: BatchedPrep, prep1: BatchedPrep,
                     do_weight_check: bool) -> torch.Tensor:
         """The AND of accept_checks: the round's accept verdict."""
-        return _all_checks(self.accept_checks(prep0, prep1,
+        return all_checks(self.accept_checks(prep0, prep1,
                                               do_weight_check))
 
     def round_device(self, verify_key: bytes, ctx: bytes, agg_param,
@@ -524,19 +549,23 @@ class BatchedMastic:
                             valid: Optional[torch.Tensor] = None,
                             sched: Optional[ScheduleInputs] = None) -> tuple:
         """round_device plus the per-check masks: (agg0, agg1, accept,
-        ok, checks).  Lanes with `ok` False (XOF rejection sampling
-        fired in either prep, or `valid` False, e.g. at sharding) carry
-        garbage and are left out of both aggregates.  sched: the round's
-        uploaded grid, built here when None."""
+        ok, checks).  `accept` is the checks' verdict and `ok` the XOF
+        verdict alone: False where rejection sampling fired in either
+        prep, so that the lane carries garbage (the drivers recompute it
+        through the scalar layer).  Lanes with `ok` False, and lanes
+        whose `valid` is False (e.g. the shard's own sampling fired),
+        are left out of both aggregates.  sched: the round's uploaded
+        grid, built here when None."""
         (_level, _prefixes, do_weight_check) = agg_param
         (p0, p1) = self.prep_both(verify_key, ctx, agg_param, batch, sched)
         checks = self.accept_checks(p0, p1, do_weight_check)
-        accept = _all_checks(checks)
+        accept = all_checks(checks)
         ok = p0.ok & p1.ok
+        keep = accept & ok
         if valid is not None:
-            ok = ok & valid
-        agg0 = self.aggregate(p0.out_share, accept & ok)
-        agg1 = self.aggregate(p1.out_share, accept & ok)
+            keep = keep & valid
+        agg0 = self.aggregate(p0.out_share, keep)
+        agg1 = self.aggregate(p1.out_share, keep)
         return (agg0, agg1, accept, ok, checks)
 
     def aggregate(self, out_share: torch.Tensor,
@@ -583,7 +612,8 @@ class BatchedMastic:
             leader_seeds=leader_seeds, peer_parts=peer_parts)
 
 
-def _all_checks(checks: dict) -> torch.Tensor:
+def all_checks(checks: dict) -> torch.Tensor:
+    """The AND of a round's per-check masks: its accept verdict."""
     accept = checks["eval_proof"]
     for (name, mask) in checks.items():
         if name != "eval_proof":

@@ -20,8 +20,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..common import to_le_bytes
-from ..vidpf import encode_path
+from ..scalar.common import to_le_bytes
+from ..scalar.vidpf import encode_path
 
 
 class LevelSchedule:

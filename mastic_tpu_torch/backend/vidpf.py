@@ -16,16 +16,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..common import to_le_bytes
-from ..dst import USAGE_CONVERT, USAGE_EXTEND, USAGE_NODE_PROOF, dst
 from ..ops.field import FIELD64, FieldSpec
 from ..ops.keccak import turbo_shake128_dynamic
 from ..ops.level import level_step
-from ..vidpf import KEY_SIZE, PROOF_SIZE
+from ..scalar.common import to_le_bytes
+from ..scalar.dst import USAGE_CONVERT, USAGE_EXTEND, USAGE_NODE_PROOF, dst
+from ..scalar.vidpf import PROOF_SIZE, Vidpf
 from .schedule import LevelSchedule, ScheduleInputs, schedule_inputs
 from .xof import fixed_key_blocks, fixed_key_schedule, sample_vec, ts_prefix
 
 _U8 = torch.uint8
+KEY_SIZE = Vidpf.KEY_SIZE
 
 
 class BatchedCorrectionWords(NamedTuple):

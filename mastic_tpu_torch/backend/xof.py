@@ -16,7 +16,7 @@ have shifted the stream).
 import numpy as np
 import torch
 
-from ..common import to_le_bytes
+from ..scalar.common import to_le_bytes
 from ..ops import kernels
 from ..ops.aes import (aes128_encrypt_bitsliced_plain, aes128_key_schedule,
                        bitslice_keys, bitslice_pack, bitslice_unpack,

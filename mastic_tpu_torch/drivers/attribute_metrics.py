@@ -8,9 +8,12 @@ round at level BITS-1 (`heavy_hitters.run_round_stage` and
 `run_round_collect`: kernel K3 at every depth of the grid, K1 over the
 flat tree, on the device) gives each attribute's aggregate.  The
 reports arrive as a device-resident `ReportBatch`, from the batched
-client shard or from wire reports through
-`BatchedMastic.marshal_reports`.  The JAX package's chunked round
-(`chunk_size`) and mesh round (`mesh`) are not ported yet.
+client shard, or as the scalar reports (`reports=`), which a run given
+no batch marshals (`BatchedMastic.marshal_reports`).  The scalar
+reports are read for the lanes whose XOF sampling fires, which the
+round recomputes through the scalar layer (`splice_rejected`).  The
+JAX package's chunked round (`chunk_size`) and mesh round (`mesh`) are
+not ported yet.
 """
 
 import hashlib
@@ -22,7 +25,6 @@ import torch
 
 from .. import resolve_device
 from ..backend.mastic import BatchedMastic, Mastic, ReportBatch
-from ..vidpf import test_index_from_int as index_from_int
 from .heavy_hitters import run_round_collect, run_round_stage
 
 
@@ -32,21 +34,24 @@ def hash_attribute(mastic: Mastic, attribute: str) -> tuple:
     digest = hashlib.sha3_256(attribute.encode()).digest()
     value = int.from_bytes(digest[:(bits + 7) // 8], "big")
     value >>= (8 - bits % 8) % 8
-    return index_from_int(value, bits)
+    return mastic.scalar().vidpf.test_index_from_int(value, bits)
 
 
 def aggregate_by_attribute(mastic: Mastic, ctx: bytes,
                            attributes: Sequence[str], verify_key: bytes,
-                           batch: ReportBatch,
+                           batch: Optional[ReportBatch] = None,
                            valid: Optional[torch.Tensor] = None,
                            metrics_out: Optional[list] = None,
-                           device="cuda") -> list:
-    """Aggregate the reports of `batch` grouped by the collector's
-    attributes of interest.  Returns [(attribute, aggregate)]; appends
-    the round's RoundMetrics record to `metrics_out`.  `valid` (R,)
-    bool marks reports to leave out (e.g. the shard's `ok`)."""
+                           device="cuda",
+                           reports: Optional[Sequence] = None) -> list:
+    """Aggregate the reports of `batch` (or the scalar `reports`,
+    marshalled) grouped by the collector's attributes of interest.
+    Returns [(attribute, aggregate)]; appends the round's RoundMetrics
+    record to `metrics_out`.  `valid` (R,) bool marks reports to leave
+    out (e.g. the shard's `ok`); `reports` are the scalar reports behind
+    the batch, read for the lanes whose XOF sampling fires."""
     run = AttributeMetricsRun(mastic, ctx, attributes, verify_key, batch,
-                              valid, device)
+                              valid, device, reports)
     while run.step():
         pass
     if metrics_out is not None:
@@ -64,16 +69,23 @@ class AttributeMetricsRun:
     resumed finished run touches no device."""
 
     def __init__(self, mastic: Mastic, ctx: bytes, attributes: Sequence[str],
-                 verify_key: bytes, batch: ReportBatch,
-                 valid: Optional[torch.Tensor] = None, device="cuda"):
+                 verify_key: bytes, batch: Optional[ReportBatch] = None,
+                 valid: Optional[torch.Tensor] = None, device="cuda",
+                 reports: Optional[Sequence] = None):
         dev = resolve_device(device)
-        if batch.nonces.device.type != dev.type:
-            raise ValueError(f"the report batch is not on {dev}")
         prefixes = tuple(hash_attribute(mastic, a) for a in attributes)
         if len(set(prefixes)) != len(prefixes):
             raise ValueError("attribute hash collision; increase BITS")
         self.mastic = mastic
         self.bm = BatchedMastic(mastic)
+        if batch is None:
+            if reports is None:
+                raise ValueError("a run needs the report batch or the "
+                                 "scalar reports")
+            batch = self.bm.marshal_reports(reports, dev)
+        if batch.nonces.device.type != dev.type:
+            raise ValueError(f"the report batch is not on {dev}")
+        self.reports = reports
         self.ctx = ctx
         self.attributes = list(attributes)
         self.verify_key = verify_key
@@ -100,16 +112,18 @@ class AttributeMetricsRun:
         agg_param = (self.mastic.bits - 1, self.prefixes, True)
         if not self.mastic.is_valid(agg_param, []):
             raise ValueError("invalid aggregation parameter")
+        t0 = time.perf_counter()
         handle = run_round_stage(self.bm, self.verify_key, self.ctx,
                                  agg_param, self.batch, self.valid)
-        handle.update(agg_param=agg_param, t0=time.perf_counter())
+        handle.update(agg_param=agg_param, t0=t0)
         return handle
 
     def step_finish(self, handle: dict) -> bool:
         """Collect the round (its one blocking sync), stamp its metrics,
         keep the result.  Returns False: there is exactly one round."""
         result = run_round_collect(self.bm, handle["agg_param"], handle,
-                                   metrics_out=self.metrics)
+                                   metrics_out=self.metrics,
+                                   reports=self.reports)
         self.metrics[-1].extra["round_wall_ms"] = \
             (time.perf_counter() - handle["t0"]) * 1e3
         self._result = list(zip(self.attributes, result))
@@ -138,10 +152,12 @@ class AttributeMetricsRun:
     @classmethod
     def from_bytes(cls, mastic: Mastic, ctx: bytes,
                    attributes: Sequence[str], verify_key: bytes,
-                   batch: ReportBatch, data: bytes,
-                   valid: Optional[torch.Tensor] = None,
-                   device="cuda") -> "AttributeMetricsRun":
-        run = cls(mastic, ctx, attributes, verify_key, batch, valid, device)
+                   batch: Optional[ReportBatch], data: bytes,
+                   valid: Optional[torch.Tensor] = None, device="cuda",
+                   reports: Optional[Sequence] = None
+                   ) -> "AttributeMetricsRun":
+        run = cls(mastic, ctx, attributes, verify_key, batch, valid, device,
+                  reports)
         state = json.loads(data)
         if state["done"]:
             run.done = True

@@ -6,38 +6,54 @@ incremental round for both aggregators (kernel K3 for the level, K1
 for the binders and the eval proof), the FLP weight check on level 0
 (with the joint-rand confirmation for the circuits that use joint
 randomness), the accept-mask combine and the masked aggregation, all
-on the device; then one sync, the unshard and decode, and the
-threshold pruning on the host.  The padded node width grows on demand.
+on the device; then one sync, the splice, the metrics record, the
+unshard and decode, and the threshold pruning on the host.  The padded
+node width grows on demand.
 
 The from-root round (`run_round`, and `HeavyHittersRun(...,
 incremental=False)`): each level re-evaluates the whole grid from the
 root for both aggregators (`BatchedMastic.round_device_checks`: K3 a
-depth, K1 over the flat tree), then one sync, a `RoundMetrics` record
-per round with rejections attributed per check, and the unshard.  It
-is the differential reference for the incremental runner, and the
-attribute-metrics round.
+depth, K1 over the flat tree), then one sync, the splice, the metrics
+record and the unshard.  It is the differential reference for the
+incremental runner, and the attribute-metrics round.
+
+Both engines append one `RoundMetrics` record per level, with the
+rejections attributed per check.
 
 `HeavyHittersRun` prunes on `count >= threshold`, so it serves the
 scalar circuits (MasticCount, MasticSum), as in the JAX package; the
 resident runner (`IncrementalRunner`) and the from-root round serve
 every circuit.
 
-Reports whose XOF rejection sampling fired (`ok` False, about 2^-32 per
-sampled Field64 element) are excluded from both aggregates (the
-incremental runner from the round where it fired on) and counted, in
-`RoundMetrics.xof_fallbacks` and `rejected_fallback` on the from-root
-round: the JAX package recomputes them through its scalar layer
-(`splice_rejected`), which the port has not brought over yet.  The AOT
-programs, the pipeline and checkpointing are left for later slices, and
-so are the incremental rounds' metrics.
+XOF rejection sampling: a lane whose batched sampling drew a value
+outside the field (`ok` False, about 2^-32 per sampled Field64
+element) holds garbage.  Both engines leave it out of the device
+aggregates and recompute the report through the scalar layer
+(`splice_rejected`, with `Mastic.scalar()`): the from-root round in
+that round, the incremental runner in that round and every later one
+(its `fallback` mask), since the lane's carry is garbage from then on.
+The splice reads the scalar reports behind the batch (`reports=`, any
+sequence indexable by lane); a rejection without them raises.  Lanes
+whose `valid` is False (e.g. the shard's own sampling fired) were never
+sharded correctly: they are left out of the aggregates, not recomputed,
+and counted in `RoundMetrics.extra["excluded_invalid"]`.  As in the JAX
+package, a recomputed report that fails counts in `rejected_fallback`;
+`extra["rejected_fallback_by"]` names the checks it failed.
+
+`HeavyHittersRun.to_bytes` / `from_bytes` checkpoint a run between
+levels in the JAX package's v3 format, so that a checkpoint taken by
+either package resumes in the other.  The JAX package's chunked
+runner, pipeline, AOT programs and mesh are not ported yet.
 
 Thresholds: a dict mapping prefix tuples to ints with a "default" key;
 a prefix takes the threshold of its longest strict ancestor present in
 the dict, else the default.
 """
 
+import hashlib
+import io
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,9 +61,12 @@ import torch
 from .. import resolve_device
 from ..backend.incremental import (Carry, IncrementalMastic, RoundPlan,
                                    round_inputs)
-from ..backend.mastic import BatchedMastic, Mastic, ReportBatch
+from ..backend.mastic import (BatchedMastic, Mastic, ReportBatch,
+                               all_checks)
+from ..convert import carry_from_arrays, carry_to_arrays
 from ..metrics import (RoundMetrics, attribute_rejections,
                        count_round_bytes, count_round_ops)
+from ..scalar.mastic import ReportRejected
 
 
 def get_threshold(thresholds: dict, prefix: tuple) -> int:
@@ -65,27 +84,110 @@ def _pad_nodes(x: torch.Tensor, dim: int, pad: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
+def _ms(t0: float, t1: float) -> float:
+    return (t1 - t0) * 1e3
+
+
+# -- the scalar fallback -----------------------------------------------
+
+# The check each scalar rejection names (the messages of
+# scalar/mastic.py's ReportRejected), under RoundMetrics' names.
+_REJECTED_BY = {"VIDPF verification failed": "eval_proof",
+                "FLP verification failed": "weight_check",
+                "joint rand confirmation failed": "joint_rand"}
+
+
+def scalar_round_out_shares(m, verify_key: bytes, ctx: bytes, agg_param,
+                            report,
+                            rejected_by: Optional[dict] = None
+                            ) -> Optional[list]:
+    """One report through the scalar protocol round (both preps, the
+    prep-share exchange, prep_next) of the scalar Mastic `m`.  Returns
+    the two out shares, or None if the report is rejected by the
+    checks, counting the failed check in `rejected_by`.  The scalar
+    XOFs run the true rejection loop, so this is exact for the lanes
+    the batched sampler flags."""
+    (nonce, public_share, input_shares) = report
+    states = []
+    shares = []
+    for agg_id in range(2):
+        (state, share) = m.prep_init(verify_key, ctx, agg_id, agg_param,
+                                     nonce, public_share,
+                                     input_shares[agg_id])
+        states.append(state)
+        shares.append(share)
+    try:
+        prep_msg = m.prep_shares_to_prep(ctx, agg_param, shares)
+        return [m.prep_next(ctx, state, prep_msg) for state in states]
+    except ReportRejected as err:
+        if rejected_by is not None:
+            check = _REJECTED_BY[str(err)]
+            rejected_by[check] = rejected_by.get(check, 0) + 1
+        return None
+
+
+def splice_rejected(mastic: Mastic, verify_key: bytes, ctx: bytes,
+                    agg_param, reports: Optional[Sequence], ok: np.ndarray,
+                    accept: np.ndarray, agg_shares: list) -> dict:
+    """The XOF rejection-sampling fallback (vdaf-13 §6.2).
+
+    Lanes where `ok` is False sampled a value outside the field: their
+    device results are garbage, and the device aggregates already leave
+    them out.  Recompute exactly those reports through the scalar layer
+    and splice their out shares and accept bits into the round's host
+    results (`accept` and `agg_shares`, lists of ints mod p, are
+    updated in place).  Returns the recomputed reports' rejections per
+    failed check ({"weight_check": 1, ...})."""
+    rejected_by: dict = {}
+    if ok.all():
+        return rejected_by
+    if reports is None:
+        raise ValueError(
+            "XOF rejection sampling fired but the host reports needed "
+            "for the scalar fallback were not provided")
+    m = mastic.scalar()
+    p = mastic.field.MODULUS
+    for r in np.flatnonzero(~ok):
+        out_shares = scalar_round_out_shares(m, verify_key, ctx, agg_param,
+                                             reports[int(r)], rejected_by)
+        accept[r] = out_shares is not None
+        if out_shares is not None:
+            for a in range(2):
+                agg_shares[a] = [(x + y.int()) % p for (x, y)
+                                 in zip(agg_shares[a], out_shares[a])]
+    return rejected_by
+
+
+# -- the resident incremental runner -------------------------------------
+
 class IncrementalRunner:
     """Drives backend/incremental.py across the collector loop: keeps
     both aggregators' carries on the device, grows the padded width on
     demand, and folds the level-0 FLP weight check into the accept
-    mask."""
+    mask.
+
+    `fallback` (R,) bool, on the device: the lanes whose XOF rejection
+    sampling fired in some round.  Their carry is garbage from that
+    round on, so they stay out of every later device aggregate and go
+    through the scalar splice every round (`reports`).  `valid` (R,)
+    bool: lanes to leave out of every aggregate without recomputing
+    them (e.g. the shard's `ok`)."""
 
     def __init__(self, bm: BatchedMastic, verify_key: bytes, ctx: bytes,
                  batch: ReportBatch, valid: Optional[torch.Tensor] = None,
-                 width: int = 8):
+                 width: int = 8, reports: Optional[Sequence] = None):
         self.bm = bm
         self.verify_key = verify_key
         self.ctx = ctx
         self.batch = batch
+        self.reports = reports
         self.device = batch.nonces.device
         self.num_reports = int(batch.nonces.shape[0])
-        # Reports excluded from every aggregate: rejected at shard time
-        # (`valid` False) or at a round's rejection sampling.
-        self.excluded = torch.zeros(self.num_reports, dtype=torch.bool,
+        self.valid = (torch.ones(self.num_reports, dtype=torch.bool,
+                                 device=self.device)
+                      if valid is None else valid.to(torch.bool))
+        self.fallback = torch.zeros(self.num_reports, dtype=torch.bool,
                                     device=self.device)
-        if valid is not None:
-            self.excluded |= ~valid
         self.width = max(4, width)
         self.engine = IncrementalMastic(bm, self.width)
         self.layouts: list = []
@@ -105,6 +207,9 @@ class IncrementalRunner:
                 seed=_pad_nodes(c.seed, 1, pad),
                 ctrl=_pad_nodes(c.ctrl, 1, pad))
             del c
+        self._set_width(width)
+
+    def _set_width(self, width: int) -> None:
         self.width = width
         self.max_width = max(self.max_width, width)
         self.engine = IncrementalMastic(self.bm, width)
@@ -119,42 +224,96 @@ class IncrementalRunner:
                     raise
                 self._grow(self.width * 2)
 
+    def restore(self, width: int, fallback: np.ndarray, carries: list,
+                layouts: list) -> None:
+        """Adopt a checkpoint's state: its width, `fallback` mask (only
+        lanes that are valid here), both carries and the per-depth
+        creation layouts."""
+        self._set_width(width)
+        self.fallback = torch.as_tensor(np.asarray(fallback, bool),
+                                        device=self.device) & self.valid
+        self.carries = list(carries)
+        self.layouts = list(layouts)
+
     def round_stage(self, agg_param) -> dict:
         """Dispatch one round without blocking: both aggregators' tree
         step, the level-0 weight check, the accept combine and the
         masked aggregates.  Returns the handle `round_collect` reads."""
+        t0 = time.perf_counter()
         (level, prefixes, do_weight_check) = agg_param
         plan = self._plan(prefixes, level)
         rnd = round_inputs(plan, self.device)
+        t_plan = time.perf_counter()
         ((c0, proof0, out0, ok0), (c1, proof1, out1, ok1)) = \
             self.engine.agg_rounds((0, 1), self.verify_key, self.ctx,
                                    tuple(self.carries), rnd, self.ext_rk,
                                    self.conv_rk, self.batch.cws)
         self.carries = [c0, c1]
-        accept = torch.all(proof0 == proof1, dim=-1)
+        checks = {"eval_proof": torch.all(proof0 == proof1, dim=-1)}
         ok = ok0 & ok1
         if do_weight_check:
-            (checks, wc_ok) = self.bm.weight_check_device(
+            (wc_checks, wc_ok) = self.bm.weight_check_device(
                 self.verify_key, self.ctx, level, self.batch,
                 c0.w[:, 0, :2], c1.w[:, 0, :2])
-            accept = accept & checks["weight_check"]
-            if "joint_rand" in checks:
-                accept = accept & checks["joint_rand"]
+            checks.update(wc_checks)
             ok = ok & wc_ok
-        self.excluded |= ~ok
-        accept = accept & ~self.excluded
-        agg = (self.bm.aggregate(out0, accept), self.bm.aggregate(out1, accept))
+        accept = all_checks(checks)
+        keep = accept & ok & ~self.fallback & self.valid
+        agg = (self.bm.aggregate(out0, keep), self.bm.aggregate(out1, keep))
         self.layouts.append(plan.layout_new)
-        return {"agg_param": agg_param, "agg": agg}
+        return {"agg_param": agg_param, "plan": plan, "agg": agg,
+                "accept": accept, "ok": ok, "checks": checks,
+                "t": (t0, t_plan, time.perf_counter())}
 
-    def round_collect(self, handle: dict) -> list:
-        """The blocking half: one sync, the unshard and decode.  Returns
-        one decoded aggregate per prefix (a weighted count for the
-        scalar circuits, a list for the vector ones)."""
-        (_level, prefixes, _wc) = handle["agg_param"]
+    def round_collect(self, handle: dict,
+                      metrics_out: Optional[list] = None) -> list:
+        """The blocking half: one sync (the downloads), the scalar
+        splice of every fallback lane, the metrics record (appended to
+        `metrics_out`), the unshard and decode.  Returns one decoded
+        aggregate per prefix (a weighted count for the scalar circuits,
+        a list for the vector ones)."""
+        agg_param = handle["agg_param"]
+        (level, prefixes, _wc) = agg_param
+        plan = handle["plan"]
+        (t0, t_plan, t_disp) = handle["t"]
+        self.fallback |= ~handle["ok"] & self.valid
         rows = len(prefixes) * (1 + self.bm.m.valid.OUTPUT_LEN)
-        shares = [self.bm.agg_share_to_host(a[:rows]) for a in handle["agg"]]
-        return self.bm.m.unshard(shares)
+        agg_shares = [self.bm.agg_share_to_host(a[:rows])
+                      for a in handle["agg"]]
+        fallback = self.fallback.cpu().numpy()
+        valid = self.valid.cpu().numpy()
+        checks = {k: v.cpu().numpy() for (k, v) in handle["checks"].items()}
+        accept = handle["accept"].cpu().numpy() & ~fallback & valid
+        t_wait = time.perf_counter()
+
+        num = self.num_reports
+        metrics = RoundMetrics(level=level, frontier_width=len(prefixes),
+                               padded_width=plan.width, reports_total=num)
+        attribute_rejections(metrics, checks["eval_proof"],
+                             checks.get("weight_check"),
+                             checks.get("joint_rand"),
+                             device_ok=~fallback & valid)
+        # The incremental round extends only the surviving parents.
+        count_round_ops(metrics, self.bm.m, num, 2 * plan.parent_count,
+                        include_key_setup=(level == 0))
+        count_round_bytes(metrics, self.bm.m, agg_param, num)
+        rejected_by = splice_rejected(self.bm.m, self.verify_key, self.ctx,
+                                      agg_param, self.reports, ~fallback,
+                                      accept, agg_shares)
+        t_splice = time.perf_counter()
+        metrics.accepted = int(accept.sum())
+        metrics.xof_fallbacks = int(fallback.sum())
+        metrics.rejected_fallback = int((fallback & ~accept).sum())
+        metrics.extra["excluded_invalid"] = int((~valid).sum())
+        metrics.extra["rejected_fallback_by"] = rejected_by
+        metrics.extra["splice_ms"] = _ms(t_wait, t_splice)
+        metrics.extra["phases"] = {
+            "plan_upload_ms": _ms(t0, t_plan),
+            "dispatch_ms": _ms(t_plan, t_disp),
+            "compute_wait_ms": _ms(t_disp, t_wait)}
+        if metrics_out is not None:
+            metrics_out.append(metrics)
+        return self.bm.m.unshard(agg_shares)
 
 
 # -- the from-root round ---------------------------------------------
@@ -168,84 +327,154 @@ def run_round_stage(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
     sched = bm.schedule(agg_param, batch.nonces.device)
     return {"out": bm.round_device_checks(verify_key, ctx, agg_param, batch,
                                           valid, sched),
-            "nodes": sched.total_nodes}
+            "nodes": sched.total_nodes, "valid": valid,
+            "verify_key": verify_key, "ctx": ctx}
 
 
 def run_round_collect(bm: BatchedMastic, agg_param, handle: dict,
-                      metrics_out: Optional[list] = None) -> list:
+                      metrics_out: Optional[list] = None,
+                      reports: Optional[Sequence] = None) -> list:
     """The blocking half of `run_round_stage`: one sync (the downloads),
-    the metrics record and the unshard.  Returns the per-prefix
-    aggregates; appends a RoundMetrics record to `metrics_out`."""
-    (agg0, agg1, _accept, ok, checks) = handle["out"]
+    the scalar splice of the lanes whose XOF sampling fired (from
+    `reports`), the metrics record and the unshard.  Returns the
+    per-prefix aggregates; appends a RoundMetrics record to
+    `metrics_out`; leaves the round's final accept mask (R,) bool, the
+    spliced lanes' verdicts included, in handle["accept"]."""
+    (agg0, agg1, accept, ok, checks) = handle["out"]
+    accept = accept.cpu().numpy().copy()
     ok = ok.cpu().numpy()
+    valid = handle["valid"]
+    valid = (np.ones_like(ok) if valid is None
+             else valid.cpu().numpy().astype(bool))
     checks = {k: v.cpu().numpy() for (k, v) in checks.items()}
     agg_shares = [bm.agg_share_to_host(a) for a in (agg0, agg1)]
     nodes = handle["nodes"]
-    return finalize_round(bm, agg_param, ok, checks, agg_shares,
+    handle["accept"] = accept
+    return finalize_round(bm, handle["verify_key"], handle["ctx"], agg_param,
+                          reports, ok, accept, checks, agg_shares,
                           padded_width=nodes, nodes_evaluated=nodes,
-                          metrics_out=metrics_out)
+                          metrics_out=metrics_out, valid=valid)
 
 
 def run_round(bm: BatchedMastic, verify_key: bytes, ctx: bytes, agg_param,
               batch: ReportBatch, valid: Optional[torch.Tensor] = None,
-              metrics_out: Optional[list] = None) -> list:
+              metrics_out: Optional[list] = None,
+              reports: Optional[Sequence] = None) -> list:
     """One from-root aggregation round: `run_round_stage` then
-    `run_round_collect`."""
+    `run_round_collect`.  `reports` are the scalar reports behind
+    `batch`, read only for the lanes whose XOF sampling fired."""
     handle = run_round_stage(bm, verify_key, ctx, agg_param, batch, valid)
-    return run_round_collect(bm, agg_param, handle, metrics_out=metrics_out)
+    return run_round_collect(bm, agg_param, handle, metrics_out=metrics_out,
+                             reports=reports)
 
 
-def finalize_round(bm: BatchedMastic, agg_param, ok: np.ndarray,
-                   checks: dict, agg_shares: list, padded_width: int,
-                   nodes_evaluated: int, metrics_out: Optional[list]) -> list:
+def finalize_round(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
+                   agg_param, reports: Optional[Sequence], ok: np.ndarray,
+                   accept: np.ndarray, checks: dict, agg_shares: list,
+                   padded_width: int, nodes_evaluated: int,
+                   metrics_out: Optional[list], valid: np.ndarray) -> list:
     """The from-root round's host side: the metrics record with the
-    rejections attributed per check, then the unshard.  Lanes with `ok`
-    False are rejected (the device aggregates already leave them out)
-    and counted in `xof_fallbacks` and `rejected_fallback`; the JAX
-    package recomputes them through its scalar layer instead."""
+    rejections attributed per check, the XOF-rejection splice (lanes
+    with `ok` False and `valid` True; `accept` and `agg_shares` are
+    updated in place), then the unshard.  Lanes with `valid` False are
+    left out of the aggregates and the verdicts."""
     (level, prefixes, _wc) = agg_param
-    num_reports = ok.shape[0]
+    num_reports = accept.shape[0]
     metrics = RoundMetrics(level=level, frontier_width=len(prefixes),
                            padded_width=padded_width,
                            reports_total=num_reports)
     attribute_rejections(metrics, checks["eval_proof"],
                          checks.get("weight_check"),
-                         checks.get("joint_rand"), device_ok=ok)
+                         checks.get("joint_rand"), device_ok=ok & valid)
     count_round_ops(metrics, bm.m, num_reports, nodes_evaluated,
                     include_key_setup=True)
     count_round_bytes(metrics, bm.m, agg_param, num_reports)
-    metrics.xof_fallbacks = int((~ok).sum())
-    metrics.rejected_fallback = metrics.xof_fallbacks
+    fallback = ~ok & valid
+    metrics.xof_fallbacks = int(fallback.sum())
+    accept &= valid
+    t0 = time.perf_counter()
+    rejected_by = splice_rejected(bm.m, verify_key, ctx, agg_param, reports,
+                                  ~fallback, accept, agg_shares)
+    metrics.extra["splice_ms"] = _ms(t0, time.perf_counter())
+    metrics.extra["excluded_invalid"] = int((~valid).sum())
+    metrics.extra["rejected_fallback_by"] = rejected_by
+    metrics.accepted = int(accept.sum())
+    metrics.rejected_fallback = int((fallback & ~accept).sum())
     if metrics_out is not None:
         metrics_out.append(metrics)
     return bm.m.unshard(agg_shares)
 
 
+# -- the collector loop and its checkpoints ---------------------------------
+
+# The JAX package's checkpoint format: v3 stores the per-depth creation
+# layouts (the carries are not compacted between rounds).
+_CKPT_VERSION = 3
+
+
+def _ckpt_binding(verify_key: bytes, ctx: bytes,
+                  thresholds: dict) -> np.ndarray:
+    """Digest binding a checkpoint to its (verify_key, ctx, thresholds):
+    restoring under another key or context would reject every report
+    (the carries were derived under the old key), and other thresholds
+    would prune another frontier."""
+    thresh_repr = repr(sorted(thresholds.items(), key=repr)).encode()
+    digest = hashlib.sha256(
+        len(verify_key).to_bytes(2, "little") + verify_key +
+        len(ctx).to_bytes(2, "little") + ctx + thresh_repr).digest()
+    return np.frombuffer(digest, np.uint8)
+
+
+def _paths_to_array(paths) -> np.ndarray:
+    if not paths:
+        return np.zeros((0, 0), bool)
+    return np.array([[bool(b) for b in p] for p in paths], bool)
+
+
+def _paths_from_array(arr) -> list:
+    return [tuple(bool(x) for x in row) for row in np.asarray(arr)]
+
+
 class HeavyHittersRun:
     """A heavy-hitters collection over a device-resident report batch:
     one `step()` per tree level, on the incremental runner or, with
-    `incremental=False`, one from-root round a level (which appends a
-    RoundMetrics record per level to `metrics`)."""
+    `incremental=False`, one from-root round a level; either way one
+    RoundMetrics record per level in `metrics`.
+
+    `batch` is the report batch on the device; a run given only the
+    scalar `reports` marshals them (`BatchedMastic.marshal_reports`).
+    `reports` (any sequence indexable by lane) is read only for the
+    lanes whose XOF sampling fires.  `to_bytes()` serialises the run
+    between levels (the collector state, both carries and the
+    `fallback` mask); `from_bytes()` restores a run, over the same
+    reports, that continues bit-identically."""
 
     def __init__(self, mastic: Mastic, ctx: bytes, thresholds: dict,
-                 verify_key: bytes, batch: ReportBatch,
+                 verify_key: bytes, batch: Optional[ReportBatch] = None,
                  valid: Optional[torch.Tensor] = None, device="cuda",
-                 incremental: bool = True):
+                 incremental: bool = True,
+                 reports: Optional[Sequence] = None):
         dev = resolve_device(device)
+        self.bm = BatchedMastic(mastic)
+        if batch is None:
+            if reports is None:
+                raise ValueError("a run needs the report batch or the "
+                                 "scalar reports")
+            batch = self.bm.marshal_reports(reports, dev)
         if batch.nonces.device.type != dev.type:
             raise ValueError(f"the report batch is not on {dev}")
         self.mastic = mastic
         self.ctx = ctx
         self.thresholds = thresholds
         self.verify_key = verify_key
-        self.bm = BatchedMastic(mastic)
         self.batch = batch
         self.valid = valid
+        self.reports = reports
+        self.num_reports = int(batch.nonces.shape[0])
         self.runner = (IncrementalRunner(self.bm, verify_key, ctx, batch,
-                                         valid) if incremental else None)
+                                         valid, reports=reports)
+                       if incremental else None)
         self.metrics: list = []
-        # The from-root rounds' lanes left out of the last aggregates.
-        self._excluded = np.zeros(int(batch.nonces.shape[0]), bool)
         self.level = 0
         self.prefixes: list = [(False,), (True,)]
         self.prev_agg_params: list = []
@@ -272,25 +501,29 @@ class HeavyHittersRun:
         agg_param = (self.level, tuple(self.prefixes), self.level == 0)
         if not self.mastic.is_valid(agg_param, self.prev_agg_params):
             raise ValueError("invalid aggregation parameter sequence")
+        t0 = time.perf_counter()
         if self.runner is not None:
-            return self.runner.round_stage(agg_param)
-        handle = run_round_stage(self.bm, self.verify_key, self.ctx,
-                                 agg_param, self.batch, self.valid)
-        handle.update(agg_param=agg_param, t0=time.perf_counter())
+            handle = self.runner.round_stage(agg_param)
+        else:
+            handle = run_round_stage(self.bm, self.verify_key, self.ctx,
+                                     agg_param, self.batch, self.valid)
+        handle.update(agg_param=agg_param, t0=t0)
         return handle
 
     def step_finish(self, handle: dict) -> bool:
-        """Collect the staged round, prune at the threshold, and
-        advance the frontier.  Returns True while more rounds remain."""
+        """Collect the staged round, stamp its metrics record, prune at
+        the threshold, and advance the frontier.  Returns True while
+        more rounds remain."""
         (level, prefixes, _wc) = handle["agg_param"]
         if self.runner is not None:
-            counts = self.runner.round_collect(handle)
+            counts = self.runner.round_collect(handle,
+                                               metrics_out=self.metrics)
         else:
             counts = run_round_collect(self.bm, handle["agg_param"], handle,
-                                       metrics_out=self.metrics)
-            self._excluded = ~handle["out"][3].cpu().numpy()
-            self.metrics[-1].extra["round_wall_ms"] = \
-                (time.perf_counter() - handle["t0"]) * 1e3
+                                       metrics_out=self.metrics,
+                                       reports=self.reports)
+        self.metrics[-1].extra["round_wall_ms"] = \
+            (time.perf_counter() - handle["t0"]) * 1e3
         self.prev_agg_params.append(handle["agg_param"])
         self.level_results.append((list(prefixes), counts))
         survivors = [p for (p, c) in zip(prefixes, counts)
@@ -309,22 +542,113 @@ class HeavyHittersRun:
         return self.heavy_hitters
 
     def excluded(self) -> np.ndarray:
-        """Reports excluded from the aggregates (bool (R,)): so far on
-        the incremental runner, in the last round from the root."""
-        if self.runner is None:
-            return self._excluded
-        return self.runner.excluded.cpu().numpy()
+        """Reports left out of the aggregates (bool (R,)): those whose
+        `valid` is False.  Lanes whose XOF sampling fired are recomputed
+        through the scalar layer, not left out."""
+        if self.valid is None:
+            return np.zeros(self.num_reports, bool)
+        return ~self.valid.cpu().numpy().astype(bool)
+
+    # -- checkpoint / resume ---------------------------------------
+
+    def to_bytes(self) -> bytes:
+        """Serialise the run between levels (the collector state, both
+        carries and the fallback mask) in the JAX package's v3 npz
+        format."""
+        num_layouts = (len(self.runner.layouts)
+                       if self.runner is not None else 0)
+        data = {
+            "meta": np.array(
+                [_CKPT_VERSION, self.level, int(self.done),
+                 0 if self.runner is None else 1, self.mastic.bits,
+                 self.num_reports, 0, num_layouts], np.int64),
+            "binding": _ckpt_binding(self.verify_key, self.ctx,
+                                     self.thresholds),
+            "prefixes": _paths_to_array(self.prefixes),
+            "heavy_hitters": _paths_to_array(self.heavy_hitters),
+            "prev_levels": np.array([p[0] for p in self.prev_agg_params],
+                                    np.int64),
+            "prev_wc": np.array([p[2] for p in self.prev_agg_params], bool),
+        }
+        if self.prev_agg_params:
+            data["last_prefixes"] = _paths_to_array(
+                self.prev_agg_params[-1][1])
+        for d in range(num_layouts):
+            data[f"layout_{d}"] = _paths_to_array(self.runner.layouts[d])
+        if self.runner is not None:
+            data["width"] = np.int64(self.runner.width)
+            data["fallback"] = self.runner.fallback.cpu().numpy()
+            data.update(carry_to_arrays(self.runner.carries[0], "c0_"))
+            data.update(carry_to_arrays(self.runner.carries[1], "c1_"))
+        buf = io.BytesIO()
+        np.savez(buf, **data)
+        return buf.getvalue()
+
+    @classmethod
+    def from_bytes(cls, mastic: Mastic, ctx: bytes, thresholds: dict,
+                   verify_key: bytes, batch: Optional[ReportBatch],
+                   data: bytes, valid: Optional[torch.Tensor] = None,
+                   device="cuda", reports: Optional[Sequence] = None
+                   ) -> "HeavyHittersRun":
+        """Restore a checkpointed run over the same reports (the batch,
+        or the scalar reports it was marshalled from).  Refuses a
+        checkpoint of another instantiation, report count, verify key,
+        ctx or thresholds, and one taken by the chunked runner."""
+        arrays = np.load(io.BytesIO(data), allow_pickle=False)
+        meta = [int(x) for x in arrays["meta"]]
+        if meta[0] != _CKPT_VERSION:
+            raise ValueError(f"checkpoint version {meta[0]}: the port reads "
+                             f"v{_CKPT_VERSION} only")
+        (_, level, done, incremental, bits, num_reports, chunk_size,
+         num_layouts) = meta
+        if chunk_size:
+            raise ValueError(f"chunked checkpoint (chunk_size={chunk_size}):"
+                             f" chunked runner not ported yet")
+        restored_n = (int(batch.nonces.shape[0]) if batch is not None
+                      else len(reports) if reports is not None else None)
+        if bits != mastic.bits or num_reports != restored_n:
+            raise ValueError("checkpoint does not match this instantiation "
+                             "or report batch")
+        if not np.array_equal(np.asarray(arrays["binding"]),
+                              _ckpt_binding(verify_key, ctx, thresholds)):
+            raise ValueError("checkpoint was taken under a different "
+                             "verify_key / ctx / thresholds")
+        run = cls(mastic, ctx, thresholds, verify_key, batch, valid, device,
+                  bool(incremental), reports)
+        run.level = level
+        run.done = bool(done)
+        run.prefixes = _paths_from_array(arrays["prefixes"])
+        run.heavy_hitters = _paths_from_array(arrays["heavy_hitters"])
+        prev_levels = [int(x) for x in arrays["prev_levels"]]
+        prev_wc = [bool(x) for x in arrays["prev_wc"]]
+        last_prefixes = (tuple(_paths_from_array(arrays["last_prefixes"]))
+                         if prev_levels else ())
+        # is_valid reads only the weight-check flags and the last level.
+        run.prev_agg_params = [
+            (lvl, last_prefixes if i == len(prev_levels) - 1 else (), wc)
+            for (i, (lvl, wc)) in enumerate(zip(prev_levels, prev_wc))]
+        if run.runner is not None and prev_levels:
+            dev = run.runner.device
+            run.runner.restore(
+                int(arrays["width"]), arrays["fallback"],
+                [carry_from_arrays(arrays, f"c{a}_", dev) for a in range(2)],
+                [_paths_from_array(arrays[f"layout_{d}"])
+                 for d in range(num_layouts)])
+        return run
 
 
 def compute_heavy_hitters(mastic: Mastic, ctx: bytes, thresholds: dict,
-                          verify_key: bytes, batch: ReportBatch,
+                          verify_key: bytes,
+                          batch: Optional[ReportBatch] = None,
                           valid: Optional[torch.Tensor] = None,
-                          device="cuda", incremental: bool = True) -> list:
-    """The full collector loop over a sharded report batch.  With
-    `incremental=False` every level is one round from the root: the
-    differential reference of the incremental runner."""
+                          device="cuda", incremental: bool = True,
+                          reports: Optional[Sequence] = None) -> list:
+    """The full collector loop over a sharded report batch (or the
+    scalar `reports`, marshalled).  With `incremental=False` every level
+    is one round from the root: the differential reference of the
+    incremental runner."""
     run = HeavyHittersRun(mastic, ctx, thresholds, verify_key, batch,
-                          valid, device, incremental)
+                          valid, device, incremental, reports)
     while run.step():
         pass
     return run.result()

@@ -8,8 +8,8 @@ Histogram, MultihotCountVec).  The FLP lengths follow from the gadget
 as `FlpBBCGGI19` derives them.  Field elements are ints in [0, p).
 """
 
-from ..common import next_power_of_2
-from ..field import Field64, Field128
+from ..scalar.common import next_power_of_2
+from ..scalar.field import Field64, Field128
 
 
 def _bits(value: int, bits: int) -> list:

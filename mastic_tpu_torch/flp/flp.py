@@ -17,9 +17,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..common import next_power_of_2
 from ..ops.field import FieldSpec, field_sum, spec_for
 from ..ops.ntt import ntt_plan, poly_eval_mont, pow_static, power_chain
+from ..scalar.common import next_power_of_2
 from .circuits import Histogram, MultihotCountVec, Sum
 
 

@@ -1,6 +1,7 @@
 """Round metrics (port of the round records of `mastic_tpu/metrics.py`).
 
-Every from-root round produces one `RoundMetrics` record with
+Every round, incremental or from the root, produces one `RoundMetrics`
+record with
 
 * verdict counters: reports accepted, and rejected attributed to the
   first failing check in protocol order (VIDPF eval proof, then FLP
@@ -14,7 +15,14 @@ Every from-root round produces one `RoundMetrics` record with
 
 The fields are the JAX package's, so `as_dict()` has its keys.  The
 session, transport and service counters stay 0 until the port has
-those layers.
+those layers.  `extra` holds, besides the JAX package's key-setup
+counts, the port's own entries: "excluded_invalid" (lanes left out
+because the caller's `valid` was False: never sharded correctly, so
+not recomputed), "rejected_fallback_by" (the checks the recomputed
+reports failed), the scalar splice's time ("splice_ms"), on the
+incremental rounds the plan, dispatch and wait times ("phases"), and
+"round_wall_ms".  The JAX package's "artifacts",
+"pipeline" and "mesh" blocks have no counterpart yet.
 """
 
 from dataclasses import asdict, dataclass, field
@@ -35,9 +43,8 @@ class RoundMetrics:
     rejected_eval_proof: int = 0
     rejected_weight_check: int = 0
     rejected_joint_rand: int = 0
-    rejected_fallback: int = 0   # rejected where the device lanes held
-    #                              garbage (check attribution unknown)
-    xof_fallbacks: int = 0       # lanes whose XOF rejection sampling fired
+    rejected_fallback: int = 0   # rejected by the scalar fallback path
+    xof_fallbacks: int = 0       # lanes recomputed via the scalar path
     # session fault-tolerance counters (party layer):
     timeouts: int = 0
     retries: int = 0

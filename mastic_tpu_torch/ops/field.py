@@ -13,7 +13,7 @@ FLP multiplies live in the Montgomery domain; payloads stay plain.
 import numpy as np
 import torch
 
-from ..field import Field64, Field128
+from ..scalar.field import Field64, Field128
 from .bits import I32, I64
 
 _MASK16 = 0xFFFF

@@ -21,7 +21,7 @@ in `ops.kernels.launches`, the binder sponge as "keccak_binder".
 import numpy as np
 import torch
 
-from ..keccak import RHO_OFFSETS, ROUND_CONSTANTS
+from ..scalar.keccak import RHO_OFFSETS, ROUND_CONSTANTS
 from . import kernels
 from .bits import I32, I64, rotl64, shr64
 

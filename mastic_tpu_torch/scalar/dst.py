@@ -1,5 +1,6 @@
-"""Domain-separation tags for every XOF usage (copy of
-`mastic_tpu/dst.py`)."""
+"""Copy of `mastic_tpu/dst.py`: the domain-separation tags of every
+XOF usage, in one module so that their distinctness is auditable at a
+glance."""
 
 from .common import byte, to_be_bytes
 

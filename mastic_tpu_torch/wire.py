@@ -2,9 +2,11 @@
 formulas of `mastic_tpu/wire.py`, over the port's Mastic parameter
 classes).  The codecs themselves stay with the party layer."""
 
-SEED_SIZE = 32
-KEY_SIZE = 16
-PROOF_SIZE = 32
+from .scalar.vidpf import PROOF_SIZE, Vidpf
+from .scalar.xof import XofTurboShake128
+
+SEED_SIZE = XofTurboShake128.SEED_SIZE
+KEY_SIZE = Vidpf.KEY_SIZE
 
 
 def input_share_size(mastic, agg_id: int) -> int:

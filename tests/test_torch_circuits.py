@@ -37,8 +37,9 @@ from mastic_tpu_torch.backend.incremental import IncrementalMastic
 from mastic_tpu_torch.backend.incremental import RoundPlan, round_inputs
 from mastic_tpu_torch.backend.vidpf import BatchedVidpf
 from mastic_tpu_torch.backend.xof import sample_vec, ts_prefix
-from mastic_tpu_torch.dst import (USAGE_NODE_PROOF, USAGE_ONEHOT_CHECK,
-                                  USAGE_PAYLOAD_CHECK, dst, dst_alg)
+from mastic_tpu_torch.scalar.dst import (USAGE_NODE_PROOF,
+                                         USAGE_ONEHOT_CHECK,
+                                         USAGE_PAYLOAD_CHECK, dst, dst_alg)
 from mastic_tpu_torch.ops.binder import binder_checks
 from mastic_tpu_torch.ops.field import FIELD64, FIELD128
 from mastic_tpu_torch.ops.level import level_step

@@ -7,6 +7,8 @@ package's on the same inputs in test_torch_protocol.py) and `convert`
 hands the batch to the JAX runner, so this file compiles no JAX
 sharding program of its own."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -56,11 +58,26 @@ def _jax_batch(arrays: dict) -> JReportBatch:
         peer_parts=(None, None))
 
 
+# RoundMetrics.extra entries that are times, or blocks of layers the
+# port does not have yet (the AOT tier, the pipeline, the mesh, the
+# schema stamp).
+_UNSHARED_EXTRA = ("round_wall_ms", "splice_ms", "phases", "artifacts",
+                   "pipeline", "mesh", "schema")
+
+
+def _comparable(metrics) -> dict:
+    record = dataclasses.asdict(metrics)
+    record["extra"] = {k: v for (k, v) in record["extra"].items()
+                       if k not in _UNSHARED_EXTRA}
+    return record
+
+
 def test_heavy_hitters_run_matches_jax(monkeypatch):
-    """A whole collection: the heavy-hitter list and every level's
-    aggregates equal HeavyHittersRun(..., batch=...)'s.  The JAX
-    runner's next-level compile-ahead is switched off: it only costs
-    compile time here."""
+    """A whole collection: the heavy-hitter list, every level's
+    aggregates and every level's RoundMetrics record (every field, and
+    the `extra` entries both packages fill, times left out) equal
+    HeavyHittersRun(..., batch=...)'s.  The JAX runner's next-level
+    compile-ahead is switched off: it only costs compile time here."""
     monkeypatch.setenv("MASTIC_PIPELINE", "0")
     (pbatch, pok) = _port_batch()
     assert bool(pok.all())
@@ -82,6 +99,15 @@ def test_heavy_hitters_run_matches_jax(monkeypatch):
         pass
     assert trun.level_results == jlevels
     assert trun.result() == jrun.result()
+    assert len(trun.metrics) == len(jrun.metrics) == len(jlevels)
+    for (got, want) in zip(trun.metrics, jrun.metrics):
+        got = _comparable(got)
+        extra = got.pop("extra")
+        assert (extra.pop("excluded_invalid"),
+                extra.pop("rejected_fallback_by")) == (0, {})
+        want = _comparable(want)
+        assert extra == want.pop("extra")
+        assert got == want
     assert len(trun.result()) >= 3
     assert not trun.excluded().any()
     assert compute_heavy_hitters(MasticCount(BITS), CTX, thresholds, VK,

@@ -2,6 +2,7 @@
 mastic_tpu), devices (CUDA by default, no silent CPU fallback), and the
 kernel wrappers' CPU routing and argument checks."""
 
+import ast
 import importlib
 import pathlib
 import pkgutil
@@ -52,6 +53,42 @@ def test_every_module_imports_here():
     for name in names:
         importlib.import_module(name)
     assert "mastic_tpu_torch.ops.level" in names
+    assert "mastic_tpu_torch.scalar.mastic" in names
+
+
+def _imported_roots(path: pathlib.Path) -> set:
+    """The top-level packages a module imports absolutely."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_scalar_layer_is_a_standard_library_copy():
+    """Every module of `mastic_tpu_torch.scalar` is a copy of the JAX
+    package's module of the same name, says so first in its docstring,
+    is reached by the package walk (so the import probe above covers
+    it), and imports nothing but the standard library and the scalar
+    layer itself."""
+    pkg = REPO / "mastic_tpu_torch"
+    names = {m.name for m in pkgutil.walk_packages(
+        mastic_tpu_torch.__path__, "mastic_tpu_torch.")}
+    files = sorted((pkg / "scalar").rglob("*.py"))
+    assert len(files) == 13
+    for path in files:
+        rel = path.relative_to(pkg / "scalar")
+        name = ".".join(("mastic_tpu_torch",)
+                        + path.relative_to(pkg).with_suffix("").parts)
+        assert name.removesuffix(".__init__") in names
+        roots = _imported_roots(path)
+        assert roots <= set(sys.stdlib_module_names), (rel, roots)
+        if rel != pathlib.Path("__init__.py"):
+            assert (REPO / "mastic_tpu" / rel).exists(), rel
+            doc = ast.get_docstring(ast.parse(path.read_text()))
+            assert doc.startswith(f"Copy of `mastic_tpu/{rel.as_posix()}`")
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):

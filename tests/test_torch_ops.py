@@ -19,7 +19,7 @@ from mastic_tpu.ops import ntt_jax as jntt
 from mastic_tpu.ops.field_jax import FIELD64 as JFIELD64
 from mastic_tpu.ops.field_jax import field_sum as jfield_sum
 from mastic_tpu_torch.backend import xof as txof
-from mastic_tpu_torch.field import Field64
+from mastic_tpu_torch.scalar.field import Field64
 from mastic_tpu_torch.ops import aes as taes
 from mastic_tpu_torch.ops import keccak as tkeccak
 from mastic_tpu_torch.ops import ntt as tntt

@@ -30,8 +30,9 @@ from mastic_tpu_torch.ops.binder import binder_checks
 from mastic_tpu_torch.ops import level
 from mastic_tpu_torch.ops.level import level_step
 from mastic_tpu_torch.backend.xof import ts_prefix
-from mastic_tpu_torch.dst import (USAGE_NODE_PROOF, USAGE_ONEHOT_CHECK,
-                                  USAGE_PAYLOAD_CHECK, dst, dst_alg)
+from mastic_tpu_torch.scalar.dst import (USAGE_NODE_PROOF,
+                                         USAGE_ONEHOT_CHECK,
+                                         USAGE_PAYLOAD_CHECK, dst, dst_alg)
 
 CTX = b"torch port test"
 VK = bytes(range(32))
