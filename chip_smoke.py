@@ -38,7 +38,7 @@
    attribute row's shape, fresh parent seeds drawn until a launch
    returns ok False (about 200 launches expected, at most 3000), and
    that launch held bit-exact against `level_step_plain`, ok included.
-3. Drives eight phases, each with every launch counter set to 0 just
+3. Drives ten phases, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
    runs (K1's binder sponge and K3 count Field128 launches apart).
    Every path hands its runs the scalar reports behind its batch
@@ -70,10 +70,12 @@
       (four in five reports on 4 hashed attributes), sharded (K3 at
       1026 blocks for the joint-rand parts), then both aggregators'
       weight check from their depth-0 payloads: every honest report must
-      be accepted.  Then `aggregate_by_attribute` from the root over the
-      first 1024 reports (a cut: the flat tree is about 33 MB a report):
-      every attribute's 1024-entry vector must equal numpy's.  No
-      incremental rounds: its carry does not fit a 128-level tree.
+      be accepted.  Then the batch moves to a pinned `HostReportStore`
+      and `aggregate_by_attribute(chunk_size=512, store=...)` runs the
+      round from the root over all 4096 reports in 8 chunks (the flat
+      tree is about 33 MB a report): every attribute's 1024-entry
+      vector must equal numpy's.  No incremental rounds: its carry does
+      not fit a 128-level tree.
    e. Attributes: MasticSum(32, 255) over 10 000 reports and 64
       attributes of interest (BASELINE.json's attribute-metrics
       configuration), 100 reports with a flipped correction-word byte
@@ -95,6 +97,21 @@
       round), lanes forced at levels 0 and 9, checkpointed after level
       8, restored into a fresh run on the card and finished; every
       level must equal the unforced run's and numpy's.
+   i. A chunked checkpoint: phase g's reports through
+      `HeavyHittersRun(chunk_size=1024)` (four chunks, pipelined),
+      checkpointed after level 8, restored on the card and finished;
+      every level must equal phase g's unforced resident run.
+   h. Count chunked: MasticCount(256) over 32 768 reports (the Count
+      recipe x8: 32 planted strings x 512 reports and 16 384 uniform
+      ones, threshold 48 x 8), sharded on the card in batches of 4096,
+      moved into a pinned `HostReportStore` and run through
+      `HeavyHittersRun(chunk_size=4096)` (8 chunks, pipelined) for the
+      first 16 levels (`CHUNKED_LEVELS`); R drops to 16 384 when the
+      host's available memory cannot hold the carries and the store.
+      Every level must equal numpy's count, and the device peak must be
+      at most 1.1x `memory_envelope`'s pipelined per-chunk peak.  The
+      cuts (R, levels) are printed, and per level the wall time, the
+      card's upload, compute and download times and the overlap.
 4. Prints the `kernels` JSON line (every kernel and instantiation), the
    card, each path's figures, and last `{"ok": true, "device": {...}}`.
    Any failure exits non-zero before that line.
@@ -145,10 +162,13 @@ ATTR_BITS = 32
 ATTR_R = 10_000
 ATTR_ASKED = 64
 ATTR_TAMPERED = 100
-# SumVec from the root: 4 attributes over the first 1024 of the sumvec
-# path's 4096 reports (its flat tree is about 33 MB a report).
+# SumVec from the root: 4 attributes over all of the sumvec path's 4096
+# reports, in chunks of 512 (the flat tree is about 33 MB a report, so
+# about 17 GB a chunk and aggregator).  K1's SumVec row keeps the 1024
+# reports of the unchunked round it was first held at.
 SUMVEC_ASKED = 4
-SUMVEC_ROOT_R = 1024
+SUMVEC_CHUNK = 512
+SUMVEC_BINDER_R = 1024
 # K3's in-range predicate on the card: fresh parents at the attribute
 # row's shape (10 000 x 64 parents x 2 children x 17 Field64 elements,
 # 21.76 M samples a launch, each rejected with probability about
@@ -161,6 +181,22 @@ OK_DRAWS = 3000
 CKPT_BITS = 16
 CKPT_FORCED_LEVELS = (0, 9)
 CKPT_SPLIT = 9
+# The chunked checkpoint phase: that phase's reports through the chunked
+# runner in four chunks, checkpointed at the same split.
+CKPT_CHUNK = R // 4
+# The chunked Count cell: the Count path's recipe scaled x8 (32 planted
+# strings x 512 reports and 16 384 uniform ones), sharded in batches of
+# 4096, streamed from pinned host memory in 8 chunks of 4096, pipelined,
+# through the first 16 levels, threshold 48 x 8.  A resident run would
+# hold 32 768 x 2.0 MiB of carries at width 64 on the card (68.8 GB),
+# and its peak, the resident Count path's scaled x8, is past the card.
+# If the smoke runs over time, CHUNKED_LEVELS is cut first (never below
+# 8), and the cut is printed.
+CHUNKED_R = 8 * R
+CHUNKED_FALLBACK_R = 4 * R
+CHUNKED_CHUNK = R
+CHUNKED_LEVELS = 16
+CHUNKED_THRESHOLD = 8 * THRESHOLD
 # The launch counters each path must reach (ops/kernels.py): K1's
 # in-place sponge and its binder sponge (per field), K2's fixed-key
 # entry, K3 (per field).  The from-root cross-check of the Count path
@@ -174,6 +210,8 @@ PATH_COUNTERS = {
     "attributes": ("keccak", "keccak_binder", "aes", "level"),
     "attributes_splice": ("keccak", "keccak_binder", "level"),
     "resident_checkpoint": ("keccak", "keccak_binder", "aes", "level"),
+    "count_chunked": ("keccak", "keccak_binder", "aes", "level"),
+    "chunked_checkpoint": ("keccak", "keccak_binder", "level"),
 }
 CTX = b"mastic chip smoke"
 LONG_CTX = bytes(range(150))
@@ -318,15 +356,28 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
     err_s = max(err_s, _max_err(short[:1], short[1:]))
     sponge_ms = _time(lambda: keccak.turbo_shake128_dynamic(
         msg, length, 1, 32, prefix=prefix), 5)
+    sponge_plain = _time(lambda: keccak.turbo_shake128_dynamic_plain(
+        msg, length, 1, 32, prefix=prefix), 1)
+    # Each message absorbs its prefix, its bytes and the domain byte in
+    # 168-byte rate blocks, one permutation each; the 32-byte output
+    # comes from the last one.
+    blocks = (len(prefix) + length + 1 + 167) // 168
+    (sponge_bound, sponge_by) = _bound(
+        R * (len(prefix) + length + 32.0),
+        R * blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
     print(f"K1 in-place sponge: {R} messages x ({len(prefix)} + {length}) B, "
-          f"{sponge_ms:.4f} ms, max_abs_err {err_s}")
+          f"{blocks} rate blocks each, {sponge_ms:.4f} ms (plain "
+          f"{sponge_plain:.3f} ms, bound {sponge_bound:.4f} ms by "
+          f"{sponge_by}), max_abs_err {err_s}")
     if err_s:
         raise AssertionError("K1's sponge disagrees with its plain version")
     del msg, got, want, short
     k1["max_abs_err"] = max(k1["max_abs_err"], err, err_s)
     k1["shape"] += (f"; permutation {states} states: {perm_ms:.4f} ms, bound "
                     f"{perm_bound:.4f} ms; in-place sponge {R} x "
-                    f"{len(prefix) + length} B: {sponge_ms:.4f} ms")
+                    f"{len(prefix) + length} B: {sponge_ms:.4f} ms, plain "
+                    f"{sponge_plain:.3f} ms, bound {sponge_bound:.4f} ms by "
+                    f"{sponge_by}")
     rows.append(k1)
 
     rows.append(check_aes(dev, gen))
@@ -689,14 +740,14 @@ def check_from_root(dev: torch.device, gen: torch.Generator,
     paths = sorted(hash_attribute(vec, f"vector-{i}")
                    for i in range(SUMVEC_ASKED))
     sched = LevelSchedule(paths, vec.bits - 1, vec.bits)
-    args = flat_binder_inputs(dev, gen, sched, SUMVEC_ROOT_R, FIELD128,
+    args = flat_binder_inputs(dev, gen, sched, SUMVEC_BINDER_R, FIELD128,
                               vec.value_len, MasticSumVec.ID)
     compare = _end_rows(args, onehot=8, payload=3)
     limbs = args[1][0].numel()
     rows.append(_flat_binder_row(
         "keccak_binder_sponge_from_root_sumvec", args, compare,
         PAYLOAD_ELEM_OPS_F128,
-        f"on the same {SUMVEC_ROOT_R} reports x {sched.total_nodes} nodes "
+        f"on {SUMVEC_BINDER_R} reports x {sched.total_nodes} nodes "
         f"({limbs} limbs, {limbs / 2 ** 32:.2f} x 2^32) with the index "
         f"lists cut to onehot rows {compare[3].tolist()} and payload rows "
         f"(par, left, right) {list(zip(*(t.tolist() for t in compare[4:7])))}"))
@@ -951,18 +1002,21 @@ def check_binder_sponge(dev: torch.device, gen: torch.Generator) -> dict:
     return row
 
 
-def measurements(seed: int, bits: int = BITS) -> tuple:
-    """32 planted `bits`-bit strings x 64 reports plus 2048 uniform
-    strings (weights 0 or 1), shuffled: (alphas (R, bits) bool, weights
-    (R,), planted)."""
+def measurements(seed: int, bits: int = BITS, reports: int = R) -> tuple:
+    """32 planted `bits`-bit strings x reports/64 reports each plus
+    reports/2 uniform strings (weights 0 or 1), shuffled: (alphas
+    (reports, bits) bool, weights (reports,), planted).  At R reports:
+    32 x 64 and 2048."""
     rng = np.random.default_rng(seed)
+    per_planted = PER_PLANTED * reports // R
     planted = rng.integers(0, 2, (PLANTED, bits)).astype(bool)
-    uniform = rng.integers(0, 2, (R - PLANTED * PER_PLANTED, bits))
+    uniform = rng.integers(0, 2, (reports - PLANTED * per_planted, bits))
     uniform = uniform.astype(bool)
-    alphas = np.concatenate([np.repeat(planted, PER_PLANTED, axis=0), uniform])
-    weights = np.concatenate([np.ones(PLANTED * PER_PLANTED, np.int64),
+    alphas = np.concatenate([np.repeat(planted, per_planted, axis=0),
+                             uniform])
+    weights = np.concatenate([np.ones(PLANTED * per_planted, np.int64),
                               rng.integers(0, 2, len(uniform))])
-    order = rng.permutation(R)
+    order = rng.permutation(reports)
     return (alphas[order], weights[order], planted)
 
 
@@ -1289,20 +1343,6 @@ def histogram_path(dev: torch.device, seed: int) -> dict:
             "max_width": runner.max_width, "shard_launches": shard_launches}
 
 
-def _head(batch, n: int):
-    """The first n reports of a ReportBatch, copied (so that the whole
-    batch can be freed)."""
-    def cut(x):
-        return None if x is None else x[:n].clone()
-
-    return batch._replace(
-        nonces=cut(batch.nonces), cws=type(batch.cws)(*map(cut, batch.cws)),
-        keys=cut(batch.keys), leader_proofs=cut(batch.leader_proofs),
-        helper_seeds=cut(batch.helper_seeds),
-        leader_seeds=cut(batch.leader_seeds),
-        peer_parts=tuple(map(cut, batch.peer_parts)))
-
-
 def sumvec_path(dev: torch.device, seed: int) -> dict:
     """The long payload: MasticSumVec(128, 1024, 1, 32), R = 4096
     reports of which four in five take one of 4 hashed attributes,
@@ -1310,11 +1350,14 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
     with 1026 convert blocks), then both aggregators' weight check from
     their depth-0 payloads: every honest report must be accepted and
     the two beta shares must sum to the encoded measurement.  Then the
-    attribute-metrics round from the root over the first 1024 reports
-    (`aggregate_by_attribute`: 128 depths of 1026-block level steps for
-    each aggregator, K1 on Field128 rows of 1025 elements): each attribute's
-    1024-entry vector must equal numpy's sum."""
-    from mastic_tpu_torch import aggregate_by_attribute, hash_attribute
+    batch moves to a pinned `HostReportStore` and the attribute-metrics
+    round from the root runs over all 4096 reports in chunks of 512
+    (`aggregate_by_attribute(chunk_size=512, store=...)`: per chunk 128
+    depths of 1026-block level steps for each aggregator, K1 on Field128
+    rows of 1025 elements): each attribute's 1024-entry vector must
+    equal numpy's sum."""
+    from mastic_tpu_torch import (HostReportStore, aggregate_by_attribute,
+                                  hash_attribute)
     from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticSumVec
 
     (bits, length, vbits, _chunk) = SUMVEC
@@ -1358,32 +1401,32 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
                              "the encoded measurements")
     cw_bytes = batch.cws.w.numel() * batch.cws.w.element_size()
     accepted = int(accept.sum())
-    sub = _head(batch, SUMVEC_ROOT_R)
-    valid = shard_ok[:SUMVEC_ROOT_R].clone()
-    del batch, trees, checks, wc_ok, accept, beta, w0, w1, shard_ok
+    del trees, checks, wc_ok, accept, beta, w0, w1
+    t0 = time.perf_counter()
+    store = HostReportStore.from_batch(batch, SUMVEC_CHUNK)
+    store_s = time.perf_counter() - t0
+    del batch
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
 
     metrics = []
     t0 = time.perf_counter()
     got = aggregate_by_attribute(
-        mastic, CTX, asked, vk, sub, valid=valid, metrics_out=metrics,
-        device=dev, reports=ScalarReports(mastic, meas[:SUMVEC_ROOT_R],
-                                          nonces[:SUMVEC_ROOT_R],
-                                          rand[:SUMVEC_ROOT_R]))
+        mastic, CTX, asked, vk, valid=shard_ok, metrics_out=metrics,
+        device=dev, chunk_size=SUMVEC_CHUNK, store=store,
+        reports=ScalarReports(mastic, meas, nonces, rand))
     torch.cuda.synchronize()
     root_s = time.perf_counter() - t0
-    kept = valid.cpu().numpy()
+    kept = shard_ok.cpu().numpy()
     if metrics[0].extra["excluded_invalid"] != int((~kept).sum()) \
             or metrics[0].accepted != int(kept.sum()):
         raise AssertionError(f"MasticSumVec from the root: {metrics[0]}")
-    head = alphas[:SUMVEC_ROOT_R]
-    want = [(a, values[:SUMVEC_ROOT_R][(head == p).all(axis=1)
-                                       & kept].sum(axis=0).tolist())
-            for (a, p) in zip(asked, paths)]
+    want = [(a, values[(alphas == p).all(axis=1) & kept].sum(axis=0)
+             .tolist()) for (a, p) in zip(asked, paths)]
     if got != want:
         raise AssertionError("MasticSumVec from the root: per-attribute "
                              "vectors differ from numpy's")
+    pipe = metrics[0].extra["pipeline"]
     return {"shard_s": shard_s, "check_s": check_s,
             "shard_rejected": int((~kept).sum()),
             "accepted": accepted, "cws_w_bytes": cw_bytes,
@@ -1391,8 +1434,14 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
             "root_peak": torch.cuda.max_memory_allocated(dev),
             "root_nodes": metrics[0].padded_width,
             "root_accepted": metrics[0].accepted,
-            "root_in_set": int(sum((head == p).all(axis=1).sum()
-                                   for p in paths))}
+            "root_in_set": int(sum((alphas == p).all(axis=1).sum()
+                                   for p in paths)),
+            "store_s": store_s, "store_bytes": store.host_bytes(),
+            "root_chunks": len(metrics[0].extra["chunks"]),
+            "root_mode": (pipe["mode"], pipe["fallback"]),
+            "root_overlap": pipe["overlap_efficiency"],
+            "root_device_ms": [c.get("device_ms") for c in
+                               metrics[0].extra["chunks"]]}
 
 
 def attribute_measurements(seed: int) -> tuple:
@@ -1694,7 +1743,192 @@ def resident_checkpoint(dev: torch.device, seed: int) -> dict:
             "ckpt_bytes": len(ckpt), "lanes": lanes,
             "splice_ms": sum(m.extra["splice_ms"] for m in metrics),
             "max_frontier": max(len(p) for (p, _c) in levels),
+            "heavy_hitters": len(back.result()),
+            "handoff": (mastic, vk, batch, shard_ok, reports,
+                        want.level_results, want.result())}
+
+
+def chunked_checkpoint(dev: torch.device, handoff: tuple) -> dict:
+    """The resident checkpoint phase's reports through the chunked
+    runner: MasticCount(16), R = 4096 in four chunks of 1024, pipelined,
+    checkpointed after level 8 (every chunk's carries in the JAX
+    package's format), dropped, restored on the card from the batch (the
+    checkpoint's chunk_size rebuilds the store) and finished: every
+    level must equal that phase's unforced resident run."""
+    from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
+
+    (mastic, vk, batch, shard_ok, reports, want_levels, want_result) = \
+        handoff
+    thresholds = {"default": THRESHOLD}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = HeavyHittersRun(mastic, CTX, thresholds, vk, batch, valid=shard_ok,
+                          device=dev, reports=reports, chunk_size=CKPT_CHUNK)
+    for _ in range(CKPT_SPLIT):
+        run.step()
+    t1 = time.perf_counter()
+    ckpt = run.to_bytes()
+    save_s = time.perf_counter() - t1
+    (levels, metrics) = (run.level_results, run.metrics)
+    del run
+    t1 = time.perf_counter()
+    back = HeavyHittersRun.from_bytes(mastic, CTX, thresholds, vk, batch, ckpt,
+                                      valid=shard_ok, device=dev,
+                                      reports=reports)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    while back.step():
+        pass
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    levels = levels + back.level_results
+    metrics = metrics + back.metrics
+    modes = {(m.extra["pipeline"]["mode"], m.extra["pipeline"]["fallback"])
+             for m in metrics}
+    if levels != want_levels or back.result() != want_result \
+            or back.store.num_chunks != R // CKPT_CHUNK \
+            or modes != {("pipelined", None)}:
+        raise AssertionError(f"chunked checkpoint: the restored chunked run "
+                             f"differs from the resident one (modes {modes})")
+    return {"run_s": run_s, "save_s": save_s, "restore_s": restore_s,
+            "ckpt_bytes": len(ckpt), "levels": len(levels),
+            "chunks": back.store.num_chunks,
             "heavy_hitters": len(back.result())}
+
+
+def _cat_batches(batches: list):
+    """Report batches concatenated along the report axis."""
+    first = batches[0]
+
+    def cat(get):
+        parts = [get(b) for b in batches]
+        return None if parts[0] is None else torch.cat(parts)
+
+    return first._replace(
+        nonces=cat(lambda b: b.nonces),
+        cws=type(first.cws)(*(cat(lambda b, i=i: b.cws[i])
+                              for i in range(len(first.cws)))),
+        keys=cat(lambda b: b.keys),
+        leader_proofs=cat(lambda b: b.leader_proofs),
+        helper_seeds=cat(lambda b: b.helper_seeds),
+        leader_seeds=cat(lambda b: b.leader_seeds),
+        peer_parts=tuple(cat(lambda b, a=a: b.peer_parts[a])
+                         for a in range(2)))
+
+
+def _mem_available() -> int:
+    """This host's available memory (/proc/meminfo's MemAvailable), in
+    bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def count_chunked(dev: torch.device, seed: int, levels: int) -> dict:
+    """The chunked Count cell: MasticCount(256) over 32 768 reports (the
+    Count recipe x8), sharded on the card in batches of 4096, moved into
+    a pinned `HostReportStore`, then `HeavyHittersRun(chunk_size=4096)`
+    pipelined through the first `levels` levels.  Every level's
+    aggregates must equal numpy's count; the run's device peak must be
+    at most 1.1x the envelope's pipelined per-chunk peak.  If the host
+    cannot hold the carries and the store in memory, R drops to 16 384
+    (printed as a cut)."""
+    from mastic_tpu_torch import HostReportStore
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
+    from mastic_tpu_torch.drivers.chunked import (
+        _host_budget, memory_envelope, per_report_bytes)
+    from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
+    from mastic_tpu_torch.ops import kernels
+
+    mastic = MasticCount(BITS)
+    bm = BatchedMastic(mastic)
+    avail = min(_mem_available(), _host_budget())
+    reports = CHUNKED_R
+    # The carries at width 64 and the store, plus one chunk's carry
+    # beside its grown copy.
+    env = memory_envelope(bm, CHUNKED_CHUNK, 64, reports, dev)
+    need = env["host_bytes_total"] + CHUNKED_CHUNK \
+        * env["per_report_bytes"]["carry"]
+    if need > avail:
+        reports = CHUNKED_FALLBACK_R
+    (alphas, weights, _planted) = measurements(seed + 13, BITS, reports)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 14, mastic.RAND_SIZE,
+                                      reports)
+    meas = [(tuple(bool(b) for b in alphas[r]), int(weights[r]))
+            for r in range(reports)]
+    (batches, oks) = ([], [])
+    shard_s = 0.0
+    for lo in range(0, reports, R):
+        (batch, ok, secs) = _shard(dev, bm, meas[lo:lo + R],
+                                   nonces[lo:lo + R], rand[lo:lo + R])
+        batches.append(batch)
+        oks.append(ok)
+        shard_s += secs
+    batch = _cat_batches(batches)
+    shard_ok = torch.cat(oks)
+    del batches, oks
+    shard_launches = dict(kernels.launches)
+    t0 = time.perf_counter()
+    store = HostReportStore.from_batch(batch, CHUNKED_CHUNK)
+    store_s = time.perf_counter() - t0
+    del batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = HeavyHittersRun(mastic, CTX, {"default": CHUNKED_THRESHOLD}, vk,
+                          valid=shard_ok, device=dev, store=store,
+                          reports=ScalarReports(mastic, meas, nonces, rand))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    per_level = []
+    t0 = time.perf_counter()
+    while run.level < levels:
+        t1 = time.perf_counter()
+        more = run.step()
+        torch.cuda.synchronize()
+        m = run.metrics[-1]
+        pipe = m.extra["pipeline"]
+        per_level.append(dict(
+            level=m.level, s=time.perf_counter() - t1,
+            width=m.padded_width, mode=pipe["mode"],
+            fallback=pipe["fallback"], overlap=pipe["overlap_efficiency"],
+            device_overlap=pipe["device_overlap_efficiency"],
+            carry_bytes=m.extra["memory"]["device_carry_bytes"],
+            **pipe["device_ms"]))
+        if not more:
+            break
+    rounds_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    excluded = run.excluded()
+    for (prefixes, counts) in run.level_results:
+        if counts != plaintext_counts(alphas, weights, ~excluded, prefixes):
+            raise AssertionError(f"chunked Count: level "
+                                 f"{len(prefixes[0]) - 1} differs from "
+                                 f"numpy's count")
+    env = memory_envelope(bm, CHUNKED_CHUNK, run.runner.max_width, reports,
+                          dev)
+    bound = env["device_peak_bytes_per_chunk_pipelined"]
+    # The resident runner holds the same carries, every report's at once.
+    resident_carries = reports * per_report_bytes(
+        bm, run.runner.max_width)["carry"]
+    modes = {(p["mode"], p["fallback"]) for p in per_level}
+    if peak > 1.1 * bound or modes != {("pipelined", None)}:
+        raise AssertionError(f"chunked Count: device peak {peak} B against "
+                             f"the envelope's {bound} B, modes {modes}")
+    mem = run.runner.memory_accounting()
+    return {"reports": reports, "avail": avail, "need": need,
+            "levels": len(run.level_results), "shard_s": shard_s,
+            "store_s": store_s, "init_s": init_s, "rounds_s": rounds_s,
+            "per_level": per_level, "peak": peak, "bound": bound,
+            "resident_carries": resident_carries,
+            "host_bytes": mem["host_bytes_total"],
+            "store_bytes": store.host_bytes(),
+            "max_width": run.runner.max_width,
+            "rejected": int(excluded.sum()),
+            "xof_fallbacks": run.metrics[-1].xof_fallbacks,
+            "shard_launches": shard_launches}
 
 
 def _print_launches(counts: dict, result: dict) -> None:
@@ -1756,7 +1990,11 @@ def main() -> int:
             ("attributes_splice", lambda: attributes_splice(
                 dev, results["attributes"].pop("handoff"))),
             ("resident_checkpoint", lambda: resident_checkpoint(
-                dev, args.seed))):
+                dev, args.seed)),
+            ("chunked_checkpoint", lambda: chunked_checkpoint(
+                dev, results["resident_checkpoint"].pop("handoff"))),
+            ("count_chunked", lambda: count_chunked(
+                dev, args.seed, CHUNKED_LEVELS))):
         torch.cuda.empty_cache()
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1792,6 +2030,12 @@ def main() -> int:
         (path, counter) = row_counter[row["name"]]
         row["launches"] = counts[path][counter]
         row["launches_path"] = path
+        # The chunked phases run MasticCount's instantiation only: its
+        # rows get their launches there (K2 only where a phase shards).
+        if path == "count":
+            row["launches_chunked"] = {
+                name: counts[name][counter]
+                for name in ("count_chunked", "chunked_checkpoint")}
     # K1's in-place sponge (the shard's and the eval-proof XOF's).
     rows[0]["launches_turboshake"] = counts["count"]["keccak"]
 
@@ -1865,14 +2109,21 @@ def main() -> int:
           f"sharding); peak device memory {peaks['sumvec']} B "
           f"({peaks['sumvec'] / 2 ** 30:.2f} GiB); launches "
           + ", ".join(f"{k} {v}" for (k, v) in counts["sumvec"].items()))
-    print(f"sumvec from the root: {SUMVEC_ASKED} attributes over the first "
-          f"{SUMVEC_ROOT_R} of the {R} reports (cut: the flat tree is about "
-          f"33 MB a report), {result['root_in_set']} of them in the set, "
-          f"{result['root_nodes']} nodes a report; each attribute's "
-          f"{SUMVEC[1]}-entry vector = numpy's, {result['root_accepted']} "
-          f"reports accepted; round {result['root_s']:.3f} s; peak device "
-          f"memory of the round {result['root_peak']} B "
-          f"({result['root_peak'] / 2 ** 30:.2f} GiB)")
+    print(f"sumvec from the root: {SUMVEC_ASKED} attributes over all {R} "
+          f"reports from a pinned HostReportStore ({result['store_bytes']} "
+          f"B, {result['store_s']:.3f} s to fill) in "
+          f"{result['root_chunks']} chunks of {SUMVEC_CHUNK} "
+          f"({result['root_mode']}, overlap efficiency "
+          f"{result['root_overlap']}), {result['root_in_set']} of them in "
+          f"the set, {result['root_nodes']} nodes a report; each "
+          f"attribute's {SUMVEC[1]}-entry vector = numpy's, "
+          f"{result['root_accepted']} reports accepted; round "
+          f"{result['root_s']:.3f} s; peak device memory of the round "
+          f"{result['root_peak']} B ({result['root_peak'] / 2 ** 30:.2f} "
+          f"GiB)")
+    print("sumvec from the root, per chunk on the card (ms): " + "; ".join(
+        ", ".join(f"{k} {v:.3f}" for (k, v) in d.items())
+        for d in result["root_device_ms"]))
     result = results["attributes"]
     print(f"attributes path: MasticSum({ATTR_BITS}, {SUM_MAX}), {ATTR_R} "
           f"reports ({result['in_set']} with one of the {ATTR_ASKED} "
@@ -1914,6 +2165,61 @@ def main() -> int:
           f"with the checkpoint {result['forced_s']:.3f} s of which the "
           f"scalar splices {result['splice_ms'] / 1e3:.3f} s; phase "
           f"{result['path_s']:.3f} s")
+    result = results["chunked_checkpoint"]
+    print(f"chunked checkpoint: MasticCount({CKPT_BITS}), {R} reports in "
+          f"{result['chunks']} chunks of {CKPT_CHUNK}, pipelined, checkpoint "
+          f"after level {CKPT_SPLIT - 1} ({result['ckpt_bytes']} B, "
+          f"{result['save_s']:.3f} s to write, {result['restore_s']:.3f} s "
+          f"to restore on the card); all {result['levels']} levels = the "
+          f"resident run's, {result['heavy_hitters']} heavy hitters; run "
+          f"{result['run_s']:.3f} s; peak device memory "
+          f"{peaks['chunked_checkpoint']} B; launches " + ", ".join(
+              f"{k} {v}" for (k, v) in counts["chunked_checkpoint"].items()
+              if v))
+    result = results["count_chunked"]
+    print(f"count chunked: MasticCount({BITS}), {result['reports']} reports "
+          f"in chunks of {CHUNKED_CHUNK}, threshold {CHUNKED_THRESHOLD}, "
+          f"{result['levels']} levels, every level = numpy's count; host "
+          f"memory available {result['avail']} B, needed {result['need']} B")
+    if result["reports"] < CHUNKED_R:
+        print(f"cut: R is {result['reports']}, not {CHUNKED_R}: the host "
+              f"cannot hold the carries and the store")
+    print(f"cut: R is {result['reports']} of the north star's 1M reports, "
+          f"for host memory and time")
+    print(f"cut: levels are {result['levels']} of {BITS}, for time; bits "
+          f"({BITS}) and frontier width (up to {result['max_width']}) are "
+          f"full")
+    print(f"count chunked: shard {result['shard_s']:.3f} s (batches of {R}); "
+          f"pinned store {result['store_bytes']} B filled in "
+          f"{result['store_s']:.3f} s; runner set-up (pinned carries, round "
+          f"keys) {result['init_s']:.3f} s; rounds {result['rounds_s']:.3f} "
+          f"s; host bytes {result['host_bytes']}; rejected "
+          f"{result['rejected']}, XOF fallbacks {result['xof_fallbacks']}")
+    print(f"count chunked: device peak {peaks['count_chunked']} B over the "
+          f"phase, {result['peak']} B over the rounds; the envelope's "
+          f"pipelined per-chunk peak {result['bound']} B (ratio "
+          f"{result['peak'] / result['bound']:.4f})")
+    # The resident runner at this R: its carries alone, and the resident
+    # Count path's measured peak (4096 reports, all 256 levels) scaled
+    # linearly in R, beside the card's memory.
+    scaled = peaks["count"] * result["reports"] // R
+    print(f"count chunked: a resident run of the same R holds "
+          f"{result['resident_carries']} B of carries at width "
+          f"{result['max_width']} (per_report_bytes), and the resident Count "
+          f"path's peak ({peaks['count']} B at {R} reports) scaled x"
+          f"{result['reports'] // R} is {scaled} B, against the card's "
+          f"{torch.cuda.get_device_properties(dev).total_memory} B")
+    for lv in result["per_level"]:
+        moved = lv["carry_bytes"] * (-(-result["reports"] // CHUNKED_CHUNK))
+        print(f"count chunked level {lv['level']}: {lv['s']:.3f} s, width "
+              f"{lv['width']}, {lv['mode']}, overlap efficiency "
+              f"{lv['overlap']} (host phases), {lv['device_overlap']} (the "
+              f"card's streams); on the card: uploads {lv['upload_ms']:.3f} "
+              f"ms, compute {lv['compute_ms']:.3f} ms, downloads "
+              f"{lv['download_ms']:.3f} ms; carries {moved} B each way "
+              f"({moved / lv['upload_ms'] / 1e6:.3f} GB/s up, "
+              f"{moved / lv['download_ms'] / 1e6:.3f} GB/s down)")
+    _print_launches(counts["count_chunked"], result)
     print("path seconds: " + ", ".join(
         f"{name} {r['path_s']:.1f}" for (name, r) in results.items()))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")

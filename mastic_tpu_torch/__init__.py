@@ -16,6 +16,12 @@ through `BatchedMastic.marshal_reports`.  All five circuits are served:
 MasticCount and MasticSum over Field64, MasticSumVec, MasticHistogram
 and MasticMultihotCountVec over Field128.
 
+A collection whose carries outgrow the card streams chunks of reports
+through it each round (`drivers.chunked.ChunkedIncrementalRunner` over
+a pinned-memory `HostReportStore`, on the pipelined executor of
+`drivers.pipeline`; `HeavyHittersRun(chunk_size=...)`), and the
+attribute round takes a `chunk_size` too.
+
 The scalar layer (`scalar/`, a standard-library copy of the JAX
 package's) recomputes, one report at a time, the lanes whose batched
 XOF sampling drew a value outside the field
@@ -54,7 +60,10 @@ def resolve_device(device) -> torch.device:
 from .drivers.attribute_metrics import (AttributeMetricsRun,  # noqa: E402
                                         aggregate_by_attribute,
                                         hash_attribute)
+from .drivers.chunked import (ChunkedIncrementalRunner,  # noqa: E402
+                              HostReportStore)
 from .metrics import RoundMetrics  # noqa: E402
 
-__all__ = ["AttributeMetricsRun", "RoundMetrics", "aggregate_by_attribute",
+__all__ = ["AttributeMetricsRun", "ChunkedIncrementalRunner",
+           "HostReportStore", "RoundMetrics", "aggregate_by_attribute",
            "hash_attribute", "resolve_device"]

@@ -5,8 +5,9 @@ back: a report batch (`ReportBatch`, with the joint-rand circuits'
 leader seeds and peer parts), an aggregator's incremental carry under
 the key names of the JAX package's `carry_to_arrays` /
 `carry_from_arrays` (w, proof, seed, ctrl), a from-root prep
-(`BatchedPrep`), and the JAX package's from-root tree (`eval_full`'s
-list of levels) as the port's flat buffer.  Field64 and Field128
+(`BatchedPrep`), the JAX package's from-root tree (`eval_full`'s
+list of levels) as the port's flat buffer, and a chunked run's report
+store (`HostReportStore.arrays`).  Field64 and Field128
 limbs travel alike, as (..., n) uint32.  The
 numpy side uses the JAX package's dtypes: uint32 for limbs, uint8 for
 bytes, bool for bits; the torch side carries uint32 words as int32
@@ -113,6 +114,40 @@ def carry_from_arrays(arrays, prefix: str = "", device="cuda") -> Carry:
                         device),
         seed=to_tensor(np.asarray(arrays[prefix + "seed"], np.uint8), device),
         ctrl=to_tensor(np.asarray(arrays[prefix + "ctrl"], np.bool_), device))
+
+
+_STORE_WORDS = ("cws_w", "leader_proofs")
+
+
+def store_to_arrays(store) -> dict:
+    """A HostReportStore's arrays as the JAX package's HostReportStore
+    holds them: numpy in its dtypes (limbs as uint32), `leader_seeds`
+    None and `peer_parts` (None, None) without joint randomness."""
+    def arr(key, t):
+        return None if t is None else to_numpy(t, words=key in _STORE_WORDS)
+
+    out = {k: arr(k, t) for (k, t) in store.arrays.items()
+           if k != "peer_parts"}
+    out["peer_parts"] = tuple(arr("peer_parts", t)
+                              for t in store.arrays["peer_parts"])
+    return out
+
+
+def store_from_arrays(arrays, chunk_size: int, device="cuda"):
+    """Inverse of store_to_arrays (a JAX HostReportStore's `arrays`): a
+    HostReportStore whose tensors are pinned when `device` is the
+    card."""
+    from .drivers.chunked import HostReportStore, _host
+
+    pin = resolve_device(device).type == "cuda"
+
+    def t(x):
+        return None if x is None else _host(to_tensor(x, "cpu"), pin)
+
+    out = {k: t(x) for (k, x) in arrays.items() if k != "peer_parts"}
+    out["peer_parts"] = tuple(t(x) for x in arrays["peer_parts"])
+    return HostReportStore(out, int(np.asarray(arrays["nonces"]).shape[0]),
+                           chunk_size)
 
 
 _PREP_WORDS = ("out_share", "verifier")

@@ -11,9 +11,15 @@ reports arrive as a device-resident `ReportBatch`, from the batched
 client shard, or as the scalar reports (`reports=`), which a run given
 no batch marshals (`BatchedMastic.marshal_reports`).  The scalar
 reports are read for the lanes whose XOF sampling fires, which the
-round recomputes through the scalar layer (`splice_rejected`).  The
-JAX package's chunked round (`chunk_size`) and mesh round (`mesh`) are
-not ported yet.
+round recomputes through the scalar layer (`splice_rejected`).
+
+With `chunk_size` (or a `HostReportStore`, `store=`) the round streams
+the reports through the card in chunks on the pipelined executor of
+`drivers/pipeline.py`, so that one chunk's from-root tree is on the
+card at a time: from the store, else from a store built from the
+batch, else from the scalar reports marshalled chunk by chunk (the JAX
+package's source).  The result equals the unchunked round's bit for
+bit.  The JAX package's mesh round (`mesh`) is not ported yet.
 """
 
 import hashlib
@@ -21,11 +27,16 @@ import json
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..backend.mastic import BatchedMastic, Mastic, ReportBatch
-from .heavy_hitters import run_round_collect, run_round_stage
+from ..backend.schedule import LevelSchedule
+from .chunked import HostReportStore, _host, map_batch
+from .heavy_hitters import (_ms, finalize_round, run_round_collect,
+                            run_round_stage)
+from .pipeline import ChunkedRound, CopyStreams, pipeline_mode
 
 
 def hash_attribute(mastic: Mastic, attribute: str) -> tuple:
@@ -43,15 +54,19 @@ def aggregate_by_attribute(mastic: Mastic, ctx: bytes,
                            valid: Optional[torch.Tensor] = None,
                            metrics_out: Optional[list] = None,
                            device="cuda",
-                           reports: Optional[Sequence] = None) -> list:
+                           reports: Optional[Sequence] = None,
+                           chunk_size: Optional[int] = None,
+                           store: Optional[HostReportStore] = None) -> list:
     """Aggregate the reports of `batch` (or the scalar `reports`,
-    marshalled) grouped by the collector's attributes of interest.
-    Returns [(attribute, aggregate)]; appends the round's RoundMetrics
-    record to `metrics_out`.  `valid` (R,) bool marks reports to leave
-    out (e.g. the shard's `ok`); `reports` are the scalar reports behind
-    the batch, read for the lanes whose XOF sampling fires."""
+    marshalled, or a `store`) grouped by the collector's attributes of
+    interest.  Returns [(attribute, aggregate)]; appends the round's
+    RoundMetrics record to `metrics_out`.  `valid` (R,) bool marks
+    reports to leave out (e.g. the shard's `ok`); `reports` are the
+    scalar reports behind the batch, read for the lanes whose XOF
+    sampling fires.  With `chunk_size` or `store` the round streams the
+    reports through the card chunk by chunk, with the same result."""
     run = AttributeMetricsRun(mastic, ctx, attributes, verify_key, batch,
-                              valid, device, reports)
+                              valid, device, reports, chunk_size, store)
     while run.step():
         pass
     if metrics_out is not None:
@@ -66,30 +81,52 @@ class AttributeMetricsRun:
     `to_bytes()` before the round records only that nothing ran (a
     resumed run runs the round again, one deterministic dispatch over
     the same reports); after the round it records the result, so a
-    resumed finished run touches no device."""
+    resumed finished run touches no device.
+
+    With `chunk_size` or `store` the round is chunked
+    (`_run_round_chunked`); a store sets the chunk size.  The chunks
+    come from the store, else from the batch (a store built from it,
+    as HeavyHittersRun builds its own), else from the scalar reports,
+    marshalled chunk by chunk; `reports` beside a store or a batch are
+    read only for the splice."""
 
     def __init__(self, mastic: Mastic, ctx: bytes, attributes: Sequence[str],
                  verify_key: bytes, batch: Optional[ReportBatch] = None,
                  valid: Optional[torch.Tensor] = None, device="cuda",
-                 reports: Optional[Sequence] = None):
+                 reports: Optional[Sequence] = None,
+                 chunk_size: Optional[int] = None,
+                 store: Optional[HostReportStore] = None):
         dev = resolve_device(device)
         prefixes = tuple(hash_attribute(mastic, a) for a in attributes)
         if len(set(prefixes)) != len(prefixes):
             raise ValueError("attribute hash collision; increase BITS")
+        if chunk_size is not None and chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        if store is not None and chunk_size not in (None, store.chunk_size):
+            raise ValueError(f"chunk_size={chunk_size}, store has "
+                             f"{store.chunk_size}")
         self.mastic = mastic
         self.bm = BatchedMastic(mastic)
-        if batch is None:
+        self.device = dev
+        self.chunk_size = (store.chunk_size if store is not None
+                           else chunk_size)
+        if batch is None and store is None:
             if reports is None:
                 raise ValueError("a run needs the report batch or the "
                                  "scalar reports")
-            batch = self.bm.marshal_reports(reports, dev)
-        if batch.nonces.device.type != dev.type:
+            if self.chunk_size is None:
+                batch = self.bm.marshal_reports(reports, dev)
+        if batch is not None and batch.nonces.device.type != dev.type:
             raise ValueError(f"the report batch is not on {dev}")
+        if self.chunk_size is not None and store is None \
+                and batch is not None:
+            store = HostReportStore.from_batch(batch, self.chunk_size)
+        self.store = store
         self.reports = reports
         self.ctx = ctx
         self.attributes = list(attributes)
         self.verify_key = verify_key
-        self.batch = batch
+        self.batch = batch if self.chunk_size is None else None
         self.valid = valid
         self.prefixes = prefixes
         self.metrics: list = []
@@ -113,17 +150,27 @@ class AttributeMetricsRun:
         if not self.mastic.is_valid(agg_param, []):
             raise ValueError("invalid aggregation parameter")
         t0 = time.perf_counter()
-        handle = run_round_stage(self.bm, self.verify_key, self.ctx,
-                                 agg_param, self.batch, self.valid)
+        if self.chunk_size is not None:
+            # The chunked round runs whole: its executor makes one wait
+            # per chunk.
+            handle = {"result": _run_round_chunked(
+                self.bm, self.verify_key, self.ctx, agg_param, self.device,
+                self.chunk_size, self.valid, self.metrics,
+                reports=self.reports, store=self.store)}
+        else:
+            handle = run_round_stage(self.bm, self.verify_key, self.ctx,
+                                     agg_param, self.batch, self.valid)
         handle.update(agg_param=agg_param, t0=t0)
         return handle
 
     def step_finish(self, handle: dict) -> bool:
         """Collect the round (its one blocking sync), stamp its metrics,
         keep the result.  Returns False: there is exactly one round."""
-        result = run_round_collect(self.bm, handle["agg_param"], handle,
-                                   metrics_out=self.metrics,
-                                   reports=self.reports)
+        result = handle.get("result")
+        if result is None:
+            result = run_round_collect(self.bm, handle["agg_param"], handle,
+                                       metrics_out=self.metrics,
+                                       reports=self.reports)
         self.metrics[-1].extra["round_wall_ms"] = \
             (time.perf_counter() - handle["t0"]) * 1e3
         self._result = list(zip(self.attributes, result))
@@ -154,12 +201,105 @@ class AttributeMetricsRun:
                    attributes: Sequence[str], verify_key: bytes,
                    batch: Optional[ReportBatch], data: bytes,
                    valid: Optional[torch.Tensor] = None, device="cuda",
-                   reports: Optional[Sequence] = None
+                   reports: Optional[Sequence] = None,
+                   chunk_size: Optional[int] = None,
+                   store: Optional[HostReportStore] = None
                    ) -> "AttributeMetricsRun":
         run = cls(mastic, ctx, attributes, verify_key, batch, valid, device,
-                  reports)
+                  reports, chunk_size, store)
         state = json.loads(data)
         if state["done"]:
             run.done = True
             run._result = [(a, v) for (a, v) in state["result"]]
         return run
+
+
+def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
+                       agg_param, device: torch.device, chunk_size: int,
+                       valid: Optional[torch.Tensor],
+                       metrics_out: Optional[list],
+                       reports: Optional[Sequence] = None,
+                       store: Optional[HostReportStore] = None) -> list:
+    """One from-root round streamed chunk by chunk on the executor of
+    `drivers/pipeline.py`, with the unchunked round's result.  A chunk
+    comes from the store (padded to chunk_size with dead lanes, which
+    the chunk's `valid` slice leaves out) or, with no store, from the
+    scalar reports, marshalled on the host (the tail at its own size)
+    while the previous chunk computes.  Its uploads run on the copy
+    stream, then both preps, the checks and the masked aggregates on
+    the card, then the downloads.  The per-chunk verdicts and aggregate
+    shares are folded on the host, and `finalize_round` (the metrics
+    record and the splice) runs once over every report."""
+    (level, prefixes, _wc) = agg_param
+    num = store.num_reports if store is not None else len(reports)
+    pin = device.type == "cuda"
+    valid_all = (np.ones(num, bool) if valid is None
+                 else valid.cpu().numpy().astype(bool))
+    accept_all = np.zeros(num, bool)
+    ok_all = np.ones(num, bool)
+    checks_all: dict = {}
+    bounds = [(lo, min(lo + chunk_size, num))
+              for lo in range(0, num, chunk_size)]
+    cr = ChunkedRound(CopyStreams(device), bounds, *pipeline_mode(
+        len(bounds)), len(prefixes) * (1 + bm.m.valid.OUTPUT_LEN),
+        bm.m.field.MODULUS)
+    sched = bm.schedule(agg_param, device)
+
+    def stage(i: int) -> tuple:
+        (lo, hi) = bounds[i]
+        xfer = cr.transfer(i)
+        t0 = time.perf_counter()
+        if store is None:
+            host = map_batch(bm.marshal_reports(reports[lo:hi], "cpu"),
+                             lambda t: _host(t, pin))
+            keep = valid_all[lo:hi]
+        else:
+            keep = np.zeros(store.chunk_size, bool)
+            keep[:hi - lo] = valid_all[lo:hi]
+        with xfer.upload():
+            batch = (map_batch(host, xfer.to_device) if store is None
+                     else store.device_chunk(i, device)[0])
+            keep_dev = xfer.to_device(_host(torch.from_numpy(keep), pin))
+        t_up = time.perf_counter()
+        (agg0, agg1, accept, ok, checks) = bm.round_device_checks(
+            verify_key, ctx, agg_param, batch, keep_dev, sched)
+        names = sorted(checks)
+        host_out = xfer.download(
+            [(None, t) for t in (agg0, agg1, accept, ok)]
+            + [(None, checks[k]) for k in names])
+        # Every device tensor of the chunk stays referenced until
+        # collect() has waited for the downloads.
+        handle = {"host": host_out, "names": names,
+                  "device": (batch, keep_dev, agg0, agg1, accept, ok,
+                             checks)}
+        return (handle, {"upload_ms": _ms(t0, t_up),
+                         "dispatch_ms": _ms(t_up, time.perf_counter())})
+
+    def collect(i: int, handle: dict) -> dict:
+        (lo, hi) = bounds[i]
+        n = hi - lo
+
+        def fold(arrays: list) -> None:
+            (agg0, agg1, accept, ok, *masks) = arrays
+            ok_all[lo:hi] = ok[:n]
+            accept_all[lo:hi] = accept[:n]
+            for (name, mask) in zip(handle["names"], masks):
+                checks_all.setdefault(name, np.zeros(num, bool))[lo:hi] = \
+                    mask[:n]
+            cr.fold_shares([bm.agg_share_to_host(torch.from_numpy(arr))
+                            for arr in (agg0, agg1)])
+
+        return cr.collect(i, handle, fold)
+
+    timeline = cr.run(stage, collect)
+    nodes = LevelSchedule(prefixes, level, bm.m.bits).total_nodes
+    records: list = []
+    result = finalize_round(bm, verify_key, ctx, agg_param, reports, ok_all,
+                            accept_all, checks_all, cr.agg_shares,
+                            padded_width=nodes, nodes_evaluated=nodes,
+                            metrics_out=records, valid=valid_all)
+    records[0].extra.update({"chunk_size": chunk_size, "chunks": timeline,
+                             "pipeline": cr.pipeline_block()})
+    if metrics_out is not None:
+        metrics_out.extend(records)
+    return result

@@ -40,10 +40,18 @@ and counted in `RoundMetrics.extra["excluded_invalid"]`.  As in the JAX
 package, a recomputed report that fails counts in `rejected_fallback`;
 `extra["rejected_fallback_by"]` names the checks it failed.
 
+A run given `chunk_size` or a `HostReportStore` (`store=`) keeps the
+reports and the carries in host memory and streams chunks through the
+card each round (`drivers/chunked.py`'s `ChunkedIncrementalRunner`, on
+the pipelined executor of `drivers/pipeline.py`), for collections
+whose carries outgrow the card; its results equal the resident
+runner's.
+
 `HeavyHittersRun.to_bytes` / `from_bytes` checkpoint a run between
-levels in the JAX package's v3 format, so that a checkpoint taken by
-either package resumes in the other.  The JAX package's chunked
-runner, pipeline, AOT programs and mesh are not ported yet.
+levels in the JAX package's v3 format (with the per-chunk carries of a
+chunked run), so that a checkpoint taken by either package resumes in
+the other.  The JAX package's AOT programs and mesh are not ported
+yet.
 
 Thresholds: a dict mapping prefix tuples to ints with a "default" key;
 a prefix takes the threshold of its longest strict ancestor present in
@@ -444,36 +452,56 @@ class HeavyHittersRun:
     `batch` is the report batch on the device; a run given only the
     scalar `reports` marshals them (`BatchedMastic.marshal_reports`).
     `reports` (any sequence indexable by lane) is read only for the
-    lanes whose XOF sampling fires.  `to_bytes()` serialises the run
-    between levels (the collector state, both carries and the
-    `fallback` mask); `from_bytes()` restores a run, over the same
-    reports, that continues bit-identically."""
+    lanes whose XOF sampling fires.  With `chunk_size` or `store` (a
+    `HostReportStore`, built from the batch when not given) the run
+    takes the chunked runner.  `to_bytes()` serialises the run between
+    levels (the collector state, the carries and the `fallback` mask);
+    `from_bytes()` restores a run, over the same reports, that
+    continues bit-identically."""
 
     def __init__(self, mastic: Mastic, ctx: bytes, thresholds: dict,
                  verify_key: bytes, batch: Optional[ReportBatch] = None,
                  valid: Optional[torch.Tensor] = None, device="cuda",
                  incremental: bool = True,
-                 reports: Optional[Sequence] = None):
+                 reports: Optional[Sequence] = None,
+                 chunk_size: Optional[int] = None, store=None):
+        from .chunked import ChunkedIncrementalRunner, HostReportStore
+
         dev = resolve_device(device)
         self.bm = BatchedMastic(mastic)
-        if batch is None:
+        if store is None and batch is None:
             if reports is None:
                 raise ValueError("a run needs the report batch or the "
                                  "scalar reports")
             batch = self.bm.marshal_reports(reports, dev)
-        if batch.nonces.device.type != dev.type:
+        if batch is not None and batch.nonces.device.type != dev.type:
             raise ValueError(f"the report batch is not on {dev}")
+        if store is not None and chunk_size is not None \
+                and store.chunk_size != chunk_size:
+            raise ValueError(f"chunk_size={chunk_size}, store has "
+                             f"{store.chunk_size}")
         self.mastic = mastic
         self.ctx = ctx
         self.thresholds = thresholds
         self.verify_key = verify_key
-        self.batch = batch
         self.valid = valid
         self.reports = reports
-        self.num_reports = int(batch.nonces.shape[0])
-        self.runner = (IncrementalRunner(self.bm, verify_key, ctx, batch,
-                                         valid, reports=reports)
-                       if incremental else None)
+        if chunk_size is not None or store is not None:
+            if store is None:
+                store = HostReportStore.from_batch(batch, chunk_size)
+            self.store = store
+            self.batch = None
+            self.num_reports = store.num_reports
+            self.runner = ChunkedIncrementalRunner(
+                self.bm, verify_key, ctx, store, dev, valid=valid,
+                reports=reports)
+        else:
+            self.store = None
+            self.batch = batch
+            self.num_reports = int(batch.nonces.shape[0])
+            self.runner = (IncrementalRunner(self.bm, verify_key, ctx,
+                                             batch, valid, reports=reports)
+                           if incremental else None)
         self.metrics: list = []
         self.level = 0
         self.prefixes: list = [(False,), (True,)]
@@ -502,7 +530,12 @@ class HeavyHittersRun:
         if not self.mastic.is_valid(agg_param, self.prev_agg_params):
             raise ValueError("invalid aggregation parameter sequence")
         t0 = time.perf_counter()
-        if self.runner is not None:
+        if self.store is not None:
+            # The chunked round runs whole: its executor makes one wait
+            # per chunk.
+            handle = {"counts": self.runner.round(
+                agg_param, metrics_out=self.metrics)}
+        elif self.runner is not None:
             handle = self.runner.round_stage(agg_param)
         else:
             handle = run_round_stage(self.bm, self.verify_key, self.ctx,
@@ -515,7 +548,9 @@ class HeavyHittersRun:
         the threshold, and advance the frontier.  Returns True while
         more rounds remain."""
         (level, prefixes, _wc) = handle["agg_param"]
-        if self.runner is not None:
+        if self.store is not None:
+            counts = handle["counts"]
+        elif self.runner is not None:
             counts = self.runner.round_collect(handle,
                                                metrics_out=self.metrics)
         else:
@@ -552,16 +587,18 @@ class HeavyHittersRun:
     # -- checkpoint / resume ---------------------------------------
 
     def to_bytes(self) -> bytes:
-        """Serialise the run between levels (the collector state, both
+        """Serialise the run between levels (the collector state, the
         carries and the fallback mask) in the JAX package's v3 npz
-        format."""
+        format: a chunked run writes its chunk_size into `meta` and each
+        chunk's carries as `k{i}_c{a}_*`."""
         num_layouts = (len(self.runner.layouts)
                        if self.runner is not None else 0)
+        chunk_size = self.store.chunk_size if self.store is not None else 0
         data = {
             "meta": np.array(
                 [_CKPT_VERSION, self.level, int(self.done),
                  0 if self.runner is None else 1, self.mastic.bits,
-                 self.num_reports, 0, num_layouts], np.int64),
+                 self.num_reports, chunk_size, num_layouts], np.int64),
             "binding": _ckpt_binding(self.verify_key, self.ctx,
                                      self.thresholds),
             "prefixes": _paths_to_array(self.prefixes),
@@ -575,7 +612,11 @@ class HeavyHittersRun:
                 self.prev_agg_params[-1][1])
         for d in range(num_layouts):
             data[f"layout_{d}"] = _paths_to_array(self.runner.layouts[d])
-        if self.runner is not None:
+        if self.store is not None:
+            data["width"] = np.int64(self.runner.width)
+            data["fallback"] = self.runner.fallback.copy()
+            data.update(self.runner.state_arrays())
+        elif self.runner is not None:
             data["width"] = np.int64(self.runner.width)
             data["fallback"] = self.runner.fallback.cpu().numpy()
             data.update(carry_to_arrays(self.runner.carries[0], "c0_"))
@@ -588,12 +629,17 @@ class HeavyHittersRun:
     def from_bytes(cls, mastic: Mastic, ctx: bytes, thresholds: dict,
                    verify_key: bytes, batch: Optional[ReportBatch],
                    data: bytes, valid: Optional[torch.Tensor] = None,
-                   device="cuda", reports: Optional[Sequence] = None
-                   ) -> "HeavyHittersRun":
+                   device="cuda", reports: Optional[Sequence] = None,
+                   store=None) -> "HeavyHittersRun":
         """Restore a checkpointed run over the same reports (the batch,
-        or the scalar reports it was marshalled from).  Refuses a
-        checkpoint of another instantiation, report count, verify key,
-        ctx or thresholds, and one taken by the chunked runner."""
+        or the scalar reports it was marshalled from; a chunked run may
+        pass its `store` instead).  A chunked checkpoint restores a
+        chunked run, with the envelope cleared again at its width.
+        Refuses a checkpoint of another instantiation, report count,
+        chunk size, verify key, ctx or thresholds, and a store for a
+        resident checkpoint."""
+        from .chunked import check_envelope
+
         arrays = np.load(io.BytesIO(data), allow_pickle=False)
         meta = [int(x) for x in arrays["meta"]]
         if meta[0] != _CKPT_VERSION:
@@ -601,20 +647,43 @@ class HeavyHittersRun:
                              f"v{_CKPT_VERSION} only")
         (_, level, done, incremental, bits, num_reports, chunk_size,
          num_layouts) = meta
-        if chunk_size:
-            raise ValueError(f"chunked checkpoint (chunk_size={chunk_size}):"
-                             f" chunked runner not ported yet")
-        restored_n = (int(batch.nonces.shape[0]) if batch is not None
-                      else len(reports) if reports is not None else None)
+        if chunk_size == 0 and store is not None:
+            raise ValueError(
+                "checkpoint was taken by the resident (unchunked) "
+                "runner; restore it with scalar reports, not a store")
+        if chunk_size and store is None and reports is None \
+                and batch is None:
+            raise ValueError(
+                "chunked checkpoint needs its report store (or the "
+                "scalar reports to rebuild one)")
+        if chunk_size == 0 and reports is None and batch is None:
+            raise ValueError(
+                "resident checkpoint needs the scalar reports (or the "
+                "marshalled batch) it was taken over")
+        restored_n = (store.num_reports if store is not None
+                      else int(batch.nonces.shape[0]) if batch is not None
+                      else len(reports))
         if bits != mastic.bits or num_reports != restored_n:
             raise ValueError("checkpoint does not match this instantiation "
                              "or report batch")
+        if chunk_size and store is not None \
+                and store.chunk_size != chunk_size:
+            raise ValueError(
+                f"checkpoint was taken with chunk_size={chunk_size}, "
+                f"store has {store.chunk_size}")
         if not np.array_equal(np.asarray(arrays["binding"]),
                               _ckpt_binding(verify_key, ctx, thresholds)):
             raise ValueError("checkpoint was taken under a different "
                              "verify_key / ctx / thresholds")
+        num_chunks = -(-num_reports // chunk_size) if chunk_size else 0
+        if arrays["prev_levels"].size and any(
+                f"k{i}_c{a}_w" not in arrays.files
+                for i in range(num_chunks) for a in range(2)):
+            raise ValueError(f"chunked checkpoint (chunk_size={chunk_size}) "
+                             f"lacks the carries of its {num_chunks} chunks")
         run = cls(mastic, ctx, thresholds, verify_key, batch, valid, device,
-                  bool(incremental), reports)
+                  bool(incremental), reports,
+                  chunk_size=chunk_size or None, store=store)
         run.level = level
         run.done = bool(done)
         run.prefixes = _paths_from_array(arrays["prefixes"])
@@ -627,13 +696,27 @@ class HeavyHittersRun:
         run.prev_agg_params = [
             (lvl, last_prefixes if i == len(prev_levels) - 1 else (), wc)
             for (i, (lvl, wc)) in enumerate(zip(prev_levels, prev_wc))]
-        if run.runner is not None and prev_levels:
+        layouts = [_paths_from_array(arrays[f"layout_{d}"])
+                   for d in range(num_layouts)]
+        if run.store is not None and prev_levels:
+            runner = run.runner
+            width = int(arrays["width"])
+            if width != runner.width:
+                # A checkpoint at a grown width clears the envelope again
+                # on the restoring host and card.
+                check_envelope(runner.bm, runner.store.chunk_size, width,
+                               runner.num_reports, runner.device)
+                runner._set_width(width)
+            runner.fallback = np.asarray(arrays["fallback"], bool) \
+                & runner.valid
+            runner.load_state(arrays, runner.store.num_chunks)
+            runner.layouts = layouts
+        elif run.runner is not None and prev_levels:
             dev = run.runner.device
             run.runner.restore(
                 int(arrays["width"]), arrays["fallback"],
                 [carry_from_arrays(arrays, f"c{a}_", dev) for a in range(2)],
-                [_paths_from_array(arrays[f"layout_{d}"])
-                 for d in range(num_layouts)])
+                layouts)
         return run
 
 
@@ -642,13 +725,17 @@ def compute_heavy_hitters(mastic: Mastic, ctx: bytes, thresholds: dict,
                           batch: Optional[ReportBatch] = None,
                           valid: Optional[torch.Tensor] = None,
                           device="cuda", incremental: bool = True,
-                          reports: Optional[Sequence] = None) -> list:
+                          reports: Optional[Sequence] = None,
+                          chunk_size: Optional[int] = None,
+                          store=None) -> list:
     """The full collector loop over a sharded report batch (or the
     scalar `reports`, marshalled).  With `incremental=False` every level
     is one round from the root: the differential reference of the
-    incremental runner."""
+    incremental runner.  With `chunk_size` or `store` the chunked
+    runner streams the reports through the card."""
     run = HeavyHittersRun(mastic, ctx, thresholds, verify_key, batch,
-                          valid, device, incremental, reports)
+                          valid, device, incremental, reports,
+                          chunk_size=chunk_size, store=store)
     while run.step():
         pass
     return run.result()

@@ -194,9 +194,10 @@ def _rewritten(data: bytes, **changes) -> bytes:
 
 
 def test_restore_refuses_what_it_cannot_resume(state):
-    """A chunked checkpoint (chunk_size in meta), another verify key or
-    thresholds, another report count, and another format version are
-    refused with a clear error."""
+    """A checkpoint whose meta claims a chunk_size but that holds no
+    per-chunk carries, another verify key or thresholds, another report
+    count, and another format version are refused with a clear
+    error."""
     (reports, ckpt) = (state["reports"], state["tckpt"])
     meta = _arrays(ckpt)["meta"].copy()
     meta[6] = 3
@@ -206,7 +207,8 @@ def test_restore_refuses_what_it_cannot_resume(state):
             tbm.MasticCount(BITS), CTX, thresholds, vk, None, data,
             device="cpu", reports=reps)
 
-    with pytest.raises(ValueError, match="chunked runner not ported yet"):
+    with pytest.raises(ValueError, match="lacks the carries of its 2 "
+                                         "chunks"):
         restore(_rewritten(ckpt, meta=meta))
     with pytest.raises(ValueError, match="different verify_key"):
         restore(ckpt, vk=bytes(32))

@@ -189,3 +189,21 @@ def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
         sys.path.remove(str(REPO))
     assert smoke.main() == 2
     assert '"ok"' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["mastic_tpu_torch.drivers.chunked",
+                                  "mastic_tpu_torch.drivers.pipeline"])
+def test_chunked_modules_import_no_jax(name):
+    """The chunked runner and the executor are reached by the package
+    walk (so the probe above covers them) and, in a fresh interpreter,
+    load neither jax nor mastic_tpu."""
+    names = [m.name for m in pkgutil.walk_packages(
+        mastic_tpu_torch.__path__, "mastic_tpu_torch.")]
+    assert name in names
+    probe = (f"import sys, {name}\n"
+             "print([m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'mastic_tpu')])")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
