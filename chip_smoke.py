@@ -38,7 +38,7 @@
    attribute row's shape, fresh parent seeds drawn until a launch
    returns ok False (about 200 launches expected, at most 3000), and
    that launch held bit-exact against `level_step_plain`, ok included.
-3. Drives ten phases, each with every launch counter set to 0 just
+3. Drives eleven phases, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
    runs (K1's binder sponge and K3 count Field128 launches apart).
    Every path hands its runs the scalar reports behind its batch
@@ -112,8 +112,31 @@
       at most 1.1x `memory_envelope`'s pipelined per-chunk peak.  The
       cuts (R, levels) are printed, and per level the wall time, the
       card's upload, compute and download times and the overlap.
-4. Prints the `kernels` JSON line (every kernel and instantiation), the
-   card, each path's figures, and last `{"ok": true, "device": {...}}`.
+   j. The mesh, last (`parallel.launch.spawn`, one process a rank,
+      each run's counters set to 0 in the rank): over NCCL, 1 rank on
+      the card, the Count path's reports through `HeavyHittersRun(mesh=)`
+      for 16 levels, each equal to phase a's; over gloo, 2 ranks sharing
+      the card (each with `MASTIC_DEVICE_BUDGET_BYTES` at 40% of it):
+      MasticCount(256) over 8192 reports (the Count recipe x2, threshold
+      96; each rank shards its 4096 rows, then the batch is gathered),
+      4096 rows a rank, resident through all 256 levels (64 when
+      the smoke has run past MESH_CUT_AFTER_S before phase j, printed
+      as a cut), the heavy hitters the planted strings, then
+      `sharded_gen` against the rank's rows of the shard and
+      `sharded_round` at level 0 against numpy; the same
+      reports chunked (chunk_size 2047: every chunk pads to 2048, 1024
+      rows a rank, the tail holds 4 live reports), pipelined, 16 levels,
+      the frontier equal to the resident run's and each rank's device
+      peak at most 1.1x the envelope's pipelined per-shard peak; and
+      phase e's attribute round over both ranks (each sharding its
+      5000 reports), held as e is.  Every
+      level against numpy; every kernel launched by every rank.
+4. Prints the `kernels` JSON line (every kernel and instantiation; the
+   Count rows' `launches_mesh` are rank 0's launches in the gloo
+   resident run, its shard of its rows included, the MasticSum rows' in
+   the gloo attribute round, likewise), the
+   card, each path's figures, and last `{"ok": true, "device":
+   {...}}`.
    Any failure exits non-zero before that line.
 
 Exits 2 without a card.  Needs the repository beside it (it imports
@@ -197,6 +220,31 @@ CHUNKED_FALLBACK_R = 4 * R
 CHUNKED_CHUNK = R
 CHUNKED_LEVELS = 16
 CHUNKED_THRESHOLD = 8 * THRESHOLD
+# The mesh phase (j), over torch.distributed: NCCL at 1 rank on the card
+# (the Count path's reports, MESH_NCCL_LEVELS levels, each against phase
+# a's), then gloo at 2 ranks sharing the card.  Resident: the Count
+# recipe x2 (32 planted strings x 128 reports and 4096 uniform ones,
+# threshold 48 x 2), 4096 rows a rank, all 256 levels (MESH_CUT_LEVELS
+# when the smoke has run past MESH_CUT_AFTER_S by then, printed as a
+# cut).  Chunked: the same reports at chunk_size 2047 (odd: every chunk
+# pads to 2048, 1024 rows a rank, and the tail holds 4 live rows),
+# pipelined, 16 levels.  Then the attribute round of phase e over both
+# ranks.  Each rank's device budget is 40% of the card, as two share it.
+MESH_NCCL_LEVELS = 16
+MESH_RANKS = 2
+MESH_R = 2 * R
+MESH_THRESHOLD = 2 * THRESHOLD
+MESH_CHUNK = 2047
+MESH_CHUNKED_LEVELS = 16
+MESH_CUT_LEVELS = 64
+MESH_CUT_AFTER_S = 600.0
+MESH_BUDGET_SHARE = 0.4
+MESH_COUNTERS = {
+    "resident": ("keccak", "keccak_binder", "aes", "level"),
+    "chunked": ("keccak", "keccak_binder", "level"),
+    "attributes": ("keccak", "keccak_binder", "aes", "level"),
+    "nccl": ("keccak", "keccak_binder", "aes", "level"),
+}
 # The launch counters each path must reach (ops/kernels.py): K1's
 # in-place sponge and its binder sponge (per field), K2's fixed-key
 # entry, K3 (per field).  The from-root cross-check of the Count path
@@ -1107,6 +1155,7 @@ def main_path(dev: torch.device, seed: int, levels: int) -> dict:
     handoff = (bm, vk, batch, excluded_per_level[-1], run.level_results[-1],
                reports)
     return {"handoff": handoff, "levels": done, "shard_s": shard_s,
+            "first_levels": run.level_results[:MESH_NCCL_LEVELS],
             "rounds_s": rounds_s,
             "rejected": int((~valid).sum()),
             "xof_fallbacks": run.metrics[-1].xof_fallbacks,
@@ -1178,13 +1227,24 @@ def _path_inputs(dev: torch.device, seed: int, rand_size: int,
 
 
 def _shard(dev: torch.device, bm, meas: list, nonces: torch.Tensor,
-           rand: torch.Tensor) -> tuple:
+           rand: torch.Tensor, mesh=None) -> tuple:
     """encode_measurements + shard_device, synchronised: (batch, ok,
-    seconds)."""
+    seconds).  With a mesh each rank shards only its rows, then every
+    rank gathers the whole batch (the drivers' argument) onto its
+    card."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    (a_dev, b_dev) = bm.encode_measurements(meas, dev)
-    (batch, ok) = bm.shard_device(CTX, a_dev, b_dev, nonces, rand)
+    if mesh is None:
+        (a_dev, b_dev) = bm.encode_measurements(meas, dev)
+        (batch, ok) = bm.shard_device(CTX, a_dev, b_dev, nonces, rand)
+    else:
+        from mastic_tpu_torch.parallel.mesh import gather_rows, tree_map
+
+        (lo, hi) = mesh.bounds(len(meas))
+        (batch, ok, _s) = _shard(dev, bm, meas[lo:hi], nonces[lo:hi],
+                                 rand[lo:hi])
+        (batch, ok) = tree_map(lambda t: gather_rows(mesh, t).to(dev),
+                               (batch, ok))
     torch.cuda.synchronize()
     return (batch, ok, time.perf_counter() - t0)
 
@@ -1464,18 +1524,15 @@ def attribute_sums(asked: list, path_of: dict, alphas: np.ndarray,
                             & keep].sum())) for a in asked]
 
 
-def attributes_path(dev: torch.device, seed: int) -> dict:
-    """Attribute metrics: MasticSum(32, 255) over 10 000 reports and 64
-    attributes of interest, sharded on the card, 100 reports with a
-    flipped correction-word byte at a random depth (among reports that
-    take an attribute of interest, so the byte is on the evaluated
-    grid) and 100 others with a changed leader proof limb; then the one
-    weight-checked round from the root through `AttributeMetricsRun`
-    (the run `aggregate_by_attribute` steps), its accept mask read from
-    the round's handle.  Exactly the tampered reports must be rejected,
-    attributed to the eval proof and the weight check, and each
-    attribute's aggregate must equal numpy's weight sum over the rest."""
-    from mastic_tpu_torch import AttributeMetricsRun, hash_attribute
+def attribute_inputs(dev: torch.device, seed: int, mesh=None) -> dict:
+    """The attribute path's reports: MasticSum(32, 255) over 10 000
+    reports and 64 attributes of interest, sharded on the card (with a
+    mesh, each rank its rows, then gathered), 100
+    reports with a flipped correction-word byte at a random depth
+    (among reports that take an attribute of interest, so the byte is on
+    the evaluated grid) and 100 others with a changed leader proof limb,
+    and the scalar reports behind the batch, tampered alike."""
+    from mastic_tpu_torch import hash_attribute
     from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticSum
 
     (asked, names, weights) = attribute_measurements(seed)
@@ -1485,7 +1542,7 @@ def attributes_path(dev: torch.device, seed: int) -> dict:
     alphas = np.array([path_of[n] for n in names], bool)
     (nonces, rand, vk) = _path_inputs(dev, seed + 9, mastic.RAND_SIZE, ATTR_R)
     meas = [(path_of[n], int(w)) for (n, w) in zip(names, weights)]
-    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand, mesh)
 
     rng = np.random.default_rng(seed + 10)
     asked_paths = np.array([path_of[a] for a in asked], bool)
@@ -1528,46 +1585,85 @@ def attributes_path(dev: torch.device, seed: int) -> dict:
             shares = [(key, proof_share, seed, part), shares[1]]
         return (nonce, public_share, shares)
 
-    reports = ScalarReports(mastic, meas, nonces, rand, tamper)
-    run = AttributeMetricsRun(mastic, CTX, asked, vk, batch, valid=shard_ok,
-                              device=dev, reports=reports)
+    tampered = np.zeros(ATTR_R, bool)
+    tampered[cw_rows] = tampered[proof_rows] = True
+    return {"mastic": mastic, "bm": bm, "asked": asked, "path_of": path_of,
+            "alphas": alphas, "weights": weights, "vk": vk, "batch": batch,
+            "shard_ok": shard_ok, "shard_s": shard_s, "in_set": in_set,
+            "cw_rows": cw_rows, "proof_rows": proof_rows,
+            "tampered": tampered,
+            "reports": ScalarReports(mastic, meas, nonces, rand, tamper)}
+
+
+def check_attribute_round(inputs: dict, run, accept: np.ndarray,
+                          ok: np.ndarray) -> np.ndarray:
+    """The attribute round's accept mask must reject exactly the
+    tampered reports, RoundMetrics attribute them to the eval proof and
+    the weight check, and each attribute's aggregate must equal numpy's
+    weight sum over the rest.  Returns the lanes whose XOF sampling
+    fired (recomputed by the splice)."""
+    valid = inputs["shard_ok"].cpu().numpy()
+    tampered = inputs["tampered"]
+    m = run.metrics[0]
+    if not np.array_equal(accept, valid & ~tampered):
+        raise AssertionError("attribute metrics: the accept mask does not "
+                             "reject exactly the tampered reports")
+    # Lanes whose XOF sampling fired are recomputed by the splice: a
+    # tampered one is rejected there (rejected_fallback, its check in
+    # extra["rejected_fallback_by"]), the others by their check.
+    fallback = ~ok & valid
+    live = valid & ~fallback
+    if (m.rejected_eval_proof, m.rejected_weight_check, m.rejected_joint_rand,
+            m.rejected_fallback, m.accepted, m.xof_fallbacks) != (
+            int(live[inputs["cw_rows"]].sum()),
+            int(live[inputs["proof_rows"]].sum()), 0,
+            int((fallback & tampered).sum()), int((valid & ~tampered).sum()),
+            int(fallback.sum())):
+        raise AssertionError(f"attribute metrics: rejections misattributed: "
+                             f"{m}")
+    want = attribute_sums(inputs["asked"], inputs["path_of"],
+                          inputs["alphas"], inputs["weights"],
+                          valid & ~tampered)
+    if run.result() != want:
+        raise AssertionError("attribute metrics: per-attribute sums differ "
+                             "from numpy's")
+    return fallback
+
+
+def attributes_path(dev: torch.device, seed: int) -> dict:
+    """Attribute metrics (`attribute_inputs`): the one weight-checked
+    round from the root through `AttributeMetricsRun` (the run
+    `aggregate_by_attribute` steps), its accept mask read from the
+    round's handle, held to `check_attribute_round`."""
+    from mastic_tpu_torch import AttributeMetricsRun
+
+    inputs = attribute_inputs(dev, seed)
+    (batch, shard_ok) = (inputs["batch"], inputs["shard_ok"])
+    run = AttributeMetricsRun(inputs["mastic"], CTX, inputs["asked"],
+                              inputs["vk"], batch, valid=shard_ok,
+                              device=dev, reports=inputs["reports"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handle = run.step_begin()
     more = run.step_finish(handle)
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
-    accept = handle["accept"]
-    valid = shard_ok.cpu().numpy()
-    tampered = np.zeros(ATTR_R, bool)
-    tampered[cw_rows] = tampered[proof_rows] = True
+    if more:
+        raise AssertionError("attribute metrics: more than one round")
+    fallback = check_attribute_round(inputs, run, handle["accept"],
+                                     handle["out"][3].cpu().numpy())
     m = run.metrics[0]
-    if more or not np.array_equal(accept, valid & ~tampered):
-        raise AssertionError("attribute metrics: the accept mask does not "
-                             "reject exactly the tampered reports")
-    # Lanes whose XOF sampling fired are recomputed by the splice: a
-    # tampered one is rejected there (rejected_fallback, its check in
-    # extra["rejected_fallback_by"]), the others by their check.
-    fallback = ~handle["out"][3].cpu().numpy() & valid
-    live = valid & ~fallback
-    if (m.rejected_eval_proof, m.rejected_weight_check, m.rejected_joint_rand,
-            m.rejected_fallback, m.accepted, m.xof_fallbacks) != (
-            int(live[cw_rows].sum()), int(live[proof_rows].sum()), 0,
-            int((fallback & tampered).sum()), int((valid & ~tampered).sum()),
-            int(fallback.sum())):
-        raise AssertionError(f"attribute metrics: rejections misattributed: "
-                             f"{m}")
-    want = attribute_sums(asked, path_of, alphas, weights, valid & ~tampered)
-    if run.result() != want:
-        raise AssertionError("attribute metrics: per-attribute sums differ "
-                             "from numpy's")
-    handoff = {"bm": bm, "vk": vk, "batch": batch, "shard_ok": shard_ok,
-               "reports": reports, "asked": asked, "result": run.result(),
+    in_set = inputs["in_set"]
+    tampered = inputs["tampered"]
+    valid = shard_ok.cpu().numpy()
+    handoff = {"bm": inputs["bm"], "vk": inputs["vk"], "batch": batch,
+               "shard_ok": shard_ok, "reports": inputs["reports"],
+               "asked": inputs["asked"], "result": run.result(),
                "metrics": m, "fallback": fallback, "tampered_mask": tampered,
                "honest": int(np.flatnonzero(in_set & ~tampered & valid)[0]),
-               "tampered": int(proof_rows[0])}
-    return {"handoff": handoff, "shard_s": shard_s, "round_s": round_s,
-            "nodes": m.padded_width,
+               "tampered": int(inputs["proof_rows"][0])}
+    return {"handoff": handoff, "shard_s": inputs["shard_s"],
+            "round_s": round_s, "nodes": m.padded_width,
             "in_set": int(in_set.sum()), "accepted": m.accepted,
             "rejected_eval_proof": m.rejected_eval_proof,
             "rejected_weight_check": m.rejected_weight_check,
@@ -1931,6 +2027,301 @@ def count_chunked(dev: torch.device, seed: int, levels: int) -> dict:
             "shard_launches": shard_launches}
 
 
+def _widest_mesh(run) -> dict:
+    """extra["mesh"] of the run's widest level."""
+    return max(run.metrics, key=lambda m: m.frontier_width).extra["mesh"]
+
+
+def _mesh_idle(name: str, launches: dict, rank: int) -> None:
+    idle = [c for c in MESH_COUNTERS[name] if launches[c] == 0]
+    if idle:
+        raise AssertionError(f"mesh {name} run, rank {rank}: kernels not "
+                             f"launched: {idle}")
+
+
+def _count_levels(run, levels: int, alphas, weights, planted,
+                  what: str) -> None:
+    """Step `run` through `levels` levels, each against numpy's count;
+    at full depth the heavy hitters must be the planted strings."""
+    while run.level < levels and run.step():
+        pass
+    excluded = run.excluded()
+    for (prefixes, counts) in run.level_results:
+        if counts != plaintext_counts(alphas, weights, ~excluded, prefixes):
+            raise AssertionError(f"{what}: level {len(prefixes[0]) - 1} "
+                                 f"differs from numpy's count")
+    if len(run.level_results) == BITS:
+        want = sorted(tuple(bool(b) for b in p) for p in planted)
+        if sorted(run.result()) != want:
+            raise AssertionError(f"{what}: the heavy hitters are not the "
+                                 f"planted strings")
+
+
+def mesh_nccl_rank(mesh, seed: int, expect: list) -> dict:
+    """Phase j over NCCL, one rank: the Count path's reports (drawn as
+    phase a draws them) through `HeavyHittersRun(mesh=)` for as many
+    levels as `expect` holds, each equal to phase a's."""
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
+    from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
+    from mastic_tpu_torch.ops import kernels
+
+    dev = mesh.device
+    (alphas, weights, _planted) = measurements(seed, BITS, R)
+    mastic = MasticCount(BITS)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 1, mastic.RAND_SIZE, R)
+    meas = [(tuple(bool(b) for b in alphas[r]), int(weights[r]))
+            for r in range(R)]
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    (batch, shard_ok, _s) = _shard(dev, BatchedMastic(mastic), meas, nonces,
+                                   rand)
+    run = HeavyHittersRun(mastic, CTX, {"default": THRESHOLD}, vk, batch,
+                          valid=shard_ok, device=dev, mesh=mesh,
+                          reports=ScalarReports(mastic, meas, nonces, rand))
+    t1 = time.perf_counter()
+    while run.level < len(expect) and run.step():
+        pass
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t1
+    if run.level_results != expect:
+        raise AssertionError("mesh over NCCL: the levels differ from the "
+                             "Count path's")
+    _mesh_idle("nccl", kernels.launches, mesh.rank)
+    return {"levels": len(run.level_results), "rounds_s": rounds_s,
+            "wall_s": time.perf_counter() - t0, "mesh": _widest_mesh(run),
+            "launches": dict(kernels.launches)}
+
+
+def mesh_sharded_fns(mesh, bm, meas: list, nonces: torch.Tensor,
+                     rand: torch.Tensor, batch, shard_ok: torch.Tensor,
+                     alphas: np.ndarray, weights: np.ndarray) -> dict:
+    """The JAX package's sharded functions on the card, after the
+    resident run (their launches are not the run's): `sharded_gen` on
+    this rank's rows equals those rows of the client shard, and
+    `sharded_round` at level 0 with the weight check accepts every
+    report, its summed aggregates equal to numpy's count."""
+    from mastic_tpu_torch.parallel import sharded_gen, sharded_round
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    (lo, hi) = mesh.bounds(len(meas))
+    (a_dev, b_dev) = bm.encode_measurements(meas, dev)
+    (cws, keys, _ok) = sharded_gen(bm, mesh, CTX)(
+        a_dev, b_dev, nonces, rand[:, :bm.m.VIDPF_RAND_SIZE])
+    if not (torch.equal(keys, batch.keys[lo:hi])
+            and all(torch.equal(a, b[lo:hi])
+                    for (a, b) in zip(cws, batch.cws))):
+        raise AssertionError("sharded_gen differs from the client shard's "
+                             "rows")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not bool(shard_ok.all()):
+        raise AssertionError("sharded_round: a report failed its shard")
+    t0 = time.perf_counter()
+    (agg0, agg1, accept, _ok) = sharded_round(
+        bm, mesh, bytes(32), CTX, (0, ((False,), (True,)), True))(batch)
+    round_s = time.perf_counter() - t0
+    got = bm.m.unshard([bm.agg_share_to_host(a) for a in (agg0, agg1)])
+    want = [int(weights[alphas[:, 0] == bit].sum()) for bit in (0, 1)]
+    if not bool(accept.all()) or got != want:
+        raise AssertionError(f"sharded_round at level 0: {got} against "
+                             f"numpy's {want}")
+    return {"gen_s": gen_s, "round_s": round_s, "rows": hi - lo,
+            "level0": got}
+
+
+def mesh_gloo_rank(mesh, seed: int, levels: int) -> dict:
+    """Phase j over gloo, this rank of MESH_RANKS sharing the card: the
+    resident run, the chunked run and the attribute round (see
+    MESH_R); every level against numpy, the chunked frontier equal to
+    the resident run's, the attribute round held as phase e holds
+    it."""
+    import os
+
+    from mastic_tpu_torch import AttributeMetricsRun, HostReportStore
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
+    from mastic_tpu_torch.drivers.chunked import memory_envelope
+    from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
+    from mastic_tpu_torch.ops import kernels
+
+    dev = mesh.device
+    budget = int(MESH_BUDGET_SHARE
+                 * torch.cuda.get_device_properties(dev).total_memory)
+    os.environ["MASTIC_DEVICE_BUDGET_BYTES"] = str(budget)
+    out = {"budget": budget}
+
+    (alphas, weights, planted) = measurements(seed + 20, BITS, MESH_R)
+    mastic = MasticCount(BITS)
+    bm = BatchedMastic(mastic)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 21, mastic.RAND_SIZE,
+                                      MESH_R)
+    meas = [(tuple(bool(b) for b in alphas[r]), int(weights[r]))
+            for r in range(MESH_R)]
+    reports = ScalarReports(mastic, meas, nonces, rand)
+    thresholds = {"default": MESH_THRESHOLD}
+
+    # Resident: each rank shards its 4096 rows, gathers the whole batch
+    # (the same arguments on every rank) and keeps its rows.
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    (batch, shard_ok, _s) = _shard(dev, bm, meas, nonces, rand, mesh)
+    run = HeavyHittersRun(mastic, CTX, thresholds, vk, batch,
+                          valid=shard_ok, device=dev, reports=reports,
+                          mesh=mesh)
+    t1 = time.perf_counter()
+    _count_levels(run, levels, alphas, weights, planted, "mesh resident")
+    torch.cuda.synchronize()
+    _mesh_idle("resident", kernels.launches, mesh.rank)
+    resident_levels = [p for (p, _c) in run.level_results]
+    out["resident"] = {
+        "levels": len(run.level_results),
+        "rounds_s": time.perf_counter() - t1,
+        "wall_s": time.perf_counter() - t0, "mesh": _widest_mesh(run),
+        "max_width": run.runner.max_width,
+        "peak": torch.cuda.max_memory_allocated(dev),
+        "launches": dict(kernels.launches)}
+    del run
+    out["sharded"] = mesh_sharded_fns(mesh, bm, meas, nonces, rand, batch,
+                                      shard_ok, alphas, weights)
+
+    # Chunked: the same reports from a pinned store, this rank's 1024
+    # rows of every chunk padded to 2048.
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    store = HostReportStore.from_batch(batch, MESH_CHUNK)
+    del batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = HeavyHittersRun(mastic, CTX, thresholds, vk, valid=shard_ok,
+                          device=dev, store=store, reports=reports,
+                          mesh=mesh)
+    t1 = time.perf_counter()
+    _count_levels(run, MESH_CHUNKED_LEVELS, alphas, weights, planted,
+                  "mesh chunked")
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev)
+    if [p for (p, _c) in run.level_results] != \
+            resident_levels[:MESH_CHUNKED_LEVELS]:
+        raise AssertionError("mesh chunked: the frontier differs from the "
+                             "resident run's")
+    modes = {(m.extra["pipeline"]["mode"], m.extra["pipeline"]["fallback"])
+             for m in run.metrics}
+    env = memory_envelope(bm, MESH_CHUNK, run.runner.max_width, MESH_R, dev,
+                          n_device_shards=mesh.shape["reports"])
+    bound = env["device_peak_bytes_per_chunk_pipelined_per_shard"]
+    if peak > 1.1 * bound or modes != {("pipelined", None)}:
+        raise AssertionError(f"mesh chunked: device peak {peak} B against "
+                             f"the envelope's {bound} B, modes {modes}")
+    _mesh_idle("chunked", kernels.launches, mesh.rank)
+    out["chunked"] = {
+        "levels": len(run.level_results), "rounds_s": rounds_s,
+        "wall_s": time.perf_counter() - t0, "mesh": _widest_mesh(run),
+        "max_width": run.runner.max_width, "peak": peak, "bound": bound,
+        "tile": run.runner.tile, "num_chunks": store.num_chunks,
+        "launches": dict(kernels.launches)}
+    del run, store
+
+    # The attribute round of phase e, each rank over its rows.
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    inputs = attribute_inputs(dev, seed, mesh)
+    run = AttributeMetricsRun(inputs["mastic"], CTX, inputs["asked"],
+                              inputs["vk"], inputs["batch"],
+                              valid=inputs["shard_ok"], device=dev,
+                              reports=inputs["reports"], mesh=mesh)
+    t1 = time.perf_counter()
+    handle = run.step_begin()
+    run.step_finish(handle)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t1
+    check_attribute_round(inputs, run, handle["accept"], handle["ok"])
+    _mesh_idle("attributes", kernels.launches, mesh.rank)
+    m = run.metrics[0]
+    out["attributes"] = {
+        "round_s": round_s, "wall_s": time.perf_counter() - t0,
+        "mesh": m.extra["mesh"], "accepted": m.accepted,
+        "rejected_eval_proof": m.rejected_eval_proof,
+        "rejected_weight_check": m.rejected_weight_check,
+        "launches": dict(kernels.launches)}
+    return out
+
+
+def mesh_phase(elapsed_s: float, seed: int, first_levels: list) -> dict:
+    """Phase j: the NCCL rank, then the gloo ranks (see MESH_R); the
+    kernels are built already, so no rank compiles."""
+    from mastic_tpu_torch.drivers.chunked import _release_pinned
+    from mastic_tpu_torch.parallel import spawn
+
+    torch.cuda.empty_cache()
+    _release_pinned()
+    levels = BITS if elapsed_s < MESH_CUT_AFTER_S else MESH_CUT_LEVELS
+    t0 = time.perf_counter()
+    nccl = spawn(mesh_nccl_rank, 1, "nccl", "cuda", seed, first_levels)
+    nccl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = spawn(mesh_gloo_rank, MESH_RANKS, "gloo", "cuda", seed, levels)
+    return {"levels": levels, "nccl": nccl[0][0], "nccl_s": nccl_s,
+            "gloo": [r[0] for r in gloo],
+            "gloo_s": time.perf_counter() - t0}
+
+
+def _print_mesh(mesh: dict) -> None:
+    """Phase j's lines: per run the ranks, the backend, the times, the
+    widest level's mesh block and each rank's launches; each rank's
+    device peak against its per-shard envelope."""
+    def launches(d: dict) -> str:
+        return ", ".join(f"{k} {v}" for (k, v) in d.items() if v)
+
+    nccl = mesh["nccl"]
+    print(f"mesh nccl: 1 rank, MasticCount({BITS}), {R} reports, "
+          f"{nccl['levels']} levels = the Count path's; wall "
+          f"{nccl['wall_s']:.3f} s, rounds {nccl['rounds_s']:.3f} s, phase "
+          f"{mesh['nccl_s']:.1f} s; widest level's mesh "
+          f"{json.dumps(nccl['mesh'])}; launches {launches(nccl['launches'])}")
+    gloo = mesh["gloo"]
+    print(f"mesh gloo: {len(gloo)} ranks on one card, phase "
+          f"{mesh['gloo_s']:.1f} s, device budget a rank "
+          f"{gloo[0]['budget']} B (MASTIC_DEVICE_BUDGET_BYTES, "
+          f"{MESH_BUDGET_SHARE} of the card)")
+    if mesh["levels"] < BITS:
+        print(f"cut: the mesh resident run stopped after {mesh['levels']} "
+              f"of {BITS} levels, the smoke having run past "
+              f"{MESH_CUT_AFTER_S:.0f} s before phase j")
+    for (rank, r) in enumerate(gloo):
+        res = r["resident"]
+        print(f"mesh gloo rank {rank} resident: MasticCount({BITS}), "
+              f"{MESH_R} reports ({MESH_R // len(gloo)} a rank), threshold "
+              f"{MESH_THRESHOLD}, {res['levels']} levels = numpy's; wall "
+              f"{res['wall_s']:.3f} s, rounds {res['rounds_s']:.3f} s, "
+              f"padded width {res['max_width']}, device peak {res['peak']} "
+              f"B; widest level's mesh {json.dumps(res['mesh'])}; launches "
+              f"{launches(res['launches'])}")
+        sh = r["sharded"]
+        print(f"mesh gloo rank {rank} sharded functions: sharded_gen over "
+              f"{sh['rows']} rows = the client shard's, {sh['gen_s']:.3f} "
+              f"s; sharded_round at level 0 with the weight check = "
+              f"numpy's {sh['level0']}, {sh['round_s']:.3f} s")
+        ch = r["chunked"]
+        print(f"mesh gloo rank {rank} chunked: {ch['num_chunks']} chunks of "
+              f"{MESH_CHUNK} (rows {ch['tile'][0]}-{ch['tile'][1]} of each, "
+              f"padded), {ch['levels']} levels = numpy's = the resident "
+              f"frontier; wall {ch['wall_s']:.3f} s, rounds "
+              f"{ch['rounds_s']:.3f} s; device peak {ch['peak']} B against "
+              f"the envelope's pipelined per-shard peak {ch['bound']} B "
+              f"(ratio {ch['peak'] / ch['bound']:.4f}); widest level's mesh "
+              f"{json.dumps(ch['mesh'])}; launches "
+              f"{launches(ch['launches'])}")
+        at = r["attributes"]
+        print(f"mesh gloo rank {rank} attributes: MasticSum({ATTR_BITS}, "
+              f"{SUM_MAX}), {ATTR_R} reports, {ATTR_ASKED} attributes: sums = "
+              f"numpy's, accepted {at['accepted']}, rejected_eval_proof "
+              f"{at['rejected_eval_proof']}, rejected_weight_check "
+              f"{at['rejected_weight_check']}; wall {at['wall_s']:.3f} s, "
+              f"round {at['round_s']:.3f} s; mesh {json.dumps(at['mesh'])}; "
+              f"launches {launches(at['launches'])}")
+
+
 def _print_launches(counts: dict, result: dict) -> None:
     """One path's launches, split between its shard and its rounds."""
     shard_n = result["shard_launches"]
@@ -2038,6 +2429,21 @@ def main() -> int:
                 for name in ("count_chunked", "chunked_checkpoint")}
     # K1's in-place sponge (the shard's and the eval-proof XOF's).
     rows[0]["launches_turboshake"] = counts["count"]["keccak"]
+
+    # Phase j, the mesh, last: its ranks are processes of their own, each
+    # with its counts set to 0 before each run.
+    mesh = mesh_phase(time.perf_counter() - t_start, args.seed,
+                      results["count"]["first_levels"])
+    gloo0 = mesh["gloo"][0]
+    for row in rows:
+        # Rank 0's launches in the gloo resident run (the Count
+        # instantiation) or attribute round (MasticSum); phase j runs
+        # no Field128 instantiation.
+        counter = row_counter[row["name"]][1]
+        run = {"count": "resident", "sum": "attributes",
+               "attributes": "attributes"}.get(row["launches_path"])
+        row["launches_mesh"] = (None if run is None
+                                else gloo0[run]["launches"][counter])
 
     result = results["count"]
     if result["levels"] < BITS:
@@ -2220,8 +2626,10 @@ def main() -> int:
               f"({moved / lv['upload_ms'] / 1e6:.3f} GB/s up, "
               f"{moved / lv['download_ms'] / 1e6:.3f} GB/s down)")
     _print_launches(counts["count_chunked"], result)
+    _print_mesh(mesh)
     print("path seconds: " + ", ".join(
-        f"{name} {r['path_s']:.1f}" for (name, r) in results.items()))
+        f"{name} {r['path_s']:.1f}" for (name, r) in results.items())
+        + f", mesh {mesh['nccl_s'] + mesh['gloo_s']:.1f}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -22,6 +22,15 @@ a pinned-memory `HostReportStore`, on the pipelined executor of
 `drivers.pipeline`; `HeavyHittersRun(chunk_size=...)`), and the
 attribute round takes a `chunk_size` too.
 
+Reports shard over ranks of `torch.distributed` (`parallel`: one
+process a rank, `parallel.spawn` starts them, `make_mesh` in each):
+`HeavyHittersRun`, `compute_heavy_hitters`, the chunked runner and
+`aggregate_by_attribute` take `mesh=`, every rank keeps its rows, and
+the rounds' shares are summed and masks gathered over the ranks, so
+every rank holds the unsharded run's results.  `python -m
+mastic_tpu_torch.tools.multichip` checks a meshed collection against
+the unsharded one.
+
 The scalar layer (`scalar/`, a standard-library copy of the JAX
 package's) recomputes, one report at a time, the lanes whose batched
 XOF sampling drew a value outside the field
@@ -63,7 +72,9 @@ from .drivers.attribute_metrics import (AttributeMetricsRun,  # noqa: E402
 from .drivers.chunked import (ChunkedIncrementalRunner,  # noqa: E402
                               HostReportStore)
 from .metrics import RoundMetrics  # noqa: E402
+from .parallel import ReportMesh, make_mesh, spawn  # noqa: E402
 
 __all__ = ["AttributeMetricsRun", "ChunkedIncrementalRunner",
-           "HostReportStore", "RoundMetrics", "aggregate_by_attribute",
-           "hash_attribute", "resolve_device"]
+           "HostReportStore", "ReportMesh", "RoundMetrics",
+           "aggregate_by_attribute", "hash_attribute", "make_mesh",
+           "resolve_device", "spawn"]

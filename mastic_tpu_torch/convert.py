@@ -12,7 +12,9 @@ limbs travel alike, as (..., n) uint32.  The
 numpy side uses the JAX package's dtypes: uint32 for limbs, uint8 for
 bytes, bool for bits; the torch side carries uint32 words as int32
 (ops/bits.py).  Nothing here imports jax: callers hand over numpy
-arrays (np.asarray of a jax.Array).
+arrays (np.asarray of a jax.Array).  A run on a report mesh gathers its
+carries over the ranks (`parallel.mesh.gather_rows`) before they come
+here, so its arrays are the unsharded run's.
 """
 
 import numpy as np

@@ -19,7 +19,17 @@ the reports through the card in chunks on the pipelined executor of
 card at a time: from the store, else from a store built from the
 batch, else from the scalar reports marshalled chunk by chunk (the JAX
 package's source).  The result equals the unchunked round's bit for
-bit.  The JAX package's mesh round (`mesh`) is not ported yet.
+bit.
+
+With `mesh` (a `parallel.ReportMesh`; every rank makes the same call)
+the round is chunked (without a `chunk_size`, one chunk of every
+report, as in the JAX package): each chunk pads to the shard multiple
+with dead lanes (its first report repeated), each rank runs the masked
+round (`BatchedMastic.round_device_checks` with the `valid` mask that
+leaves the dead lanes out: the JAX package's `_round_fn_masked`) over
+its rows of it, and the chunk's shares are summed and its masks
+gathered over the ranks, so every rank holds the global result and
+`RoundMetrics` (with an `extra["mesh"]` block).
 """
 
 import hashlib
@@ -56,7 +66,8 @@ def aggregate_by_attribute(mastic: Mastic, ctx: bytes,
                            device="cuda",
                            reports: Optional[Sequence] = None,
                            chunk_size: Optional[int] = None,
-                           store: Optional[HostReportStore] = None) -> list:
+                           store: Optional[HostReportStore] = None,
+                           mesh=None) -> list:
     """Aggregate the reports of `batch` (or the scalar `reports`,
     marshalled, or a `store`) grouped by the collector's attributes of
     interest.  Returns [(attribute, aggregate)]; appends the round's
@@ -64,9 +75,11 @@ def aggregate_by_attribute(mastic: Mastic, ctx: bytes,
     reports to leave out (e.g. the shard's `ok`); `reports` are the
     scalar reports behind the batch, read for the lanes whose XOF
     sampling fires.  With `chunk_size` or `store` the round streams the
-    reports through the card chunk by chunk, with the same result."""
+    reports through the card chunk by chunk, with the same result; with
+    `mesh` every rank runs it over its rows of each chunk."""
     run = AttributeMetricsRun(mastic, ctx, attributes, verify_key, batch,
-                              valid, device, reports, chunk_size, store)
+                              valid, device, reports, chunk_size, store,
+                              mesh)
     while run.step():
         pass
     if metrics_out is not None:
@@ -88,14 +101,17 @@ class AttributeMetricsRun:
     come from the store, else from the batch (a store built from it,
     as HeavyHittersRun builds its own), else from the scalar reports,
     marshalled chunk by chunk; `reports` beside a store or a batch are
-    read only for the splice."""
+    read only for the splice.  With `mesh` the round is chunked, in one
+    chunk of every report when no chunk size is given.  A chunked
+    round's handle holds the round's final accept and ok masks (R,)
+    bool, over every report."""
 
     def __init__(self, mastic: Mastic, ctx: bytes, attributes: Sequence[str],
                  verify_key: bytes, batch: Optional[ReportBatch] = None,
                  valid: Optional[torch.Tensor] = None, device="cuda",
                  reports: Optional[Sequence] = None,
                  chunk_size: Optional[int] = None,
-                 store: Optional[HostReportStore] = None):
+                 store: Optional[HostReportStore] = None, mesh=None):
         dev = resolve_device(device)
         prefixes = tuple(hash_attribute(mastic, a) for a in attributes)
         if len(set(prefixes)) != len(prefixes):
@@ -108,8 +124,12 @@ class AttributeMetricsRun:
         self.mastic = mastic
         self.bm = BatchedMastic(mastic)
         self.device = dev
+        self.mesh = mesh
         self.chunk_size = (store.chunk_size if store is not None
                            else chunk_size)
+        if mesh is not None and self.chunk_size is None:
+            self.chunk_size = (int(batch.nonces.shape[0])
+                               if batch is not None else len(reports))
         if batch is None and store is None:
             if reports is None:
                 raise ValueError("a run needs the report batch or the "
@@ -153,10 +173,10 @@ class AttributeMetricsRun:
         if self.chunk_size is not None:
             # The chunked round runs whole: its executor makes one wait
             # per chunk.
-            handle = {"result": _run_round_chunked(
+            handle = _run_round_chunked(
                 self.bm, self.verify_key, self.ctx, agg_param, self.device,
                 self.chunk_size, self.valid, self.metrics,
-                reports=self.reports, store=self.store)}
+                reports=self.reports, store=self.store, mesh=self.mesh)
         else:
             handle = run_round_stage(self.bm, self.verify_key, self.ctx,
                                      agg_param, self.batch, self.valid)
@@ -203,10 +223,10 @@ class AttributeMetricsRun:
                    valid: Optional[torch.Tensor] = None, device="cuda",
                    reports: Optional[Sequence] = None,
                    chunk_size: Optional[int] = None,
-                   store: Optional[HostReportStore] = None
+                   store: Optional[HostReportStore] = None, mesh=None
                    ) -> "AttributeMetricsRun":
         run = cls(mastic, ctx, attributes, verify_key, batch, valid, device,
-                  reports, chunk_size, store)
+                  reports, chunk_size, store, mesh)
         state = json.loads(data)
         if state["done"]:
             run.done = True
@@ -219,17 +239,22 @@ def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
                        valid: Optional[torch.Tensor],
                        metrics_out: Optional[list],
                        reports: Optional[Sequence] = None,
-                       store: Optional[HostReportStore] = None) -> list:
+                       store: Optional[HostReportStore] = None,
+                       mesh=None) -> dict:
     """One from-root round streamed chunk by chunk on the executor of
     `drivers/pipeline.py`, with the unchunked round's result.  A chunk
     comes from the store (padded to chunk_size with dead lanes, which
     the chunk's `valid` slice leaves out) or, with no store, from the
     scalar reports, marshalled on the host (the tail at its own size)
-    while the previous chunk computes.  Its uploads run on the copy
+    while the previous chunk computes.  Under a mesh each chunk pads on
+    to the shard multiple and each rank takes its rows of it (from the
+    reports, it marshals only those).  The uploads run on the copy
     stream, then both preps, the checks and the masked aggregates on
-    the card, then the downloads.  The per-chunk verdicts and aggregate
+    the card, then the downloads; the chunk's shares and masks cross
+    the ranks in the collect.  The per-chunk verdicts and aggregate
     shares are folded on the host, and `finalize_round` (the metrics
-    record and the splice) runs once over every report."""
+    record and the splice) runs once over every report.  Returns the
+    round's handle: the result, and its final accept and ok masks."""
     (level, prefixes, _wc) = agg_param
     num = store.num_reports if store is not None else len(reports)
     pin = device.type == "cuda"
@@ -241,53 +266,64 @@ def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
     bounds = [(lo, min(lo + chunk_size, num))
               for lo in range(0, num, chunk_size)]
     cr = ChunkedRound(CopyStreams(device), bounds, *pipeline_mode(
-        len(bounds)), len(prefixes) * (1 + bm.m.valid.OUTPUT_LEN),
-        bm.m.field.MODULUS)
+        len(bounds)), len(prefixes) * (1 + bm.m.valid.OUTPUT_LEN), bm.spec,
+        mesh)
     sched = bm.schedule(agg_param, device)
+    shards = mesh.shape["reports"] if mesh is not None else 1
+    rank = mesh.rank if mesh is not None else 0
+
+    def tile(i: int) -> tuple:
+        """This rank's rows [a, b) of chunk i padded to the shard
+        multiple (a store's chunk from chunk_size, the reports' from
+        its own size)."""
+        (lo, hi) = bounds[i]
+        size = store.chunk_size if store is not None else hi - lo
+        per = -(-size // shards)
+        return (rank * per, (rank + 1) * per)
 
     def stage(i: int) -> tuple:
         (lo, hi) = bounds[i]
+        (a, b) = tile(i)
         xfer = cr.transfer(i)
         t0 = time.perf_counter()
+        live = max(0, min(b, hi - lo) - a)
+        keep = np.zeros(b - a, bool)
+        keep[:live] = valid_all[lo + a:lo + a + live]
         if store is None:
-            host = map_batch(bm.marshal_reports(reports[lo:hi], "cpu"),
+            lanes = [lo + a + j if j < live else lo for j in range(b - a)]
+            host = map_batch(bm.marshal_reports([reports[r] for r in lanes],
+                                                "cpu"),
                              lambda t: _host(t, pin))
-            keep = valid_all[lo:hi]
-        else:
-            keep = np.zeros(store.chunk_size, bool)
-            keep[:hi - lo] = valid_all[lo:hi]
         with xfer.upload():
             batch = (map_batch(host, xfer.to_device) if store is None
-                     else store.device_chunk(i, device)[0])
+                     else store.device_chunk(i, device, (a, b))[0])
             keep_dev = xfer.to_device(_host(torch.from_numpy(keep), pin))
         t_up = time.perf_counter()
         (agg0, agg1, accept, ok, checks) = bm.round_device_checks(
             verify_key, ctx, agg_param, batch, keep_dev, sched)
         names = sorted(checks)
-        host_out = xfer.download(
-            [(None, t) for t in (agg0, agg1, accept, ok)]
-            + [(None, checks[k]) for k in names])
+        shares = torch.stack([agg0, agg1])
+        masks = torch.stack([accept, ok] + [checks[k] for k in names], dim=1)
+        host_out = xfer.download([(None, shares), (None, masks)])
         # Every device tensor of the chunk stays referenced until
         # collect() has waited for the downloads.
-        handle = {"host": host_out, "names": names,
+        handle = {"shares": host_out[0], "masks": host_out[1],
+                  "names": names,
                   "device": (batch, keep_dev, agg0, agg1, accept, ok,
-                             checks)}
+                             checks, shares, masks)}
         return (handle, {"upload_ms": _ms(t0, t_up),
                          "dispatch_ms": _ms(t_up, time.perf_counter())})
 
     def collect(i: int, handle: dict) -> dict:
         (lo, hi) = bounds[i]
-        n = hi - lo
 
-        def fold(arrays: list) -> None:
-            (agg0, agg1, accept, ok, *masks) = arrays
-            ok_all[lo:hi] = ok[:n]
-            accept_all[lo:hi] = accept[:n]
-            for (name, mask) in zip(handle["names"], masks):
+        def fold(masks: np.ndarray) -> None:
+            (accept, ok, *per_check) = masks.T
+            ok_all[lo:hi] = ok
+            accept_all[lo:hi] = accept
+            for (name, mask) in zip(handle["names"], per_check):
                 checks_all.setdefault(name, np.zeros(num, bool))[lo:hi] = \
-                    mask[:n]
-            cr.fold_shares([bm.agg_share_to_host(torch.from_numpy(arr))
-                            for arr in (agg0, agg1)])
+                    mask
 
         return cr.collect(i, handle, fold)
 
@@ -300,6 +336,9 @@ def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
                             metrics_out=records, valid=valid_all)
     records[0].extra.update({"chunk_size": chunk_size, "chunks": timeline,
                              "pipeline": cr.pipeline_block()})
+    if mesh is not None:
+        (a, b) = tile(0)
+        records[0].extra["mesh"] = cr.mesh_block((b - a) * shards)
     if metrics_out is not None:
         metrics_out.extend(records)
-    return result
+    return {"result": result, "accept": accept_all, "ok": ok_all}

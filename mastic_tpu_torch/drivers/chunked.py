@@ -26,9 +26,18 @@ agg_rounds` on the card, where kernel K1 reads the binder rows in
 place (no gathered copies).  The device budget defaults to a share of
 the card's memory (`MASTIC_DEVICE_BUDGET_BYTES` overrides it; <= 0
 disables it); the host budget is the machine's memory or its cgroup
-limit (`MASTIC_HOST_BUDGET_BYTES`).  The JAX module's mesh terms
-(`n_device_shards`) are left out with the mesh itself, which the port
-does not have yet.
+limit (`MASTIC_HOST_BUDGET_BYTES`).  With `n_device_shards` > 1 the
+`*_per_shard` fields price one rank's share of a chunk padded to the
+shard multiple, as the JAX module's do.
+
+Under a report mesh (`mesh=`, `parallel/mesh.py`) each chunk is padded
+to the shard multiple, `-(-chunk_size // n) * n` rows, and each rank
+uploads its contiguous block of them and keeps pinned host carries for
+that block only; the dead lanes repeat the chunk's row 0, as the tail's
+do.  Each chunk's shares and masks are exchanged over the mesh in the
+collect, and the budgets (so the refusals and the degrade to serial)
+are agreed over the ranks.  A checkpoint gathers every rank's rows, so
+it equals the unsharded run's array by array.
 """
 
 import os
@@ -45,6 +54,7 @@ from ..backend.mastic import BatchedMastic, ReportBatch, all_checks
 from ..backend.vidpf import BatchedCorrectionWords
 from ..metrics import (RoundMetrics, attribute_rejections,
                        count_round_bytes, count_round_ops)
+from ..parallel.mesh import agree_min, gather_rows, tree_map
 from .heavy_hitters import IncrementalRunner, _ms, splice_rejected
 from .pipeline import ChunkedRound, CopyStreams, pipeline_mode
 
@@ -143,20 +153,29 @@ def _round_staging_bytes(bm: BatchedMastic, width: int, out_cap: int) -> int:
 
 def memory_envelope(bm: BatchedMastic, chunk_size: int, width: int,
                     num_reports: int,
-                    device: torch.device = torch.device("cpu")) -> dict:
+                    device: torch.device = torch.device("cpu"),
+                    n_device_shards: int = 1,
+                    budgets: Optional[tuple] = None) -> dict:
     """The (chunk_size, width) envelope: what one chunk costs the card
     and what the whole run costs the host, and the largest chunk that
     fits the device budget at this width.  Carries and round keys are
     allocated per padded chunk row; the store holds exactly
-    `num_reports` rows."""
+    `num_reports` rows.  With `n_device_shards` > 1 the chunk pads to
+    the shard multiple and each rank holds `rows_per_shard` of its rows:
+    the `*_per_shard` fields price one rank's card.  `budgets` (device,
+    host) replaces the ones read here (a meshed runner agrees them over
+    its ranks)."""
     per = per_report_bytes(bm, width)
     per_chunk = per["carry"] + per["roundkeys"] + per["store"]
-    device_budget = _device_budget(device)
-    host_budget = _host_budget()
+    (device_budget, host_budget) = (budgets if budgets is not None else
+                                    (_device_budget(device), _host_budget()))
     padded_rows = -(-num_reports // chunk_size) * chunk_size
     host_total = (padded_rows * (per["carry"] + per["roundkeys"])
                   + num_reports * per["store"])
     staging = chunk_size * per["round_staging"]
+    shards = max(1, n_device_shards)
+    dev_rows = -(-chunk_size // shards) * shards
+    shard_rows = dev_rows // shards
     return {
         "bits": bm.m.bits, "width": width,
         "chunk_size": chunk_size, "num_reports": num_reports,
@@ -173,6 +192,26 @@ def memory_envelope(bm: BatchedMastic, chunk_size: int, width: int,
         "max_pipelined_chunk_size_at_width": (
             device_budget // (PIPELINE_CHUNKS_IN_FLIGHT * per_chunk)
             if device_budget > 0 else 0),
+        # One rank's card: its rows of the chunk padded to the shard
+        # multiple (exact, since the padded rows divide evenly).
+        "report_shards": shards,
+        "device_rows_per_chunk": dev_rows,
+        "rows_per_shard": shard_rows,
+        "device_bytes_per_chunk_per_shard": shard_rows * per_chunk,
+        "device_peak_bytes_per_chunk_per_shard":
+            shard_rows * (per_chunk + per["round_staging"]),
+        "device_bytes_per_chunk_pipelined_per_shard":
+            PIPELINE_CHUNKS_IN_FLIGHT * shard_rows * per_chunk,
+        "device_peak_bytes_per_chunk_pipelined_per_shard":
+            PIPELINE_CHUNKS_IN_FLIGHT * shard_rows * per_chunk
+            + shard_rows * per["round_staging"],
+        "max_chunk_size_at_width_sharded": (
+            shards * (device_budget // per_chunk)
+            if device_budget > 0 else 0),
+        "max_pipelined_chunk_size_at_width_sharded": (
+            shards * (device_budget // (PIPELINE_CHUNKS_IN_FLIGHT
+                                        * per_chunk))
+            if device_budget > 0 else 0),
         "host_bytes_total": host_total,
         "device_budget_bytes": device_budget,
         "host_budget_bytes": host_budget,
@@ -185,26 +224,32 @@ def memory_envelope(bm: BatchedMastic, chunk_size: int, width: int,
 
 def check_envelope(bm: BatchedMastic, chunk_size: int, width: int,
                    num_reports: int,
-                   device: torch.device = torch.device("cpu")) -> dict:
+                   device: torch.device = torch.device("cpu"),
+                   n_device_shards: int = 1,
+                   budgets: Optional[tuple] = None) -> dict:
     """Refuse shapes outside the envelope with the remedy: the device
-    check bounds one chunk's resident state, the host check the carries
-    and the store of the whole run."""
-    env = memory_envelope(bm, chunk_size, width, num_reports, device)
-    per_chip = env["device_bytes_per_chunk"]
-    max_chunk = env["max_chunk_size_at_width"]
+    check bounds one chunk's resident state (one rank's share of it over
+    `n_device_shards` ranks), the host check the carries and the store
+    of the whole run."""
+    env = memory_envelope(bm, chunk_size, width, num_reports, device,
+                          n_device_shards, budgets)
+    per_chip = env["device_bytes_per_chunk_per_shard"]
+    max_chunk = env["max_chunk_size_at_width_sharded"]
     budget = env["device_budget_bytes"]
+    chip = (f" across {n_device_shards} chips" if n_device_shards > 1
+            else "")
     if budget > 0 and per_chip > budget:
         if max_chunk == 0:
             raise ValueError(
                 f"width {width} at {bm.m.bits} bits needs "
-                f"{per_chip / 2**30:.1f} GiB per chip even for a "
+                f"{per_chip / 2**30:.1f} GiB per chip{chip} even for a "
                 f"single-report chunk (budget {budget / 2**30:.1f} GiB) "
                 f"— the width itself is infeasible at this budget; raise "
                 f"MASTIC_DEVICE_BUDGET_BYTES or shard the chunk over "
                 f"more devices")
         raise ValueError(
             f"chunk of {chunk_size} reports needs {per_chip / 2**30:.1f} "
-            f"GiB per chip at width {width} (budget "
+            f"GiB per chip{chip} at width {width} (budget "
             f"{budget / 2**30:.1f} GiB); the largest feasible chunk_size "
             f"at this width is {max_chunk} — shrink the chunk, or raise "
             f"MASTIC_DEVICE_BUDGET_BYTES if the chip has more memory")
@@ -225,29 +270,39 @@ def check_envelope(bm: BatchedMastic, chunk_size: int, width: int,
 
 def round_peak_bytes(bm: BatchedMastic, width: int, out_cap: int,
                      chunk_rows: int, resident_bytes: int,
-                     chunks_in_flight: int = 1) -> int:
-    """The card's peak in one round: `chunks_in_flight` chunks'
+                     chunks_in_flight: int = 1,
+                     n_device_shards: int = 1) -> int:
+    """One card's peak in one round: `chunks_in_flight` chunks'
     resident state plus one chunk's transients (only the chunk in its
-    compute holds them).  The one cost model behind check_round_peak
-    and the pipelined executor's degrade to serial."""
-    return (chunks_in_flight * resident_bytes
-            + _round_staging_bytes(bm, width, out_cap) * chunk_rows)
+    compute holds them), over `n_device_shards` ranks (`chunk_rows` and
+    `resident_bytes` are the whole padded chunk's).  The one cost model
+    behind check_round_peak and the pipelined executor's degrade to
+    serial."""
+    return -(-(chunks_in_flight * resident_bytes
+               + _round_staging_bytes(bm, width, out_cap) * chunk_rows)
+             // n_device_shards)
 
 
 def check_round_peak(bm: BatchedMastic, width: int, out_cap: int,
                      chunk_rows: int, resident_bytes: int, level: int,
-                     device: torch.device = torch.device("cpu")) -> None:
+                     device: torch.device = torch.device("cpu"),
+                     n_device_shards: int = 1,
+                     budget: Optional[int] = None) -> None:
     """The per-round device-memory gate at the round's real width and
-    output slots: a run that would not fit stops at this level with the
-    remedy, everything before it checkpointable."""
-    budget = _device_budget(device)
+    output slots, per card over `n_device_shards` ranks (`budget`
+    replaces the one read here): a run that would not fit stops at this
+    level with the remedy, everything before it checkpointable."""
+    if budget is None:
+        budget = _device_budget(device)
     if budget <= 0:
         return
     per_row = _round_staging_bytes(bm, width, out_cap)
-    peak = round_peak_bytes(bm, width, out_cap, chunk_rows, resident_bytes)
+    peak = round_peak_bytes(bm, width, out_cap, chunk_rows, resident_bytes,
+                            n_device_shards=n_device_shards)
     if peak > budget:
         per_row_resident = resident_bytes // max(1, chunk_rows)
-        max_rows = max(0, budget // (per_row + per_row_resident))
+        max_rows = max(0, budget * n_device_shards
+                       // (per_row + per_row_resident))
         raise ValueError(
             f"level {level}: the round's transients at width {width} "
             f"({out_cap} output slots) need "
@@ -283,14 +338,21 @@ def _release_pinned() -> None:
         torch._C._host_emptyCache()
 
 
-def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
-    """Pad the leading axis to `rows` with dead lanes: the first row
-    repeated (the JAX package's rule, so that dead lanes compute the
-    same values in both packages)."""
-    pad = rows - x.shape[0]
-    if pad <= 0:
-        return x
-    return torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
+def _tile(x: torch.Tensor, lo: int, live: int, rows: tuple,
+          move=lambda t: t) -> torch.Tensor:
+    """Rows [a, b) = `rows` of the chunk of `x` that starts at row `lo`
+    and holds `live` reports, each piece passed through `move`: a row
+    past `live` is a dead lane, the chunk's first row repeated (the JAX
+    package's rule, so that dead lanes compute the same values in both
+    packages and on any mesh)."""
+    (a, b) = rows
+    n = max(0, min(b, live) - a)
+    if n == b - a:
+        return move(x[lo + a:lo + b])
+    dead = move(x[lo:lo + 1]).expand((b - a - n,) + tuple(x.shape[1:]))
+    if n == 0:
+        return dead.contiguous()
+    return torch.cat([move(x[lo + a:lo + a + n]), dead])
 
 
 def map_batch(batch: ReportBatch, fn) -> ReportBatch:
@@ -362,18 +424,22 @@ class HostReportStore:
         lo = i * self.chunk_size
         return (lo, min(lo + self.chunk_size, self.num_reports))
 
-    def host_slice(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        """Chunk i of a per-report host tensor, padded to chunk_size with
-        dead lanes (the chunk's first row repeated)."""
+    def host_slice(self, x: torch.Tensor, i: int,
+                   rows: Optional[tuple] = None) -> torch.Tensor:
+        """Rows `rows` (by default all chunk_size) of chunk i of a
+        per-report host tensor, padded with dead lanes (the chunk's
+        first row repeated)."""
         (lo, hi) = self.chunk_bounds(i)
-        return _pad_rows(x[lo:hi], self.chunk_size)
+        return _tile(x, lo, hi - lo, rows or (0, self.chunk_size))
 
-    def device_chunk(self, i: int, device) -> tuple:
-        """Chunk i on `device`, padded to chunk_size with dead lanes
-        there: (ReportBatch, live mask (chunk_size,) bool).  The copies
-        are `non_blocking` (from pinned memory they do not wait for the
-        host), on the current stream."""
+    def device_chunk(self, i: int, device,
+                     rows: Optional[tuple] = None) -> tuple:
+        """Rows `rows` = (a, b) (by default all chunk_size) of chunk i
+        on `device`, padded with dead lanes there: (ReportBatch, live
+        mask (b - a,) bool).  The copies are `non_blocking` (from pinned
+        memory they do not wait for the host), on the current stream."""
         (lo, hi) = self.chunk_bounds(i)
+        rows = rows or (0, self.chunk_size)
         a = self.arrays
         batch = map_batch(
             ReportBatch(
@@ -384,10 +450,9 @@ class HostReportStore:
                 keys=a["keys"], leader_proofs=a["leader_proofs"],
                 helper_seeds=a["helper_seeds"],
                 leader_seeds=a["leader_seeds"], peer_parts=a["peer_parts"]),
-            lambda x: _pad_rows(x[lo:hi].to(device, non_blocking=True),
-                                self.chunk_size))
-        live = np.zeros(self.chunk_size, bool)
-        live[:hi - lo] = True
+            lambda x: _tile(x, lo, hi - lo, rows,
+                            lambda t: t.to(device, non_blocking=True)))
+        live = np.arange(*rows) < hi - lo
         return (batch, live)
 
     def _tensors(self) -> list:
@@ -426,12 +491,16 @@ class ChunkedIncrementalRunner:
     sampling fired in some round (their carry is garbage from then on;
     they are spliced through the scalar layer every round, from
     `reports`).  `valid` (R,) bool: lanes left out of every aggregate
-    without a recompute (e.g. the shard's `ok`)."""
+    without a recompute (e.g. the shard's `ok`).  Both are global under
+    a mesh, on every rank: each rank folds every chunk's gathered
+    masks.  `tile` is this rank's rows [a, b) of every chunk padded to
+    the shard multiple (all chunk_size rows without a mesh)."""
 
     def __init__(self, bm: BatchedMastic, verify_key: bytes, ctx: bytes,
                  store: HostReportStore, device="cuda",
                  valid: Optional[torch.Tensor] = None,
-                 reports: Optional[Sequence] = None, width: int = 8):
+                 reports: Optional[Sequence] = None, width: int = 8,
+                 mesh=None):
         device = resolve_device(device)
         self.bm = bm
         self.verify_key = verify_key
@@ -446,24 +515,61 @@ class ChunkedIncrementalRunner:
         self.fallback = np.zeros(self.num_reports, bool)
         self.width = max(4, width)
         self.max_width = self.width
-        check_envelope(bm, store.chunk_size, self.width, self.num_reports,
-                       device)
+        self.mesh = mesh
+        per = self._device_rows() // self._report_shards()
+        rank = mesh.rank if mesh is not None else 0
+        self.tile = (rank * per, (rank + 1) * per)
+        self._check_envelope(self.width)
         self.engine = IncrementalMastic(bm, self.width)
         self.streams = CopyStreams(device)
         self.chunks = [self._init_chunk(i) for i in range(store.num_chunks)]
         self.layouts: list = []
 
+    # -- the mesh -----------------------------------------------------
+
+    def _report_shards(self) -> int:
+        """The ranks every chunk spreads over (1 without a mesh)."""
+        return self.mesh.shape["reports"] if self.mesh is not None else 1
+
+    def _device_rows(self) -> int:
+        """Rows of one chunk's tile over all ranks: chunk_size padded to
+        the shard multiple; the dead lanes stay out of acceptance,
+        aggregation and `fallback`, as the tail chunk's do."""
+        n = self._report_shards()
+        return -(-self.store.chunk_size // n) * n
+
+    def _budgets(self) -> tuple:
+        """(device, host) budgets agreed over the ranks: the smallest one
+        set (> 0) wins, so that every rank refuses or degrades alike."""
+        unset = 1 << 62
+        got = agree_min(self.mesh, [b if b > 0 else unset for b in
+                                    (_device_budget(self.device),
+                                     _host_budget())])
+        return tuple(0 if b == unset else b for b in got)
+
+    def _check_envelope(self, width: int) -> dict:
+        return check_envelope(self.bm, self.store.chunk_size, width,
+                              self.num_reports, self.device,
+                              self._report_shards(), self._budgets())
+
+    def _retile(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's tile of a chunk's full host state (chunk_size
+        rows, the dead lanes computed from the chunk's first row)."""
+        return _host(_tile(x, 0, self.store.chunk_size, self.tile),
+                     self.pin)
+
     def _init_chunk(self, i: int) -> _ChunkState:
-        """Chunk i's first carries and round keys: only the nonces go to
-        the card, for the key schedules, and the keys come back."""
+        """Chunk i's first carries and round keys, for this rank's tile:
+        only the nonces go to the card, for the key schedules, and the
+        keys come back."""
         store = self.store
-        nonces = store.host_slice(store.arrays["nonces"], i)
-        keys = store.host_slice(store.arrays["keys"], i)
+        nonces = store.host_slice(store.arrays["nonces"], i, self.tile)
+        keys = store.host_slice(store.arrays["keys"], i, self.tile)
         (ext_rk, conv_rk) = self.bm.vidpf.roundkeys(
             self.ctx, nonces.to(self.device))
+        rows = self.tile[1] - self.tile[0]
         carries = [Carry(*(_host(x, self.pin) for x in
-                           self.engine.init_carry(store.chunk_size,
-                                                  keys[:, a], a)))
+                           self.engine.init_carry(rows, keys[:, a], a)))
                    for a in range(2)]
         return _ChunkState(carries=carries, ext_rk=_host(ext_rk, self.pin),
                            conv_rk=_host(conv_rk, self.pin))
@@ -476,8 +582,7 @@ class ChunkedIncrementalRunner:
     def _grow(self, width: int) -> None:
         """Pad every chunk's carries to `width`, one carry at a time, so
         that only one carry's old and new copies coexist."""
-        check_envelope(self.bm, self.store.chunk_size, width,
-                       self.num_reports, self.device)
+        self._check_envelope(width)
         for cs in self.chunks:
             for a in range(2):
                 c = cs.carries[a]
@@ -492,47 +597,56 @@ class ChunkedIncrementalRunner:
         self._set_width(width)
 
     def _resident_dev_bytes(self) -> int:
-        return self.memory_accounting()["device_bytes_per_chunk"]
+        """One chunk's resident bytes over all ranks (this rank's tile
+        scaled to the padded chunk)."""
+        return (self.memory_accounting()["device_bytes_per_chunk"]
+                * self._report_shards())
 
-    def _pipeline_mode(self, plan: RoundPlan) -> tuple:
+    def _pipeline_mode(self, plan: RoundPlan, budget: int) -> tuple:
         """(mode, fallback reason): the round runs pipelined, or serial
-        with the reason named in the metrics."""
+        with the reason named in the metrics (agreed over the ranks by
+        `ChunkedRound`)."""
         (mode, reason) = pipeline_mode(self.store.num_chunks)
-        budget = _device_budget(self.device)
         if mode == "pipelined" and budget > 0:
             peak = round_peak_bytes(
-                self.bm, plan.width, len(plan.out_idx),
-                self.store.chunk_size, self._resident_dev_bytes(),
-                chunks_in_flight=PIPELINE_CHUNKS_IN_FLIGHT)
+                self.bm, plan.width, len(plan.out_idx), self._device_rows(),
+                self._resident_dev_bytes(),
+                chunks_in_flight=PIPELINE_CHUNKS_IN_FLIGHT,
+                n_device_shards=self._report_shards())
             if peak > budget:
                 return ("serial", "device-budget")
         return (mode, reason)
 
     def round(self, agg_param, metrics_out: Optional[list] = None) -> list:
         """One round over every chunk on the executor of
-        `drivers/pipeline.py`.  Staging chunk i uploads its tile, both
-        carries, its round keys and its pre-round mask, then dispatches
-        both aggregators' tree step, the level-0 weight check, the
-        accept combine (the live, fallback and valid lanes folded in)
-        and the masked aggregates, and downloads the new carries into
-        the chunk's host buffers.  Collecting it waits once and folds
-        its aggregate shares on the host.  After every chunk, the scalar
-        splice of the fallback lanes, as in the resident runner.
-        Returns one decoded aggregate per prefix."""
+        `drivers/pipeline.py`.  Staging chunk i uploads this rank's tile
+        of it, both carries, its round keys and its pre-round mask, then
+        dispatches both aggregators' tree step, the level-0 weight
+        check, the accept combine (the live, fallback and valid lanes
+        folded in) and the masked aggregates, and downloads the new
+        carries into the tile's host buffers.  Collecting it waits once,
+        exchanges its shares and masks over the mesh and folds them on
+        the host.  After every chunk, the scalar splice of the fallback
+        lanes, as in the resident runner.  Returns one decoded aggregate
+        per prefix."""
         (level, prefixes, do_weight_check) = agg_param
         bm = self.bm
         store = self.store
         chunk_size = store.chunk_size
         num = self.num_reports
+        (a, b) = self.tile
+        shards = self._report_shards()
         plan = self._plan(prefixes, level)
-        check_round_peak(bm, plan.width, len(plan.out_idx), chunk_size,
-                         self._resident_dev_bytes(), level, self.device)
+        (budget, _) = self._budgets()
+        check_round_peak(bm, plan.width, len(plan.out_idx),
+                         self._device_rows(), self._resident_dev_bytes(),
+                         level, self.device, shards, budget)
         rnd = round_inputs(plan, self.device)
         rows = len(prefixes) * (1 + bm.m.valid.OUTPUT_LEN)
         cr = ChunkedRound(self.streams, [store.chunk_bounds(i) for i in
                                          range(store.num_chunks)],
-                          *self._pipeline_mode(plan), rows,
-                          bm.m.field.MODULUS)
+                          *self._pipeline_mode(plan, budget), rows, bm.spec,
+                          self.mesh)
         accept_all = np.zeros(num, bool)
         # Per-check masks over every chunk, for the rejection attribution.
         eval_ok_all = np.zeros(num, bool)
@@ -544,13 +658,17 @@ class ChunkedIncrementalRunner:
             (lo, hi) = store.chunk_bounds(i)
             xfer = cr.transfer(i)
             t0 = time.perf_counter()
-            # The lanes that may reach the aggregates, known before the
-            # round: live, valid and not yet fallen back.  This round's
-            # ok and checks fold in on the card.
-            keep_pre = np.zeros(chunk_size, bool)
-            keep_pre[:hi - lo] = self.valid[lo:hi] & ~self.fallback[lo:hi]
+            # The lanes of this rank's tile that may reach the
+            # aggregates, known before the round: live, valid and not
+            # yet fallen back.  This round's ok and checks fold in on
+            # the card.
+            live = max(0, min(b, hi - lo) - a)
+            keep_pre = np.zeros(b - a, bool)
+            keep_pre[:live] = (self.valid[lo + a:lo + a + live]
+                               & ~self.fallback[lo + a:lo + a + live])
             with xfer.upload():
-                (batch, _live) = store.device_chunk(i, self.device)
+                (batch, _live) = store.device_chunk(i, self.device,
+                                                    self.tile)
                 carries = tuple(Carry(*map(xfer.to_device, c))
                                 for c in cs.carries)
                 (ext_rk, conv_rk) = (xfer.to_device(cs.ext_rk),
@@ -571,39 +689,39 @@ class ChunkedIncrementalRunner:
                 checks.update(wc_checks)
                 ok = ok & wc_ok
             keep = all_checks(checks) & ok & keep_dev
-            aggs = (bm.aggregate(out0, keep), bm.aggregate(out1, keep))
+            shares = torch.stack([bm.aggregate(out0, keep),
+                                  bm.aggregate(out1, keep)])[:, :rows]
             names = sorted(checks)
+            masks = torch.stack([keep, ok] + [checks[k] for k in names],
+                                dim=1)
             host = xfer.download(
                 [(h, d) for (hc, dc) in zip(cs.carries, (c0, c1))
                  for (h, d) in zip(hc, dc)]
-                + [(None, t) for t in (keep, ok) + aggs]
-                + [(None, checks[k]) for k in names])
+                + [(None, shares), (None, masks)])
             # Every device tensor of the chunk stays referenced until
             # collect() has waited for the downloads.
-            handle = {"host": host[8:], "names": names,
+            handle = {"shares": host[8], "masks": host[9], "names": names,
                       "device": (batch, carries, c0, c1, out0, out1,
-                                 keep_dev, keep, ok, aggs, checks)}
+                                 keep_dev, keep, ok, shares, masks,
+                                 checks)}
             return (handle, {"upload_ms": _ms(t0, t_up),
                              "dispatch_ms": _ms(t_up, time.perf_counter())})
 
         def collect(i: int, handle: dict) -> dict:
             (lo, hi) = store.chunk_bounds(i)
-            n = hi - lo
 
-            def fold(arrays: list) -> None:
-                (keep, ok, agg0, agg1, *masks) = arrays
-                checks = dict(zip(handle["names"], masks))
-                self.fallback[lo:hi] |= ~ok[:n] & self.valid[lo:hi]
-                eval_ok_all[lo:hi] = checks["eval_proof"][:n]
+            def fold(masks: np.ndarray) -> None:
+                (keep, ok, *per_check) = masks.T
+                checks = dict(zip(handle["names"], per_check))
+                self.fallback[lo:hi] |= ~ok & self.valid[lo:hi]
+                eval_ok_all[lo:hi] = checks["eval_proof"]
                 if do_weight_check:
-                    wc_ok_all[lo:hi] = checks["weight_check"][:n]
+                    wc_ok_all[lo:hi] = checks["weight_check"]
                 if "joint_rand" in checks:
                     if jr_ok_all[0] is None:
                         jr_ok_all[0] = np.zeros(num, bool)
-                    jr_ok_all[0][lo:hi] = checks["joint_rand"][:n]
-                accept_all[lo:hi] = keep[:n]
-                cr.fold_shares([bm.agg_share_to_host(
-                    torch.from_numpy(arr[:rows])) for arr in (agg0, agg1)])
+                    jr_ok_all[0][lo:hi] = checks["joint_rand"]
+                accept_all[lo:hi] = keep
 
             return cr.collect(i, handle, fold)
 
@@ -614,7 +732,12 @@ class ChunkedIncrementalRunner:
             rec["node_evals_per_sec"] = round(
                 rec["reports"] * evals_per_report / span_s, 1)
             rec["node_evals_per_sec_padded"] = round(
-                chunk_size * evals_per_report / span_s, 1)
+                self._device_rows() * evals_per_report / span_s, 1)
+            if self.mesh is not None:
+                rec["node_evals_per_sec_per_shard"] = round(
+                    rec["node_evals_per_sec"] / shards, 1)
+                rec["node_evals_per_sec_padded_per_shard"] = round(
+                    rec["node_evals_per_sec_padded"] / shards, 1)
         self.layouts.append(plan.layout_new)
 
         fallback = self.fallback
@@ -638,14 +761,16 @@ class ChunkedIncrementalRunner:
         metrics.extra["chunks"] = timeline
         metrics.extra["memory"] = self.memory_accounting()
         metrics.extra["pipeline"] = cr.pipeline_block()
+        if self.mesh is not None:
+            metrics.extra["mesh"] = cr.mesh_block(self._device_rows())
         if metrics_out is not None:
             metrics_out.append(metrics)
         return bm.m.unshard(cr.agg_shares)
 
     def memory_accounting(self) -> dict:
-        """The card's share (one chunk: both carries, the round keys and
-        the report tile) against the host's (every chunk and the
-        store)."""
+        """This rank's card (one chunk's tile: both carries, the round
+        keys and the report rows) against its host (every chunk's tile
+        and the whole store)."""
         cs = self.chunks[0]
         carry = _carry_bytes(cs.carries[0]) + _carry_bytes(cs.carries[1])
         rk = cs.ext_rk.nbytes + cs.conv_rk.nbytes
@@ -658,7 +783,8 @@ class ChunkedIncrementalRunner:
             "chunk_size": store.chunk_size,
             "num_chunks": store.num_chunks,
             "device_bytes_per_chunk":
-                carry + rk + store.row_bytes() * store.chunk_size,
+                carry + rk + store.row_bytes() * (self.tile[1]
+                                                  - self.tile[0]),
             "device_carry_bytes": carry,
             "host_bytes_total": host,
         }
@@ -666,21 +792,27 @@ class ChunkedIncrementalRunner:
     # -- checkpoint hooks (HeavyHittersRun.to_bytes / from_bytes) ----
 
     def state_arrays(self) -> dict:
+        """Every chunk's carries over all ranks (gathered under a mesh,
+        the padding dropped), under the JAX package's keys."""
         from ..convert import carry_to_arrays
 
-        data: dict = {"chunk_size": np.int64(self.store.chunk_size)}
+        size = self.store.chunk_size
+        data: dict = {"chunk_size": np.int64(size)}
         for (i, cs) in enumerate(self.chunks):
-            data.update(carry_to_arrays(cs.carries[0], f"k{i}_c0_"))
-            data.update(carry_to_arrays(cs.carries[1], f"k{i}_c1_"))
+            for a in range(2):
+                carry = tree_map(lambda t: gather_rows(self.mesh, t, size),
+                                 cs.carries[a])
+                data.update(carry_to_arrays(carry, f"k{i}_c{a}_"))
         return data
 
     def load_state(self, arrays, num_chunks: int) -> None:
+        """Adopt every chunk's carries from checkpoint arrays (all
+        chunk_size rows each), keeping this rank's tile."""
         from ..convert import carry_from_arrays
 
         for i in range(num_chunks):
             for a in range(2):
                 carry = carry_from_arrays(arrays, f"k{i}_c{a}_", "cpu")
-                self.chunks[i].carries[a] = Carry(
-                    *(_host(x, self.pin) for x in carry))
+                self.chunks[i].carries[a] = Carry(*map(self._retile, carry))
                 if self.pin:
                     _release_pinned()

@@ -50,8 +50,21 @@ runner's.
 `HeavyHittersRun.to_bytes` / `from_bytes` checkpoint a run between
 levels in the JAX package's v3 format (with the per-chunk carries of a
 chunked run), so that a checkpoint taken by either package resumes in
-the other.  The JAX package's AOT programs and mesh are not ported
-yet.
+the other.  The JAX package's AOT programs are not ported.
+
+Under a report mesh (`mesh=`, `parallel/mesh.py`: one rank a process,
+each handed the same arguments) both incremental runners keep only
+this rank's rows on its card; each round's aggregate shares are summed
+over the ranks and its verdict masks gathered, so every rank's
+`RoundMetrics`, pruning and result are the global ones, equal to the
+unsharded run's bit for bit.  The splice runs on every rank over the
+whole gathered `fallback` set: it is the unsharded code path on the
+same gathered data, so every rank reaches the same shares with no
+collective beyond the round's and no branch of its own (the lanes fire
+about 2^-32 per sampled element, so the repeated work is nil).  A
+checkpoint gathers the carries: every rank writes the same bytes as
+the unsharded run.  The from-root engine takes no mesh here (as in the
+JAX package); the attribute round does.
 
 Thresholds: a dict mapping prefix tuples to ints with a "default" key;
 a prefix takes the threshold of its longest strict ancestor present in
@@ -74,6 +87,9 @@ from ..backend.mastic import (BatchedMastic, Mastic, ReportBatch,
 from ..convert import carry_from_arrays, carry_to_arrays
 from ..metrics import (RoundMetrics, attribute_rejections,
                        count_round_bytes, count_round_ops)
+from ..parallel.mesh import (gather_round, gather_rows, mesh_block,
+                             place_reports, shard_incremental_runner,
+                             tree_map)
 from ..scalar.mastic import ReportRejected
 
 
@@ -179,7 +195,11 @@ class IncrementalRunner:
     round on, so they stay out of every later device aggregate and go
     through the scalar splice every round (`reports`).  `valid` (R,)
     bool: lanes to leave out of every aggregate without recomputing
-    them (e.g. the shard's `ok`)."""
+    them (e.g. the shard's `ok`).
+
+    `parallel.mesh.shard_incremental_runner` keeps this rank's rows of
+    the batch, `valid`, `fallback`, the round keys and the carries
+    (`shard`); `num_reports` stays global."""
 
     def __init__(self, bm: BatchedMastic, verify_key: bytes, ctx: bytes,
                  batch: ReportBatch, valid: Optional[torch.Tensor] = None,
@@ -189,6 +209,7 @@ class IncrementalRunner:
         self.ctx = ctx
         self.batch = batch
         self.reports = reports
+        self.mesh = None
         self.device = batch.nonces.device
         self.num_reports = int(batch.nonces.shape[0])
         self.valid = (torch.ones(self.num_reports, dtype=torch.bool,
@@ -204,6 +225,14 @@ class IncrementalRunner:
                                                batch.keys[:, a], a)
                         for a in range(2)]
         self.max_width = self.width
+
+    def shard(self, mesh) -> None:
+        """Keep this rank's rows of every per-report tensor."""
+        (self.batch, self.valid, self.fallback, self.ext_rk, self.conv_rk,
+         self.carries) = place_reports(mesh, (
+             self.batch, self.valid, self.fallback, self.ext_rk,
+             self.conv_rk, self.carries))
+        self.mesh = mesh
 
     def _grow(self, width: int) -> None:
         """Pad both carries to `width`, one after the other, so that
@@ -234,14 +263,25 @@ class IncrementalRunner:
 
     def restore(self, width: int, fallback: np.ndarray, carries: list,
                 layouts: list) -> None:
-        """Adopt a checkpoint's state: its width, `fallback` mask (only
-        lanes that are valid here), both carries and the per-depth
-        creation layouts."""
+        """Adopt a checkpoint's state (every report's): its width,
+        `fallback` mask (only lanes that are valid here), both carries
+        (this rank's rows of them) and the per-depth creation
+        layouts."""
         self._set_width(width)
-        self.fallback = torch.as_tensor(np.asarray(fallback, bool),
-                                        device=self.device) & self.valid
-        self.carries = list(carries)
+        fallback = torch.as_tensor(np.asarray(fallback, bool),
+                                   device=self.device)
+        (fallback, carries) = place_reports(self.mesh,
+                                            (fallback, list(carries)))
+        self.fallback = fallback & self.valid
+        self.carries = carries
         self.layouts = list(layouts)
+
+    def state(self) -> tuple:
+        """(fallback (R,) bool, [carry of every report] x 2) in host
+        memory, gathered over the ranks: what a checkpoint stores."""
+        fallback = gather_rows(self.mesh, self.fallback).numpy()
+        return (fallback, [tree_map(lambda t: gather_rows(self.mesh, t), c)
+                           for c in self.carries])
 
     def round_stage(self, agg_param) -> dict:
         """Dispatch one round without blocking: both aggregators' tree
@@ -286,12 +326,17 @@ class IncrementalRunner:
         (t0, t_plan, t_disp) = handle["t"]
         self.fallback |= ~handle["ok"] & self.valid
         rows = len(prefixes) * (1 + self.bm.m.valid.OUTPUT_LEN)
-        agg_shares = [self.bm.agg_share_to_host(a[:rows])
-                      for a in handle["agg"]]
-        fallback = self.fallback.cpu().numpy()
-        valid = self.valid.cpu().numpy()
-        checks = {k: v.cpu().numpy() for (k, v) in handle["checks"].items()}
-        accept = handle["accept"].cpu().numpy() & ~fallback & valid
+        names = sorted(handle["checks"])
+        # The round's exchange over the mesh (with no mesh, the
+        # downloads): shares summed over the ranks, masks gathered.
+        g = gather_round(
+            self.mesh, self.bm.spec, torch.stack(handle["agg"])[:, :rows],
+            torch.stack([handle["accept"], self.fallback, self.valid]
+                        + [handle["checks"][k] for k in names], dim=1))
+        agg_shares = [self.bm.agg_share_to_host(s) for s in g.shares]
+        (accept, fallback, valid, *per_check) = g.masks.numpy().T
+        checks = dict(zip(names, per_check))
+        accept = accept & ~fallback & valid
         t_wait = time.perf_counter()
 
         num = self.num_reports
@@ -319,6 +364,9 @@ class IncrementalRunner:
             "plan_upload_ms": _ms(t0, t_plan),
             "dispatch_ms": _ms(t_plan, t_disp),
             "compute_wait_ms": _ms(t_disp, t_wait)}
+        if self.mesh is not None:
+            metrics.extra["mesh"] = mesh_block(self.mesh, num, g.share_bytes,
+                                               [g.skew_ms])
         if metrics_out is not None:
             metrics_out.append(metrics)
         return self.bm.m.unshard(agg_shares)
@@ -457,14 +505,16 @@ class HeavyHittersRun:
     takes the chunked runner.  `to_bytes()` serialises the run between
     levels (the collector state, the carries and the `fallback` mask);
     `from_bytes()` restores a run, over the same reports, that
-    continues bit-identically."""
+    continues bit-identically.  With `mesh` (a `parallel.ReportMesh`)
+    every rank makes the same call and the incremental runner keeps
+    this rank's rows; the from-root engine takes no mesh."""
 
     def __init__(self, mastic: Mastic, ctx: bytes, thresholds: dict,
                  verify_key: bytes, batch: Optional[ReportBatch] = None,
                  valid: Optional[torch.Tensor] = None, device="cuda",
                  incremental: bool = True,
                  reports: Optional[Sequence] = None,
-                 chunk_size: Optional[int] = None, store=None):
+                 chunk_size: Optional[int] = None, store=None, mesh=None):
         from .chunked import ChunkedIncrementalRunner, HostReportStore
 
         dev = resolve_device(device)
@@ -480,6 +530,11 @@ class HeavyHittersRun:
                 and store.chunk_size != chunk_size:
             raise ValueError(f"chunk_size={chunk_size}, store has "
                              f"{store.chunk_size}")
+        if mesh is not None and not incremental and chunk_size is None \
+                and store is None:
+            raise ValueError(
+                "mesh sharding requires the incremental runner "
+                "(incremental=True or a chunk_size/store)")
         self.mastic = mastic
         self.ctx = ctx
         self.thresholds = thresholds
@@ -494,7 +549,7 @@ class HeavyHittersRun:
             self.num_reports = store.num_reports
             self.runner = ChunkedIncrementalRunner(
                 self.bm, verify_key, ctx, store, dev, valid=valid,
-                reports=reports)
+                reports=reports, mesh=mesh)
         else:
             self.store = None
             self.batch = batch
@@ -502,6 +557,8 @@ class HeavyHittersRun:
             self.runner = (IncrementalRunner(self.bm, verify_key, ctx,
                                              batch, valid, reports=reports)
                            if incremental else None)
+            if mesh is not None:
+                shard_incremental_runner(self.runner, mesh)
         self.metrics: list = []
         self.level = 0
         self.prefixes: list = [(False,), (True,)]
@@ -590,7 +647,9 @@ class HeavyHittersRun:
         """Serialise the run between levels (the collector state, the
         carries and the fallback mask) in the JAX package's v3 npz
         format: a chunked run writes its chunk_size into `meta` and each
-        chunk's carries as `k{i}_c{a}_*`."""
+        chunk's carries as `k{i}_c{a}_*`.  Under a mesh every rank
+        gathers the carries and returns the same bytes, those of the
+        unsharded run (every rank must call it)."""
         num_layouts = (len(self.runner.layouts)
                        if self.runner is not None else 0)
         chunk_size = self.store.chunk_size if self.store is not None else 0
@@ -617,10 +676,11 @@ class HeavyHittersRun:
             data["fallback"] = self.runner.fallback.copy()
             data.update(self.runner.state_arrays())
         elif self.runner is not None:
+            (fallback, carries) = self.runner.state()
             data["width"] = np.int64(self.runner.width)
-            data["fallback"] = self.runner.fallback.cpu().numpy()
-            data.update(carry_to_arrays(self.runner.carries[0], "c0_"))
-            data.update(carry_to_arrays(self.runner.carries[1], "c1_"))
+            data["fallback"] = fallback
+            data.update(carry_to_arrays(carries[0], "c0_"))
+            data.update(carry_to_arrays(carries[1], "c1_"))
         buf = io.BytesIO()
         np.savez(buf, **data)
         return buf.getvalue()
@@ -630,16 +690,15 @@ class HeavyHittersRun:
                    verify_key: bytes, batch: Optional[ReportBatch],
                    data: bytes, valid: Optional[torch.Tensor] = None,
                    device="cuda", reports: Optional[Sequence] = None,
-                   store=None) -> "HeavyHittersRun":
+                   store=None, mesh=None) -> "HeavyHittersRun":
         """Restore a checkpointed run over the same reports (the batch,
         or the scalar reports it was marshalled from; a chunked run may
         pass its `store` instead).  A chunked checkpoint restores a
         chunked run, with the envelope cleared again at its width.
-        Refuses a checkpoint of another instantiation, report count,
-        chunk size, verify key, ctx or thresholds, and a store for a
-        resident checkpoint."""
-        from .chunked import check_envelope
-
+        Under `mesh` each rank keeps its rows of the checkpoint's
+        carries.  Refuses a checkpoint of another instantiation, report
+        count, chunk size, verify key, ctx or thresholds, and a store
+        for a resident checkpoint."""
         arrays = np.load(io.BytesIO(data), allow_pickle=False)
         meta = [int(x) for x in arrays["meta"]]
         if meta[0] != _CKPT_VERSION:
@@ -683,7 +742,7 @@ class HeavyHittersRun:
                              f"lacks the carries of its {num_chunks} chunks")
         run = cls(mastic, ctx, thresholds, verify_key, batch, valid, device,
                   bool(incremental), reports,
-                  chunk_size=chunk_size or None, store=store)
+                  chunk_size=chunk_size or None, store=store, mesh=mesh)
         run.level = level
         run.done = bool(done)
         run.prefixes = _paths_from_array(arrays["prefixes"])
@@ -704,8 +763,7 @@ class HeavyHittersRun:
             if width != runner.width:
                 # A checkpoint at a grown width clears the envelope again
                 # on the restoring host and card.
-                check_envelope(runner.bm, runner.store.chunk_size, width,
-                               runner.num_reports, runner.device)
+                runner._check_envelope(width)
                 runner._set_width(width)
             runner.fallback = np.asarray(arrays["fallback"], bool) \
                 & runner.valid
@@ -727,15 +785,16 @@ def compute_heavy_hitters(mastic: Mastic, ctx: bytes, thresholds: dict,
                           device="cuda", incremental: bool = True,
                           reports: Optional[Sequence] = None,
                           chunk_size: Optional[int] = None,
-                          store=None) -> list:
+                          store=None, mesh=None) -> list:
     """The full collector loop over a sharded report batch (or the
     scalar `reports`, marshalled).  With `incremental=False` every level
     is one round from the root: the differential reference of the
     incremental runner.  With `chunk_size` or `store` the chunked
-    runner streams the reports through the card."""
+    runner streams the reports through the card.  With `mesh` every
+    rank runs this call over its rows of the reports."""
     run = HeavyHittersRun(mastic, ctx, thresholds, verify_key, batch,
                           valid, device, incremental, reports,
-                          chunk_size=chunk_size, store=store)
+                          chunk_size=chunk_size, store=store, mesh=mesh)
     while run.step():
         pass
     return run.result()

@@ -20,8 +20,12 @@ runs with no streams.  Each chunk's phases (host milliseconds of
 upload, dispatch, wait, download, host fold) land in a timeline, so
 the overlap is a measured number (`overlap_efficiency`), not a claim.
 `ChunkedRound` is the skeleton both chunked rounds run on: the
-transfers, the collect's one wait, the fold of the aggregate shares,
-the timeline and the `pipeline` metrics block.
+transfers, the collect's one wait, the exchange of each chunk's
+aggregate shares and masks over a report mesh (`parallel/mesh.py`; the
+identity without one, so that there is one code path), the fold of the
+summed shares, the timeline and the `pipeline` and `mesh` metrics
+blocks.  Under a mesh every rank runs the same chunks over its own rows
+of each, and the round's mode is agreed over the ranks.
 
 The JAX module's `paused_gc` (a workaround for a garbage collection
 during JAX tracing), `ProgramCache` and `to_struct` (compiled-program
@@ -228,21 +232,37 @@ class ChunkedRound:
     """What the two chunked rounds (the incremental runner's and the
     attribute round's) share: a `ChunkTransfer` per chunk, the collect
     that waits once before the host reads the chunk's downloads, the
-    fold of each chunk's aggregate shares mod p, the timeline records
-    and the `pipeline` metrics block.  `bounds` holds each chunk's
-    (lo, hi) report range; `rows` is the length of an aggregate share."""
+    mesh's exchange of the chunk's aggregate shares and verdict masks
+    (`parallel.mesh.gather_round`; with no mesh, the downloads as they
+    are), the fold of the summed shares mod p, the timeline records and
+    the `pipeline` (and under a mesh the `mesh`) metrics block.
+    `bounds` holds each chunk's (lo, hi) report range; `rows` is the
+    length of an aggregate share, `spec` its field.  The mode is agreed
+    over the ranks: if any rank would run serially, all do, for the
+    reason of the highest code in `MODES`."""
+
+    # (mode, fallback reason) in the order the ranks agree on: the
+    # largest index any rank reads wins.
+    MODES = (("pipelined", None), ("serial", "single-chunk"),
+             ("serial", "lever-off"), ("serial", "device-budget"))
 
     def __init__(self, streams: CopyStreams, bounds: Sequence[tuple],
-                 mode: str, fallback: Optional[str], rows: int,
-                 modulus: int):
+                 mode: str, fallback: Optional[str], rows: int, spec,
+                 mesh=None):
+        from ..parallel.mesh import agree_max
+
         self.streams = streams
         self.bounds = list(bounds)
-        (self.mode, self.fallback) = (mode, fallback)
-        self.modulus = modulus
+        (code,) = agree_max(mesh, [self.MODES.index((mode, fallback))])
+        (self.mode, self.fallback) = self.MODES[code]
+        self.spec = spec
+        self.mesh = mesh
         self.agg_shares = [[0] * rows for _ in range(2)]
         self.xfers: dict = {}
         self.timeline: list = []
         self.wall_ms = 0.0
+        self.skews: dict = {}
+        self.share_bytes = 0
 
     def transfer(self, i: int) -> ChunkTransfer:
         """Chunk i's transfer, kept for its device times."""
@@ -250,25 +270,40 @@ class ChunkedRound:
         return self.xfers[i]
 
     def collect(self, i: int, handle: dict, fold: Callable) -> dict:
-        """The body of a `collect`: chunk i's one blocking wait, then
-        its device tensors (`handle["device"]`, referenced until now)
-        dropped and its downloads (`handle["host"]`) handed to
-        `fold(arrays)` as numpy arrays.  Returns the chunk's phases."""
+        """The body of a `collect`: chunk i's one blocking wait, then its
+        device tensors (`handle["device"]`, referenced until now)
+        dropped, the exchange of its downloaded shares (`handle
+        ["shares"]`, (2, rows, n) limbs) and masks (`handle["masks"]`,
+        (tile rows, k) bool) over the mesh, the summed shares folded,
+        and the chunk's masks over its live reports (numpy (hi - lo, k))
+        handed to `fold`.  Returns the chunk's phases: the JAX package's
+        (`download_ms` is the wait-to-host interval) and `gather_ms`,
+        the exchange (no mesh: next to nothing)."""
+        from ..parallel.mesh import gather_round
+
         t0 = time.perf_counter()
         self.xfers[i].wait()
         t_wait = time.perf_counter()
         del handle["device"]
-        arrays = [t.numpy() for t in handle["host"]]
+        (shares, masks) = (handle["shares"].cpu(), handle["masks"].cpu())
         t_down = time.perf_counter()
-        fold(arrays)
+        (lo, hi) = self.bounds[i]
+        g = gather_round(self.mesh, self.spec, shares, masks, hi - lo)
+        t_gather = time.perf_counter()
+        self.skews[i] = g.skew_ms
+        self.share_bytes += g.share_bytes
+        self.fold_shares([[self.spec.limbs_to_int(row) for row in share]
+                          for share in g.shares.numpy()])
+        fold(g.masks.numpy())
         return {"compute_wait_ms": (t_wait - t0) * 1e3,
                 "download_ms": (t_down - t_wait) * 1e3,
-                "host_ms": (time.perf_counter() - t_down) * 1e3}
+                "gather_ms": (t_gather - t_down) * 1e3,
+                "host_ms": (time.perf_counter() - t_gather) * 1e3}
 
     def fold_shares(self, shares: Sequence[list]) -> None:
         """Add one chunk's aggregate shares (a list of field elements
         per aggregator) into the round's, mod p."""
-        p = self.modulus
+        p = self.spec.modulus
         self.agg_shares = [[(x + y) % p for (x, y) in zip(total, share)]
                            for (total, share) in zip(self.agg_shares,
                                                      shares)]
@@ -287,6 +322,8 @@ class ChunkedRound:
             device_ms = self.xfers[rec["chunk"]].device_ms()
             if device_ms is not None:
                 rec["device_ms"] = device_ms
+            if self.mesh is not None:
+                rec["shard_wait_skew_ms"] = self.skews[rec["chunk"]]
         (self.timeline, self.wall_ms) = (timeline, wall_ms)
         return timeline
 
@@ -316,3 +353,13 @@ class ChunkedRound:
                 overlap_efficiency([{"phases": d} for d in on_card],
                                    self.wall_ms) if on_card else None),
         }
+
+    def mesh_block(self, device_rows: int) -> dict:
+        """The round's `extra["mesh"]` (JAX keys), after `run`: chunks
+        of `device_rows` rows (padded to the shard multiple) split over
+        the ranks, the bytes of the shares every rank received, and the
+        spread of the ranks' arrival at each chunk's exchange."""
+        from ..parallel.mesh import mesh_block
+
+        return mesh_block(self.mesh, device_rows, self.share_bytes,
+                          list(self.skews.values()))

@@ -21,8 +21,12 @@ because the caller's `valid` was False: never sharded correctly, so
 not recomputed), "rejected_fallback_by" (the checks the recomputed
 reports failed), the scalar splice's time ("splice_ms"), on the
 incremental rounds the plan, dispatch and wait times ("phases"), and
-"round_wall_ms".  The JAX package's "artifacts",
-"pipeline" and "mesh" blocks have no counterpart yet.
+"round_wall_ms".  The chunked rounds add the JAX package's "chunks",
+"memory" and "pipeline" blocks (`drivers/pipeline.py`), and a run on a
+report mesh its "mesh" block (`parallel/mesh.py::mesh_block`); the
+JAX package's "artifacts" block has no counterpart (the port compiles
+no programs).  Under a mesh every counter is global: each round's
+masks are gathered over the ranks before they are counted.
 """
 
 from dataclasses import asdict, dataclass, field

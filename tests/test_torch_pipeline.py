@@ -3,11 +3,13 @@ pipeline.py`) against the JAX package's contract: the order of stages
 and collects, the timeline records, the error path, the overlap
 arithmetic, and the transfers' CPU path.  No JAX program runs here."""
 
+import numpy as np
 import pytest
 import torch
 
 from mastic_tpu.drivers import pipeline as jpipeline
 from mastic_tpu_torch.drivers import pipeline
+from mastic_tpu_torch.ops.field import FIELD64
 
 RECORD_KEYS = {"chunk", "stage_start_ms", "stage_end_ms", "phases",
                "host_syncs", "collect_start_ms", "collect_end_ms"}
@@ -137,35 +139,41 @@ def test_pipeline_mode_names_the_degrade(monkeypatch, lever, num, want):
 def test_chunked_round_folds_and_records(pipelined):
     """The shared round skeleton on the CPU: each collect reads its
     chunk's downloads after dropping its device tensors, the shares
-    fold mod p, every timeline record carries its report count and wall
-    time, and the pipeline block has the keys of the JAX runner's
-    (minus `aot`) plus the card's own two, None here."""
-    p = 97
+    fold mod p, the masks reach `fold` cut to the chunk's live reports,
+    every timeline record carries its report count and wall time, and
+    the pipeline block has the keys of the JAX runner's (minus `aot`)
+    plus the card's own two, None here."""
+    spec = FIELD64
     bounds = [(0, 4), (4, 8), (8, 10)]
     cr = pipeline.ChunkedRound(pipeline.CopyStreams(torch.device("cpu")),
                                bounds, *(("pipelined", None) if pipelined
                                          else ("serial", "lever-off")),
-                               rows=2, modulus=p)
+                               rows=2, spec=spec)
     seen = []
 
     def stage(i):
         xfer = cr.transfer(i)
-        share = torch.tensor([60 + i, 90])
-        handle = {"host": xfer.download([(None, share)]),
-                  "device": (share,)}
+        share = torch.tensor(np.stack([
+            np.stack([spec.int_to_limbs(v) for v in values])
+            for values in ([spec.modulus - 1 - i, 90], [1, 2])]))
+        masks = torch.arange(4)[:, None] % 2 == i % 2
+        (shares, masks) = xfer.download([(None, share), (None, masks)])
+        handle = {"shares": shares, "masks": masks, "device": (share,)}
         return (handle, {"upload_ms": 0.0})
 
     def collect(i, handle):
-        def fold(arrays):
+        def fold(masks):
             assert "device" not in handle
+            (lo, hi) = bounds[i]
+            assert masks.shape == (hi - lo, 1)
             seen.append(i)
-            cr.fold_shares([arrays[0].tolist(), [1, 2]])
 
         return cr.collect(i, handle, fold)
 
     timeline = cr.run(stage, collect)
     assert seen == [0, 1, 2]
-    assert cr.agg_shares == [[(60 + 61 + 62) % p, 90 * 3 % p], [3, 6]]
+    p = spec.modulus
+    assert cr.agg_shares == [[(3 * p - 6) % p, 90 * 3], [3, 6]]
     assert [rec["reports"] for rec in timeline] == [4, 4, 2]
     assert all(rec["wall_ms"] >= 0.0 and "device_ms" not in rec
                for rec in timeline)
