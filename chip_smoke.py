@@ -38,7 +38,7 @@
    attribute row's shape, fresh parent seeds drawn until a launch
    returns ok False (about 200 launches expected, at most 3000), and
    that launch held bit-exact against `level_step_plain`, ok included.
-3. Drives eleven phases, each with every launch counter set to 0 just
+3. Drives twelve phases, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
    runs (K1's binder sponge and K3 count Field128 launches apart).
    Every path hands its runs the scalar reports behind its batch
@@ -131,10 +131,35 @@
       phase e's attribute round over both ranks (each sharding its
       5000 reports), held as e is.  Every
       level against numpy; every kernel launched by every rank.
+   k. The party layer, after j: leader and helper as processes of
+      their own on the card, exchanging only the draft's wire bytes.
+      The clients' upload blobs are built from a sharded batch
+      (`wire_rows`; a lane whose shard fired is not uploaded), and on
+      a few lanes, tampered ones included, each blob must equal
+      `wire.encode_report` of the lane's scalar report.
+      k1: phase e's cell through `AggregationSession` over spawned
+      parties with `kill:party=helper:step=prep_done`: one weight-check
+      round at level 31 over the 64 attributes; one respawn, the accept
+      bitmap phase e's, every attribute's sum numpy's, the prep-share
+      and agg-share bytes count_round_bytes'.  k2: phase a's Count cell
+      over two `python -m mastic_tpu_torch.tools.party serve` processes
+      dialed by `ProcessCollector(connect=...)` (reliable channels,
+      plaintext), 16 levels from the root pruned at the threshold, one
+      conn_drop on the leader's link: every level's prefixes and counts
+      phase a's, at least one reconnect.  k3: phase c's Histogram
+      reports over spawned parties, one weight-check round at level 63
+      over the 16 attributes (joint rand through the leader's resolve
+      and the helper's confirm): every report accepted, the 16-bucket
+      aggregates numpy's.  Each party counts its launches and device
+      peak in its own process and writes them to its trace file
+      (MASTIC_TRACE_FILE, under build/parties/); each must have launched
+      K1 and K3.
 4. Prints the `kernels` JSON line (every kernel and instantiation; the
    Count rows' `launches_mesh` are rank 0's launches in the gloo
    resident run, its shard of its rows included, the MasticSum rows' in
-   the gloo attribute round, likewise), the
+   the gloo attribute round, likewise; `launches_parties` are each
+   party's launches in phase k's sub-phase of the row's instantiation,
+   Count k2, MasticSum k1, Field128 k3), the
    card, each path's figures, and last `{"ok": true, "device":
    {...}}`.
    Any failure exits non-zero before that line.
@@ -145,6 +170,7 @@ mastic_tpu_torch).
 
 import argparse
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -261,6 +287,12 @@ PATH_COUNTERS = {
     "count_chunked": ("keccak", "keccak_binder", "aes", "level"),
     "chunked_checkpoint": ("keccak", "keccak_binder", "level"),
 }
+# Phase k, the party layer: the lanes whose upload blobs are held
+# against the scalar encoder in k1, and where the party processes'
+# trace files (MASTIC_TRACE_FILE) and the network parties' port files
+# go.
+PARTY_LANES = 8
+PARTY_TRACES = pathlib.Path(__file__).resolve().parent / "build" / "parties"
 CTX = b"mastic chip smoke"
 LONG_CTX = bytes(range(150))
 
@@ -1353,16 +1385,13 @@ def sum_path(dev: torch.device, seed: int) -> dict:
             "shard_launches": shard_launches}
 
 
-def histogram_path(dev: torch.device, seed: int) -> dict:
-    """The Field128 path: MasticHistogram(64, 16, 4) over 16 planted
-    attribute strings, every level of the resident runner with the
-    frontier = the attributes' ancestors and the weight check (joint
-    rand confirmed) at level 0; every level's per-prefix 16-bucket
-    aggregate against numpy."""
+def histogram_inputs(dev: torch.device, seed: int) -> tuple:
+    """The Field128 path's reports: 16 planted 64-bit attribute
+    strings, each report one of them with a uniform bucket, sharded on
+    the card.  (attrs, alphas, buckets, mastic, bm, vk, meas, nonces,
+    rand, batch, shard_ok, shard_s)."""
     from mastic_tpu_torch.backend.mastic import (BatchedMastic,
                                                  MasticHistogram)
-    from mastic_tpu_torch.drivers.heavy_hitters import IncrementalRunner
-    from mastic_tpu_torch.ops import kernels
 
     (bits, length, _chunk) = HIST
     rng = np.random.default_rng(seed + 4)
@@ -1375,6 +1404,22 @@ def histogram_path(dev: torch.device, seed: int) -> dict:
     meas = [(tuple(bool(b) for b in alphas[r]), int(buckets[r]))
             for r in range(R)]
     (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+    return (attrs, alphas, buckets, mastic, bm, vk, meas, nonces, rand,
+            batch, shard_ok, shard_s)
+
+
+def histogram_path(dev: torch.device, seed: int) -> dict:
+    """The Field128 path: MasticHistogram(64, 16, 4) over 16 planted
+    attribute strings, every level of the resident runner with the
+    frontier = the attributes' ancestors and the weight check (joint
+    rand confirmed) at level 0; every level's per-prefix 16-bucket
+    aggregate against numpy."""
+    from mastic_tpu_torch.drivers.heavy_hitters import IncrementalRunner
+    from mastic_tpu_torch.ops import kernels
+
+    (bits, length, _chunk) = HIST
+    (attrs, alphas, buckets, mastic, bm, vk, meas, nonces, rand, batch,
+     shard_ok, shard_s) = histogram_inputs(dev, seed)
     shard_launches = dict(kernels.launches)
 
     runner = IncrementalRunner(bm, vk, CTX, batch, valid=shard_ok,
@@ -1669,7 +1714,8 @@ def attributes_path(dev: torch.device, seed: int) -> dict:
             "rejected_weight_check": m.rejected_weight_check,
             "xof_fallbacks": m.xof_fallbacks,
             "shard_rejected": int((~shard_ok).sum()),
-            "node_evals": m.node_evals}
+            "node_evals": m.node_evals,
+            "accept": np.asarray(handle["accept"], bool)}
 
 
 def attributes_splice(dev: torch.device, handoff: dict) -> dict:
@@ -2331,6 +2377,423 @@ def _print_launches(counts: dict, result: dict) -> None:
         for (name, n) in counts.items() if n))
 
 
+# -- phase k: the party layer -------------------------------------------
+
+def wire_rows(bm, batch, agg_id: int) -> np.ndarray:
+    """Each lane of a device ReportBatch as aggregator `agg_id`'s upload
+    blob in the draft's wire layout, (R, report size) uint8: nonce ‖
+    public share (packed ctrl bits, seeds, payloads, proofs) ‖ the input
+    share (VIDPF key, then the leader's proof share or the helper's
+    seed, and for joint-rand circuits the leader's seed and the peer's
+    part).  The clients' side of an upload, built from the batch
+    instead of one scalar shard a report."""
+    (m, spec) = (bm.m, bm.spec)
+    num = batch.nonces.shape[0]
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.cpu().numpy().reshape(num, -1)
+
+    cws = batch.cws
+    parts = [host(batch.nonces),
+             np.packbits(host(cws.ctrl), axis=1, bitorder="little"),
+             host(cws.seed), host(spec.plain_to_le_bytes(cws.w)),
+             host(cws.proof), host(batch.keys[:, agg_id])]
+    if agg_id == 0:
+        parts.append(host(spec.plain_to_le_bytes(batch.leader_proofs)))
+        if m.valid.JOINT_RAND_LEN > 0:
+            parts.append(host(batch.leader_seeds))
+    else:
+        parts.append(host(batch.helper_seeds))
+    if m.valid.JOINT_RAND_LEN > 0:
+        parts.append(host(batch.peer_parts[agg_id]))
+    return np.concatenate(parts, axis=1)
+
+
+def upload_bodies(mastic, bm, batch, valid: np.ndarray, reports,
+                  lanes: list) -> tuple:
+    """Both parties' upload bodies over the lanes whose client shard
+    succeeded (a client whose sampling fired shards again with fresh
+    randomness; those lanes are not uploaded), after checking the
+    helper: on `lanes` each party's row equals `wire.encode_report` of
+    the lane's scalar report (`ScalarReports`, tampered as the batch
+    is).  Returns (bodies, seconds to encode, seconds of the check)."""
+    from mastic_tpu_torch import wire
+    from mastic_tpu_torch.drivers.parties import upload_body
+
+    t0 = time.perf_counter()
+    rows = [wire_rows(bm, batch, agg_id) for agg_id in range(2)]
+    bodies = [upload_body([row.tobytes() for row in r[valid]])
+              for r in rows]
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in lanes:
+        (nonce, public_share, shares) = reports[r]
+        for agg_id in range(2):
+            want = wire.encode_report(mastic, agg_id, nonce, public_share,
+                                      shares[agg_id])
+            if rows[agg_id][r].tobytes() != want:
+                raise AssertionError(f"lane {r}: the batch's upload blob for "
+                                     f"aggregator {agg_id} differs from "
+                                     f"wire.encode_report of the lane's "
+                                     f"scalar report")
+    return (bodies, encode_s, time.perf_counter() - t0)
+
+
+def party_trace(path) -> dict:
+    """What the party processes wrote to their trace file: per party
+    its last shutdown step's launches and device peak, and the bytes of
+    its last prep-share blob."""
+    from mastic_tpu_torch.obs.trace import read_jsonl
+
+    out: dict = {}
+    for sp in read_jsonl(str(path)):
+        attrs = sp["attrs"]
+        if sp["name"] != "party_step":
+            continue
+        entry = out.setdefault(attrs["party"], {})
+        if attrs["step"] == "shutdown":
+            entry.update(launches=attrs["launches"],
+                         device_peak=attrs.get("device_peak"))
+        elif attrs["step"].startswith("prep done"):
+            entry["prep_bytes"] = attrs["bytes"]
+    for (party, entry) in out.items():
+        if "launches" not in entry:
+            raise AssertionError(f"the {party} wrote no shutdown step")
+    return out
+
+
+def _trace_to(path) -> None:
+    """Aim this process's tracer, and the party processes it starts
+    from now on, at `path` (MASTIC_TRACE_FILE)."""
+    import os
+
+    from mastic_tpu_torch.obs import trace as obs_trace
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    os.environ["MASTIC_TRACE_FILE"] = str(path)
+    obs_trace.configure()
+
+
+def _party_idle(name: str, parties: dict, counters: tuple) -> None:
+    for (party, entry) in parties.items():
+        idle = [c for c in counters if entry["launches"][c] == 0]
+        if idle:
+            raise AssertionError(f"phase {name}: the {party} launched no "
+                                 f"{idle}")
+
+
+def _check_bytes(name: str, metrics, parties: dict, shares: tuple) -> None:
+    """The round's prep-share bytes (what each party's trace says it
+    sent) and agg-share bytes against count_round_bytes' model."""
+    prep = sum(entry["prep_bytes"] for entry in parties.values())
+    if prep != metrics.bytes_prep_shares \
+            or sum(map(len, shares)) != metrics.bytes_agg_shares:
+        raise AssertionError(f"phase {name}: prep-share bytes {prep} and "
+                             f"agg-share bytes {sum(map(len, shares))} are "
+                             f"not the model's {metrics.bytes_prep_shares} "
+                             f"and {metrics.bytes_agg_shares}")
+
+
+def party_attributes(dev: torch.device, seed: int, phase_e: dict) -> dict:
+    """k1: phase e's attribute deployment through an AggregationSession
+    over spawned parties on the card, the helper killed after its prep
+    (the session respawns the pair, replays the upload and reruns the
+    round)."""
+    from mastic_tpu_torch.drivers.parties import AggregationSession
+
+    inputs = attribute_inputs(dev, seed)
+    (mastic, bm) = (inputs["mastic"], inputs["bm"])
+    valid = inputs["shard_ok"].cpu().numpy()
+    tampered = inputs["tampered"]
+    lanes = sorted(
+        [int(r) for r in inputs["cw_rows"] if valid[r]][:3]
+        + [int(r) for r in inputs["proof_rows"] if valid[r]][:3]
+        + np.flatnonzero(valid & ~tampered)[:PARTY_LANES - 6].tolist())
+    (bodies, encode_s, check_s) = upload_bodies(
+        mastic, bm, inputs["batch"], valid, inputs["reports"], lanes)
+    trace = PARTY_TRACES / "k1.jsonl"
+    _trace_to(trace)
+    t0 = time.perf_counter()
+    sess = AggregationSession(mastic, {"class": "MasticSum",
+                                       "args": [ATTR_BITS, SUM_MAX]},
+                              CTX, inputs["vk"], config=party_config(),
+                              faults_spec="kill:party=helper:step=prep_done",
+                              device=dev)
+    try:
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sess.coll.upload_encoded(bodies, int(valid.sum()))
+        upload_s = time.perf_counter() - t0
+        prefixes = tuple(inputs["path_of"][a] for a in inputs["asked"])
+        agg_param = (ATTR_BITS - 1, prefixes, True)
+        metrics: list = []
+        t0 = time.perf_counter()
+        (result, accept, shares) = sess.round(agg_param, metrics_out=metrics)
+        round_s = time.perf_counter() - t0
+        wire_bytes = sess.coll.wire_bytes()
+    finally:
+        sess.close()
+    if sess.counters["respawns"] != 1:
+        raise AssertionError(f"k1: {sess.counters['respawns']} respawns, "
+                             f"not 1")
+    if not np.array_equal(accept, ~tampered[valid]) \
+            or not np.array_equal(accept, phase_e["accept"][valid]):
+        raise AssertionError("k1: the accept bitmap is not phase e's (every "
+                             "report but the tampered ones)")
+    want = attribute_sums(inputs["asked"], inputs["path_of"],
+                          inputs["alphas"], inputs["weights"],
+                          valid & ~tampered)
+    if list(zip(inputs["asked"], result)) != want:
+        raise AssertionError("k1: per-attribute sums differ from numpy's")
+    parties = party_trace(trace)
+    _check_bytes("k1", metrics[0], parties, shares)
+    _party_idle("k1", parties, ("keccak", "keccak_binder", "level"))
+    return {"reports": int(valid.sum()), "lanes": len(lanes),
+            "encode_s": encode_s, "check_s": check_s, "spawn_s": spawn_s,
+            "upload_s": upload_s, "round_s": round_s, "wire": wire_bytes,
+            "parties": parties, "accepted": int(accept.sum()),
+            "counters": dict(sess.counters), "metrics": metrics[0]}
+
+
+def _serve_party(dev: torch.device, args: list) -> subprocess.Popen:
+    import os
+    import sys
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "mastic_tpu_torch.tools.party", "serve",
+         "--listen", "127.0.0.1:0", "--device", str(dev), "--once"] + args,
+        cwd=pathlib.Path(__file__).resolve().parent,
+        env={**os.environ, **party_config().child_env()})
+
+
+def _port_file(path, proc: subprocess.Popen) -> dict:
+    deadline = time.perf_counter() + 300
+    while not path.exists():
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            raise AssertionError(f"network party did not start (rc "
+                                 f"{proc.poll()})")
+        time.sleep(0.1)
+    return json.loads(path.read_text())
+
+
+def party_count(dev: torch.device, seed: int, phase_a: list) -> dict:
+    """k2: phase a's Count cell, walked from the root for its first
+    levels over two standalone network parties on the card (plaintext,
+    reliable channels), pruning as phase a does, with one connection
+    drop injected on the leader's link; every level equal to phase
+    a's."""
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
+    from mastic_tpu_torch.drivers.parties import ProcessCollector
+
+    (alphas, weights, _planted) = measurements(seed)
+    mastic = MasticCount(BITS)
+    bm = BatchedMastic(mastic)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 1, mastic.RAND_SIZE, R)
+    meas = [(tuple(bool(b) for b in alphas[r]), int(weights[r]))
+            for r in range(R)]
+    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+    valid = shard_ok.cpu().numpy()
+    (bodies, encode_s, check_s) = upload_bodies(
+        mastic, bm, batch, valid, ScalarReports(mastic, meas, nonces, rand),
+        [int(np.flatnonzero(valid)[0])])
+    trace = PARTY_TRACES / "k2.jsonl"
+    _trace_to(trace)
+    ports = [PARTY_TRACES / f"k2_{name}.json" for name in ("leader",
+                                                           "helper")]
+    for path in ports:
+        if path.exists():
+            path.unlink()
+    t0 = time.perf_counter()
+    procs = [_serve_party(dev, ["--peer-listen", "127.0.0.1:0",
+                                "--port-file", str(ports[0])]),
+             _serve_party(dev, ["--port-file", str(ports[1])])]
+    try:
+        (lp, hp) = (_port_file(ports[0], procs[0]),
+                    _port_file(ports[1], procs[1]))
+        coll = ProcessCollector(
+            mastic, {"class": "MasticCount", "args": [BITS]}, CTX, vk,
+            config=party_config(),
+            faults_spec="conn_drop:party=leader:step=agg_share:nth=2",
+            connect={"leader": ("127.0.0.1", lp["listen"]),
+                     "helper": ("127.0.0.1", hp["listen"]),
+                     "leader_peer": ("127.0.0.1", lp["peer_listen"])})
+        try:
+            spawn_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            coll.upload_encoded(bodies, int(valid.sum()))
+            upload_s = time.perf_counter() - t0
+            prefixes = ((False,), (True,))
+            metrics: list = []
+            t0 = time.perf_counter()
+            for (level, (want_prefixes, want)) in enumerate(phase_a):
+                (counts, accept, shares) = coll.round(
+                    (level, prefixes, level == 0), metrics_out=metrics)
+                if [tuple(map(bool, p)) for p in want_prefixes] \
+                        != list(prefixes) or counts != want:
+                    raise AssertionError(f"k2: level {level} differs from "
+                                         f"phase a's")
+                if not accept.all():
+                    raise AssertionError(f"k2: level {level} rejected "
+                                         f"{int((~accept).sum())} reports")
+                prefixes = tuple(p + (b,) for (p, c) in zip(prefixes, counts)
+                                 if c >= THRESHOLD for b in (False, True))
+            round_s = time.perf_counter() - t0
+            wire_bytes = coll.wire_bytes()
+            reliability = coll.reliability_counters()
+        finally:
+            coll.close()
+        rcs = [proc.wait(timeout=120) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"k2: the network parties exited {rcs}")
+    if reliability["reconnects"] < 1:
+        raise AssertionError("k2: the injected connection drop caused no "
+                             "reconnect")
+    parties = party_trace(trace)
+    _check_bytes("k2", metrics[-1], parties, shares)
+    _party_idle("k2", parties, ("keccak", "keccak_binder", "level"))
+    return {"reports": int(valid.sum()), "levels": len(phase_a),
+            "shard_s": shard_s, "encode_s": encode_s, "check_s": check_s,
+            "spawn_s": spawn_s, "upload_s": upload_s, "round_s": round_s,
+            "wire": wire_bytes, "parties": parties,
+            "reliability": reliability, "max_prefixes": max(
+                m.frontier_width for m in metrics)}
+
+
+def party_histogram(dev: torch.device, seed: int) -> dict:
+    """k3: phase c's MasticHistogram reports, one weight-checked round
+    from the root at the last level over the 16 planted attributes,
+    over spawned parties on the card: the joint-rand seeds through the
+    leader's resolve and the helper's confirm."""
+    from mastic_tpu_torch.drivers.parties import ProcessCollector
+
+    (bits, length, _chunk) = HIST
+    (attrs, alphas, buckets, mastic, bm, vk, meas, nonces, rand, batch,
+     shard_ok, shard_s) = histogram_inputs(dev, seed)
+    valid = shard_ok.cpu().numpy()
+    (bodies, encode_s, check_s) = upload_bodies(
+        mastic, bm, batch, valid, ScalarReports(mastic, meas, nonces, rand),
+        np.flatnonzero(valid)[:2].tolist())
+    trace = PARTY_TRACES / "k3.jsonl"
+    _trace_to(trace)
+    t0 = time.perf_counter()
+    coll = ProcessCollector(mastic, {"class": "MasticHistogram",
+                                     "args": list(HIST)}, CTX, vk,
+                            config=party_config(), device=dev)
+    try:
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        coll.upload_encoded(bodies, int(valid.sum()))
+        upload_s = time.perf_counter() - t0
+        prefixes = tuple(sorted(tuple(bool(b) for b in a) for a in attrs))
+        metrics: list = []
+        t0 = time.perf_counter()
+        (result, accept, shares) = coll.round((bits - 1, prefixes, True),
+                                              metrics_out=metrics)
+        round_s = time.perf_counter() - t0
+        wire_bytes = coll.wire_bytes()
+    finally:
+        coll.close()
+    if not accept.all():
+        raise AssertionError(f"k3: {int((~accept).sum())} honest reports "
+                             f"rejected")
+    want = [np.bincount(buckets[valid & (alphas == np.array(p)).all(axis=1)],
+                        minlength=length).tolist() for p in prefixes]
+    if result != want:
+        raise AssertionError("k3: bucket aggregates differ from numpy's")
+    parties = party_trace(trace)
+    _check_bytes("k3", metrics[0], parties, shares)
+    _party_idle("k3", parties, ("keccak", "keccak_binder_f128",
+                                "level_f128"))
+    return {"reports": int(valid.sum()), "shard_s": shard_s,
+            "encode_s": encode_s, "check_s": check_s, "spawn_s": spawn_s,
+            "upload_s": upload_s, "round_s": round_s, "wire": wire_bytes,
+            "parties": parties, "accepted": int(accept.sum())}
+
+
+def party_config():
+    from mastic_tpu_torch.drivers.session import SessionConfig
+
+    return SessionConfig(connect_timeout=300.0, exchange_timeout=300.0,
+                         ack_timeout=300.0, round_deadline=400.0,
+                         shutdown_timeout=60.0, retries=1, backoff=0.5)
+
+
+def party_phase(dev: torch.device, seed: int, results: dict) -> dict:
+    """Phase k: k1, k2 and k3, each with the smoke's own launch counts
+    set to 0 before it (the clients' shard runs here; the parties count
+    their own)."""
+    from mastic_tpu_torch.ops import kernels
+
+    out = {}
+    for (name, drive) in (
+            ("k1", lambda: party_attributes(dev, seed,
+                                            results["attributes"])),
+            ("k2", lambda: party_count(dev, seed,
+                                       results["count"]["first_levels"])),
+            ("k3", lambda: party_histogram(dev, seed))):
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = drive()
+        out[name]["phase_s"] = time.perf_counter() - t0
+        out[name]["clients"] = dict(kernels.launches)
+    return out
+
+
+def _print_parties(k: dict) -> None:
+    def launches(d: dict) -> str:
+        return ", ".join(f"{key} {v}" for (key, v) in d.items() if v)
+
+    what = {"k1": f"MasticSum({ATTR_BITS}, {SUM_MAX}) attribute round over "
+                  f"{ATTR_ASKED} attributes, AggregationSession, spawned "
+                  f"parties, helper killed after its prep",
+            "k2": f"MasticCount({BITS}) from the root, levels 0-"
+                  f"{k['k2']['levels'] - 1}, network parties (tools.party "
+                  f"serve, reliable channels, plaintext), one conn_drop on "
+                  f"the leader's link",
+            "k3": f"MasticHistogram{HIST} weight check at level "
+                  f"{HIST[0] - 1} over {HIST_ATTRS} attributes, spawned "
+                  f"parties"}
+    for (name, r) in k.items():
+        print(f"parties {name}: {what[name]}; {r['reports']} reports; spawn "
+              f"{r['spawn_s']:.3f} s; upload {r['encode_s'] + r['upload_s']:.3f}"
+              f" s (encode {r['encode_s']:.3f} s, then the parties' decode and "
+              f"marshal {r['upload_s']:.3f} s); round{'s' if name == 'k2' else ''}"
+              f" {r['round_s']:.3f} s; wire bytes at the collector "
+              f"{json.dumps(r['wire'])}; phase {r['phase_s']:.1f} s; helper "
+              f"check on {r.get('lanes', 1 if name == 'k2' else 2)} lanes "
+              f"{r['check_s']:.3f} s; the clients' shard launched "
+              f"{launches(r['clients'])}")
+        for (party, entry) in sorted(r["parties"].items()):
+            print(f"parties {name} {party}: device peak "
+                  f"{entry['device_peak']} B, prep-share blob "
+                  f"{entry['prep_bytes']} B; launches "
+                  f"{launches(entry['launches'])}")
+    k1 = k["k1"]
+    print(f"parties k1: respawns {k1['counters']['respawns']}, retries "
+          f"{k1['counters']['retries']}; accept bitmap = phase e's "
+          f"({k1['accepted']} accepted, the {ATTR_TAMPERED} tampered "
+          f"correction words and {ATTR_TAMPERED} tampered proof shares "
+          f"rejected); every attribute's sum = numpy's; prep-share bytes "
+          f"{k1['metrics'].bytes_prep_shares} and agg-share bytes "
+          f"{k1['metrics'].bytes_agg_shares} = count_round_bytes'")
+    k2 = k["k2"]
+    print(f"parties k2: every level's prefixes and counts = phase a's "
+          f"(widest {k2['max_prefixes']} prefixes); reconnects "
+          f"{k2['reliability']['reconnects']}, replayed frames "
+          f"{k2['reliability']['replayed_frames']}")
+    print(f"parties k3: {k['k3']['accepted']} of {k['k3']['reports']} "
+          f"reports accepted (joint rand confirmed by both parties); the "
+          f"{HIST[1]}-bucket aggregates = numpy's")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2444,6 +2907,20 @@ def main() -> int:
                "attributes": "attributes"}.get(row["launches_path"])
         row["launches_mesh"] = (None if run is None
                                 else gloo0[run]["launches"][counter])
+
+    # Phase k, the party layer, after the mesh: leader and helper as
+    # processes of their own on the card, each counting its launches.
+    k = party_phase(dev, args.seed, results)
+    for row in rows:
+        # Each party's launches in the sub-phase of the row's
+        # instantiation (MasticCount: k2, MasticSum: k1, Field128: k3);
+        # the parties launch no K2 (their AES runs inside K3).
+        counter = row_counter[row["name"]][1]
+        sub = {"count": "k2", "sum": "k1", "attributes": "k1",
+               "histogram": "k3", "sumvec": "k3"}[row["launches_path"]]
+        row["launches_parties"] = {"phase": sub, **{
+            party: entry["launches"][counter]
+            for (party, entry) in sorted(k[sub]["parties"].items())}}
 
     result = results["count"]
     if result["levels"] < BITS:
@@ -2627,9 +3104,11 @@ def main() -> int:
               f"{moved / lv['download_ms'] / 1e6:.3f} GB/s down)")
     _print_launches(counts["count_chunked"], result)
     _print_mesh(mesh)
+    _print_parties(k)
     print("path seconds: " + ", ".join(
         f"{name} {r['path_s']:.1f}" for (name, r) in results.items())
-        + f", mesh {mesh['nccl_s'] + mesh['gloo_s']:.1f}")
+        + f", mesh {mesh['nccl_s'] + mesh['gloo_s']:.1f}, parties "
+        + ", ".join(f"{name} {r['phase_s']:.1f}" for (name, r) in k.items()))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -31,6 +31,16 @@ every rank holds the unsharded run's results.  `python -m
 mastic_tpu_torch.tools.multichip` checks a meshed collection against
 the unsharded one.
 
+The party layer runs the leader and the helper as processes of their
+own, each on its own device, exchanging only the draft's wire
+encodings (`wire.py`) under deadlines, retries, quarantine, respawn and
+fault injection (`drivers/parties.py`: `ProcessCollector`,
+`AggregationSession`; `drivers/session.py`, `drivers/faults.py`), over
+loopback sockets or the reliable, mutually authenticated TCP transport
+(`net/transport.py`) to standalone network parties (`python -m
+mastic_tpu_torch.tools.party serve`).  Its bytes are the JAX package's
+on every channel.
+
 The scalar layer (`scalar/`, a standard-library copy of the JAX
 package's) recomputes, one report at a time, the lanes whose batched
 XOF sampling drew a value outside the field

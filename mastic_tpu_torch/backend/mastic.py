@@ -611,6 +611,99 @@ class BatchedMastic:
             helper_seeds=stack(lambda r: r[2][1][2]),
             leader_seeds=leader_seeds, peer_parts=peer_parts)
 
+    def marshal_party_reports(self, agg_id: int, reports: list,
+                              device="cuda") -> dict:
+        """One party's view of the upload channel: reports [(nonce,
+        public_share, input_share)] whose input share is this
+        aggregator's only (a process-separated party never sees its
+        peer's), as the keyword arguments of `prep` on `device`: nonces,
+        cws, keys, proof_shares (the leader's, else None), seeds (None
+        where no report carries one) and peer_jr_parts (joint-rand
+        circuits, else None)."""
+        device = resolve_device(device)
+
+        def stack(get):
+            return torch.as_tensor(np.stack([
+                np.frombuffer(get(sh), np.uint8) for (_, _, sh) in reports]),
+                device=device)
+
+        out = {"nonces": torch.as_tensor(np.stack([
+                   np.frombuffer(n, np.uint8) for (n, _, _) in reports]),
+                   device=device),
+               "cws": self.vidpf.cws_from_host(
+                   [ps for (_, ps, _) in reports], device),
+               "keys": stack(lambda sh: sh[0]),
+               "proof_shares": None, "seeds": None, "peer_jr_parts": None}
+        if agg_id == 0:
+            out["proof_shares"] = torch.as_tensor(np.stack([
+                np.stack([self.spec.int_to_limbs(x.int()) for x in sh[1]])
+                for (_, _, sh) in reports]), device=device)
+        if any(sh[2] is not None for (_, _, sh) in reports):
+            out["seeds"] = stack(lambda sh: sh[2])
+        if self.m.valid.JOINT_RAND_LEN > 0:
+            out["peer_jr_parts"] = stack(lambda sh: sh[3])
+        return out
+
+    def marshal_party_blobs(self, agg_id: int, blobs: np.ndarray,
+                            device="cuda") -> tuple:
+        """One party's upload blobs as `marshal_party_reports` gives
+        their decoded reports, parsed from the bytes on `device` with no
+        report decoded in Python.  blobs (R, report size) uint8: nonce ‖
+        public share (packed ctrl bits, seeds, payloads, proofs) ‖ this
+        aggregator's input share.  Returns (prep keyword arguments,
+        well_formed (R,) bool): False where `wire.decode_report` would
+        refuse the blob (nonzero ctrl padding bits, or a payload or
+        proof-share element outside the field)."""
+        device = resolve_device(device)
+        m = self.m
+        (bits, vl, elem) = (m.bits, m.value_len, m.field.ENCODED_SIZE)
+        rows = torch.as_tensor(blobs, device=device)
+        num = rows.shape[0]
+        offset = 0
+
+        def take(size: int) -> torch.Tensor:
+            nonlocal offset
+            offset += size
+            return rows[:, offset - size:offset]
+
+        def limbs(data: torch.Tensor, shape: tuple) -> torch.Tensor:
+            nonlocal well_formed
+            (out, in_range) = self.spec.limbs_from_le_bytes(
+                data.reshape((num,) + shape + (elem,)))
+            well_formed = well_formed & in_range.reshape(num, -1).all(-1)
+            return out.contiguous()
+
+        well_formed = torch.ones(num, dtype=torch.bool, device=device)
+        nonces = take(m.NONCE_SIZE).contiguous()
+        ctrl_len = (2 * bits + 7) // 8
+        packed = take(ctrl_len)
+        pad = 8 * ctrl_len - 2 * bits
+        if pad:
+            well_formed = well_formed & ((packed[:, -1] >> (8 - pad)) == 0)
+        idx = torch.arange(2 * bits, device=device)
+        ctrl = ((packed[:, idx // 8] >> (idx % 8)) & 1).bool()
+        seed = take(bits * Vidpf.KEY_SIZE).reshape(num, bits, Vidpf.KEY_SIZE)
+        w = limbs(take(bits * vl * elem), (bits, vl))
+        proof = take(bits * PROOF_SIZE).reshape(num, bits, PROOF_SIZE)
+        out = {"nonces": nonces,
+               "cws": BatchedCorrectionWords(
+                   seed.contiguous(), ctrl.reshape(num, bits, 2).contiguous(),
+                   w, proof.contiguous()),
+               "keys": take(Vidpf.KEY_SIZE).contiguous(),
+               "proof_shares": None, "seeds": None, "peer_jr_parts": None}
+        use_jr = m.valid.JOINT_RAND_LEN > 0
+        if agg_id == 0:
+            plen = m.valid.PROOF_LEN
+            out["proof_shares"] = limbs(take(plen * elem), (plen,))
+        if agg_id == 1 or use_jr:
+            out["seeds"] = take(SEED_SIZE).contiguous()
+        if use_jr:
+            out["peer_jr_parts"] = take(SEED_SIZE).contiguous()
+        if offset != rows.shape[1]:
+            raise ValueError(f"upload blobs are {rows.shape[1]} bytes, the "
+                             f"report layout {offset}")
+        return (out, well_formed)
+
 
 def all_checks(checks: dict) -> torch.Tensor:
     """The AND of a round's per-check masks: its accept verdict."""

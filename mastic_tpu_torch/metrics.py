@@ -14,8 +14,10 @@ record with
   aggregate shares, from the wire size formulas (`wire.py`).
 
 The fields are the JAX package's, so `as_dict()` has its keys.  The
-session, transport and service counters stay 0 until the port has
-those layers.  `extra` holds, besides the JAX package's key-setup
+session and transport counters (timeouts, retries, quarantined,
+respawns, reconnects, replayed frames) are filled by the party layer's
+collector (`drivers/parties.py::ProcessCollector.round_metrics`); the
+service counters stay 0 until the port has that layer.  `extra` holds, besides the JAX package's key-setup
 counts, the port's own entries: "excluded_invalid" (lanes left out
 because the caller's `valid` was False: never sharded correctly, so
 not recomputed), "rejected_fallback_by" (the checks the recomputed

@@ -207,3 +207,40 @@ def test_chunked_modules_import_no_jax(name):
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
     assert out.strip() == "[]"
+
+
+_PARTY_PROBE = """
+import sys
+import {name}
+{run}
+print([m for m in sys.modules if m.split('.')[0] in ('jax', 'mastic_tpu')])
+"""
+
+
+@pytest.mark.parametrize("name,run", [
+    # What a spawned party process imports (`python -m
+    # mastic_tpu_torch.drivers.parties`), up to its engine.
+    ("mastic_tpu_torch.drivers.parties",
+     "from mastic_tpu_torch.drivers.parties import instantiate\n"
+     "instantiate({'class': 'MasticCount', 'args': [2]}).scalar()"),
+    ("mastic_tpu_torch.net.transport", ""),
+    # A network party (`python -m mastic_tpu_torch.tools.party`) imports
+    # the session layer and the rest of its serve loop when it starts.
+    ("mastic_tpu_torch.tools.party",
+     "import mastic_tpu_torch.drivers.session, "
+     "mastic_tpu_torch.drivers.faults, mastic_tpu_torch.obs.trace, "
+     "mastic_tpu_torch.tools.certs, "
+     "mastic_tpu_torch.drivers.communication"),
+])
+def test_party_layer_imports_no_jax(name, run):
+    """The party layer's entry modules are reached by the package walk
+    (so the probe above covers them) and, in a fresh interpreter as a
+    party process starts, load neither jax nor mastic_tpu."""
+    names = [m.name for m in pkgutil.walk_packages(
+        mastic_tpu_torch.__path__, "mastic_tpu_torch.")]
+    assert name in names
+    out = subprocess.run(
+        [sys.executable, "-c", _PARTY_PROBE.format(name=name, run=run)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    assert out.strip() == "[]"
