@@ -38,7 +38,7 @@
    attribute row's shape, fresh parent seeds drawn until a launch
    returns ok False (about 200 launches expected, at most 3000), and
    that launch held bit-exact against `level_step_plain`, ok included.
-3. Drives twelve phases, each with every launch counter set to 0 just
+3. Drives thirteen phases, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
    runs (K1's binder sponge and K3 count Field128 launches apart).
    Every path hands its runs the scalar reports behind its batch
@@ -154,12 +154,45 @@
       peak in its own process and writes them to its trace file
       (MASTIC_TRACE_FILE, under build/parties/); each must have launched
       K1 and K3.
+   l. The collector service (`drivers/service.py`), after phase k.
+      l1: one `CollectorService` on the card (overlap 2, two ingest
+      threads, pages of 256, a group-fsync `AdmissionWal` and the status
+      endpoints under build/service/, an `UploadFront` and a
+      `StatusServer` on 127.0.0.1 port 0) with two tenants: "count",
+      MasticCount(256) heavy hitters at threshold 48 over phase a's
+      uploads, and "attrs", MasticSum(32, 255) attribute metrics over
+      phase e's 64 attributes and its uploads, the tampered ones
+      included (they pass the door; the round rejects them).  The
+      uploads are phase a's and phase e's `wire_rows` framed as
+      `encode_upload` frames them (held against `encode_upload` of the
+      scalar report on a few lanes, tampered ones included); the port's
+      `LoadGenerator` PUTs them with about 2% malformed extras (202
+      while the ingest front is armed, quarantined behind it), then the
+      front is stopped and a second malformed burst gets 400s.  One
+      epoch per tenant, with `MASTIC_TORCH_PROFILE` armed for the first
+      round (its Chrome trace must name K3's kernel).  After the count
+      tenant's level 1 the service is snapshotted (`to_bytes`, the WAL
+      marked covered), discarded, and restored (`from_bytes` +
+      `AdmissionWal.recover`); the restored service finishes both
+      epochs.  Checked: the HTTP code mix equals the counters' deltas
+      exactly; every count level equals phase a's and the heavy hitters
+      are the planted strings (past SERVICE_CUT_AFTER_S the count epoch
+      is cut by its deadline after SERVICE_CUT_LEVELS levels, printed,
+      and its frontier equals phase a's there); every attribute's sum
+      equals phase e's numpy sum, with the tampered reports rejected
+      per check; /metrics, /statusz and /varz, fetched mid-run, carry
+      both tenants' series; K1 and K3 launched in each tenant's rounds
+      (phase a's and e's client shards launched K2).  l2: `python -m
+      mastic_tpu_torch.tools.serve --smoke --status-port 0 --device
+      cuda` as a child process prints `"ok": true`.
 4. Prints the `kernels` JSON line (every kernel and instantiation; the
    Count rows' `launches_mesh` are rank 0's launches in the gloo
    resident run, its shard of its rows included, the MasticSum rows' in
    the gloo attribute round, likewise; `launches_parties` are each
    party's launches in phase k's sub-phase of the row's instantiation,
-   Count k2, MasticSum k1, Field128 k3), the
+   Count k2, MasticSum k1, Field128 k3; `launches_service` are the
+   launches in phase l's rounds of the row's tenant, Count rows from
+   "count", MasticSum rows from "attrs", Field128 rows null), the
    card, each path's figures, and last `{"ok": true, "device":
    {...}}`.
    Any failure exits non-zero before that line.
@@ -295,6 +328,23 @@ PARTY_LANES = 8
 PARTY_TRACES = pathlib.Path(__file__).resolve().parent / "build" / "parties"
 CTX = b"mastic chip smoke"
 LONG_CTX = bytes(range(150))
+# Phase l, the collector service: its files (the WAL, the profile trace)
+# go to build/service/; the lanes whose blobs are held against
+# `encode_upload`; the malformed share of the load; and the depth cut of
+# the count tenant when the smoke has run past SERVICE_CUT_AFTER_S
+# before phase l.
+SERVICE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "service"
+SERVICE_LANES = 3
+SERVICE_MALFORMED = 0.02
+SERVICE_PAGE = 256
+SERVICE_CUT_AFTER_S = 750.0
+SERVICE_CUT_LEVELS = 64
+SERVICE_DRILL_LEVEL = 2      # rounds completed by the count tenant
+SERVICE_FETCH_LEVEL = 8      # ... when the endpoints are fetched
+PROFILE_KERNEL = "level_kernel"   # K3's __global__ (csrc/level.cu)
+# What each tenant's rounds must launch, and its clients' shard.
+SERVICE_COUNTERS = {"rounds": ("keccak", "keccak_binder", "level"),
+                    "shard": ("aes",)}
 
 # Operation counts for the bounds, in 32-bit instructions as the card
 # issues them: one LOP3 computes any function of three words, and a
@@ -1186,7 +1236,14 @@ def main_path(dev: torch.device, seed: int, levels: int) -> dict:
     # aggregates, and the reports the incremental runner left out.
     handoff = (bm, vk, batch, excluded_per_level[-1], run.level_results[-1],
                reports)
-    return {"handoff": handoff, "levels": done, "shard_s": shard_s,
+    # What phase l uploads: the lanes' wire rows, on the host.
+    service = {"mastic": mastic, "vk": vk, "rows": [
+        wire_rows(bm, batch, a) for a in range(2)],
+        "valid": shard_ok.cpu().numpy(), "reports": reports,
+        "level_results": run.level_results, "planted": planted,
+        "shard_launches": shard_launches}
+    return {"handoff": handoff, "service": service, "levels": done,
+            "shard_s": shard_s,
             "first_levels": run.level_results[:MESH_NCCL_LEVELS],
             "rounds_s": rounds_s,
             "rejected": int((~valid).sum()),
@@ -1681,8 +1738,10 @@ def attributes_path(dev: torch.device, seed: int) -> dict:
     `aggregate_by_attribute` steps), its accept mask read from the
     round's handle, held to `check_attribute_round`."""
     from mastic_tpu_torch import AttributeMetricsRun
+    from mastic_tpu_torch.ops import kernels
 
     inputs = attribute_inputs(dev, seed)
+    inputs["shard_launches"] = dict(kernels.launches)
     (batch, shard_ok) = (inputs["batch"], inputs["shard_ok"])
     run = AttributeMetricsRun(inputs["mastic"], CTX, inputs["asked"],
                               inputs["vk"], batch, valid=shard_ok,
@@ -1701,13 +1760,19 @@ def attributes_path(dev: torch.device, seed: int) -> dict:
     in_set = inputs["in_set"]
     tampered = inputs["tampered"]
     valid = shard_ok.cpu().numpy()
+    service = {k: inputs[k] for k in (
+        "mastic", "vk", "reports", "asked", "path_of", "alphas", "weights",
+        "tampered", "cw_rows", "proof_rows", "shard_launches")}
+    service.update(rows=[wire_rows(inputs["bm"], batch, a) for a in range(2)],
+                   valid=valid)
     handoff = {"bm": inputs["bm"], "vk": inputs["vk"], "batch": batch,
                "shard_ok": shard_ok, "reports": inputs["reports"],
                "asked": inputs["asked"], "result": run.result(),
                "metrics": m, "fallback": fallback, "tampered_mask": tampered,
                "honest": int(np.flatnonzero(in_set & ~tampered & valid)[0]),
                "tampered": int(inputs["proof_rows"][0])}
-    return {"handoff": handoff, "shard_s": inputs["shard_s"],
+    return {"handoff": handoff, "service": service,
+            "shard_s": inputs["shard_s"],
             "round_s": round_s, "nodes": m.padded_width,
             "in_set": int(in_set.sum()), "accepted": m.accepted,
             "rejected_eval_proof": m.rejected_eval_proof,
@@ -2794,6 +2859,493 @@ def _print_parties(k: dict) -> None:
           f"{HIST[1]}-bucket aggregates = numpy's")
 
 
+# -- phase l: the collector service --------------------------------------
+
+class TenantLaunches:
+    """Per tenant, the kernel launches made inside its runs' `step_begin`
+    and `step_finish` (under overlap the tenants' rounds interleave, so a
+    phase-wide count cannot tell them apart), and every run the service
+    built for it, in order.  Installed for phase l1 only."""
+
+    def __init__(self):
+        self.launches: dict = {}
+        self.runs: dict = {}
+        self._saved: list = []
+
+    def __enter__(self) -> "TenantLaunches":
+        from mastic_tpu_torch.drivers.attribute_metrics import (
+            AttributeMetricsRun)
+        from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
+        from mastic_tpu_torch.ops import kernels
+
+        def wrap(orig):
+            def wrapped(run, *args, **kwargs):
+                before = dict(kernels.launches)
+                try:
+                    return orig(run, *args, **kwargs)
+                finally:
+                    tally = self.launches.setdefault(run.obs_tenant, {})
+                    for (k, v) in kernels.launches.items():
+                        tally[k] = tally.get(k, 0) + v - before[k]
+                    runs = self.runs.setdefault(run.obs_tenant, [])
+                    if not any(r is run for r in runs):
+                        runs.append(run)
+            return wrapped
+
+        for cls in (HeavyHittersRun, AttributeMetricsRun):
+            for name in ("step_begin", "step_finish"):
+                orig = getattr(cls, name)
+                self._saved.append((cls, name, orig))
+                setattr(cls, name, wrap(orig))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for (cls, name, orig) in self._saved:
+            setattr(cls, name, orig)
+
+
+def service_blobs(tenant: dict) -> tuple:
+    """A tenant's uploads: each lane whose client shard succeeded as its
+    two wire rows framed as `encode_upload` frames them, held against
+    `encode_upload` of the lane's scalar report on SERVICE_LANES lanes
+    (the tenant's `check` lanes, tampered ones included).  Returns
+    (blobs, their lanes, seconds of the check)."""
+    from mastic_tpu_torch import wire
+    from mastic_tpu_torch.drivers.service import encode_upload
+
+    (rows, valid) = (tenant["rows"], tenant["valid"])
+    lanes = np.flatnonzero(valid)
+    blobs = [wire.frame(rows[0][r].tobytes()) + wire.frame(
+        rows[1][r].tobytes()) for r in lanes]
+    pos = {int(r): i for (i, r) in enumerate(lanes)}
+    t0 = time.perf_counter()
+    for r in tenant["check"]:
+        want = encode_upload(tenant["mastic"], tenant["reports"][r])
+        if r in pos and blobs[pos[r]] != want:
+            raise AssertionError(f"lane {r}: the upload blob built from the "
+                                 f"batch differs from encode_upload of the "
+                                 f"lane's scalar report")
+    return (blobs, lanes, time.perf_counter() - t0)
+
+
+def _door_ms(mastic, blobs: list, n: int = 256) -> float:
+    """The door's decode (`decode_upload`, both views) per upload, in ms,
+    over the first n blobs, on this thread."""
+    from mastic_tpu_torch.drivers.service import decode_upload
+
+    t0 = time.perf_counter()
+    for blob in blobs[:n]:
+        decode_upload(mastic, blob)
+    return (time.perf_counter() - t0) * 1e3 / min(n, len(blobs))
+
+
+def _load(port: int, pools: dict, events: list, workers: int) -> dict:
+    """The port's LoadGenerator over an explicit schedule: every event at
+    t = 0 (the workers send as fast as the front answers), each event's
+    client the index of its blob in the tenant's pool, so every valid
+    blob is sent once."""
+    from mastic_tpu_torch.net.loadgen import LoadGenerator, LoadProfile
+
+    gen = LoadGenerator("127.0.0.1", port, LoadProfile(
+        clients=max(len(p["valid"]) for p in pools.values()),
+        malformed_frac=0.0, workers=workers), pools, request_timeout=300.0)
+    gen.events = events
+    return gen.run()
+
+
+def _fetch(port: int, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"GET {path} -> {resp.status}")
+        return resp.read()
+
+
+def _check_endpoints(port: int) -> dict:
+    """/metrics, /statusz and /varz of the live service carry both
+    tenants' series."""
+    metrics = _fetch(port, "/metrics").decode()
+    for needle in ('mastic_round_wall_ms_bucket{tenant="count"',
+                   'mastic_round_wall_ms_bucket{tenant="attrs"',
+                   "mastic_chunk_phase_ms_bucket",
+                   'mastic_reports_admitted_total{tenant="count"}',
+                   'mastic_reports_admitted_total{tenant="attrs"}',
+                   'mastic_reports_quarantined_total{tenant="count"',
+                   'mastic_reports_quarantined_total{tenant="attrs"',
+                   'mastic_rounds_total{tenant="count"}',
+                   'mastic_rounds_total{tenant="attrs"}',
+                   "mastic_sched_overhead_ms_total{"):
+        if needle not in metrics:
+            raise AssertionError(f"/metrics lacks {needle!r}")
+    statusz = _fetch(port, "/statusz").decode()
+    for needle in ("tenant count", "tenant attrs", "quarantine reasons:",
+                   "shed=", "occupancy:"):
+        if needle not in statusz:
+            raise AssertionError(f"/statusz lacks {needle!r}")
+    varz = json.loads(_fetch(port, "/varz"))
+    tenants = varz.get("service", {}).get("tenants", {})
+    if set(tenants) != {"count", "attrs"} or "metrics" not in varz:
+        raise AssertionError("/varz lacks the tenants' snapshot")
+    return {"metrics_bytes": len(metrics), "statusz_lines":
+            statusz.count("\n"), "varz_tenants": sorted(tenants)}
+
+
+def service_l1(dev: torch.device, results: dict, cut: bool) -> dict:
+    """Phase l1 (module docstring): the collector service in this
+    process, on the card."""
+    import hashlib
+    import os
+    import shutil
+
+    from mastic_tpu_torch.drivers.service import (CollectorService,
+                                                  ServiceConfig, TenantSpec)
+    from mastic_tpu_torch.drivers.session import Deadline
+    from mastic_tpu_torch.drivers.wal import AdmissionWal, WalConfig
+    from mastic_tpu_torch.net.admission import NetConfig
+    from mastic_tpu_torch.net.ingest import UploadFront
+    from mastic_tpu_torch.net.loadgen import _Event, malform
+    from mastic_tpu_torch.obs import devtime
+    from mastic_tpu_torch.obs.registry import get_registry
+    from mastic_tpu_torch.obs.statusz import StatusServer
+
+    count = dict(results["count"]["service"])
+    attrs = dict(results["attributes"]["service"])
+    count["check"] = [int(r) for r in np.flatnonzero(count["valid"])
+                      [:SERVICE_LANES]]
+    attrs["check"] = [int(attrs["cw_rows"][0]), int(attrs["proof_rows"][0]),
+                      int(np.flatnonzero(attrs["valid"]
+                                         & ~attrs["tampered"])[0])]
+    (count_blobs, count_lanes, count_check_s) = service_blobs(count)
+    (attr_blobs, attr_lanes, attr_check_s) = service_blobs(attrs)
+    door_ms = {"count": _door_ms(count["mastic"], count_blobs),
+               "attrs": _door_ms(attrs["mastic"], attr_blobs)}
+
+    if SERVICE_DIR.exists():
+        shutil.rmtree(SERVICE_DIR)
+    SERVICE_DIR.mkdir(parents=True)
+    wal_dir = str(SERVICE_DIR / "wal")
+    profile_dir = SERVICE_DIR / "profile"
+    specs = [TenantSpec(name="count", spec={"class": "MasticCount",
+                                            "args": [BITS]},
+                        ctx=CTX, verify_key=count["vk"],
+                        thresholds={"default": THRESHOLD},
+                        max_buffered=len(count_blobs)),
+             TenantSpec(name="attrs", spec={"class": "MasticSum",
+                                            "args": [ATTR_BITS, SUM_MAX]},
+                        ctx=CTX, verify_key=attrs["vk"],
+                        mode="attribute_metrics", attributes=attrs["asked"],
+                        max_buffered=len(attr_blobs))]
+
+    def config() -> ServiceConfig:
+        return ServiceConfig(page_size=SERVICE_PAGE, max_pending_epochs=4,
+                             quarantine_limit=10 ** 6, epoch_deadline=3600.0,
+                             overlap=2, ingest_threads=2, ingest_queue=1024)
+
+    svc = CollectorService(specs, config=config(), device=dev)
+    wal = AdmissionWal(wal_dir, config=WalConfig(fsync="group", group_ms=2.0),
+                       fresh=True)
+    front = UploadFront(svc, config=NetConfig(max_connections=64),
+                        persist=wal.append_report).start()
+    status = StatusServer(port=0).start()
+    status.publish(svc.metrics())
+
+    # The load: every valid upload once, about 2% malformed extras.
+    rng = np.random.default_rng(11)
+    pools = {}
+    events = []
+    for (name, blobs) in (("count", count_blobs), ("attrs", attr_blobs)):
+        bad = max(1, int(round(SERVICE_MALFORMED * len(blobs))))
+        picks = rng.choice(len(blobs), bad, replace=False)
+        pools[name] = {"valid": blobs,
+                       "malformed": [malform(blobs[i], rng) for i in picks]}
+        events += [_Event(0.0, name, i, False) for i in range(len(blobs))]
+        events += [_Event(0.0, name, j, True) for j in range(bad)]
+    events = [events[i] for i in rng.permutation(len(events))]
+
+    def totals() -> dict:
+        out = {}
+        for (name, t) in svc.metrics()["tenants"].items():
+            c = t["counters"]
+            out[name] = (c["admitted"], c["quarantined"], c["shed"])
+        return out
+
+    before = totals()
+    load = _load(front.port, pools, events, workers=8)
+    svc.flush_ingest()
+    after = totals()
+    n_bad = {name: len(p["malformed"]) for (name, p) in pools.items()}
+    n_good = {"count": len(count_blobs), "attrs": len(attr_blobs)}
+    deltas = {name: tuple(a - b for (a, b) in zip(after[name], before[name]))
+              for name in after}
+    if load["transport_errors"] or load["codes"] != {"202": len(events)} \
+            or any(deltas[n] != (n_good[n], n_bad[n], 0) for n in deltas):
+        raise AssertionError(f"l1 load (ingest front armed): codes "
+                             f"{load['codes']}, transport errors "
+                             f"{load['transport_errors']}, counter deltas "
+                             f"{deltas}, sent {n_good} + {n_bad} malformed")
+    # The ingest front stopped, a malformed burst is refused at the door.
+    svc.stop_ingest()
+    burst = [_Event(0.0, name, j, True) for name in pools for j in range(8)]
+    before = totals()
+    burst_load = _load(front.port, pools, burst, workers=4)
+    after = totals()
+    deltas2 = {name: tuple(a - b for (a, b) in zip(after[name], before[name]))
+               for name in after}
+    if burst_load["codes"] != {"400": len(burst)} \
+            or any(d != (0, 8, 0) for d in deltas2.values()):
+        raise AssertionError(f"l1 burst: codes {burst_load['codes']}, "
+                             f"deltas {deltas2}")
+    front.stop()
+
+    # One epoch a tenant, the cuts logged first; the first round profiled.
+    for name in ("count", "attrs"):
+        wal.append_epoch_cut(name)
+        svc.begin_epoch(name)
+    os.environ["MASTIC_TORCH_PROFILE"] = str(profile_dir)
+    devtime.reset_profile_lever()
+
+    def count_rounds(service) -> int:
+        ep = service.tenants["count"].active
+        if ep is None:
+            recs = service.tenants["count"].completed
+            return recs[-1]["levels_completed"] if recs else 0
+        return ep.run.rounds_completed() if ep.run is not None else 0
+
+    drill = fetched = None
+    steps = 0
+    torch.cuda.synchronize()
+    t_rounds = time.perf_counter()
+    with TenantLaunches() as tl:
+        while True:
+            more = svc.step()
+            steps += 1
+            os.environ.pop("MASTIC_TORCH_PROFILE", None)
+            status.publish(svc.metrics())
+            done = count_rounds(svc)
+            if drill is None and done >= SERVICE_DRILL_LEVEL:
+                # The crash drill: snapshot (the WAL marked covered by
+                # it), drop the live service, restore and recover.
+                t0 = time.perf_counter()
+                wal_before = wal.stats()
+                seq = wal.tail_seq()
+                blob = svc.to_bytes()
+                save_s = time.perf_counter() - t0
+                digest = hashlib.sha256(blob).hexdigest()
+                wal.mark_covered(seq, digest)
+                wal.close()
+                del svc
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                svc = CollectorService.from_bytes(blob, config=config(),
+                                                  device=dev)
+                wal = AdmissionWal(wal_dir, config=WalConfig(
+                    fsync="group", group_ms=2.0))
+                recovery = wal.recover(svc, snapshot_sha256=digest)
+                torch.cuda.synchronize()
+                drill = {"snapshot_bytes": len(blob), "save_s": save_s,
+                         "restore_s": time.perf_counter() - t0,
+                         "at_level": done, "recovery": recovery,
+                         "wal": wal_before}
+                more = not svc.drained()
+            if fetched is None and drill is not None \
+                    and done >= SERVICE_FETCH_LEVEL:
+                fetched = _check_endpoints(status.port)
+            if cut and done >= SERVICE_CUT_LEVELS \
+                    and svc.tenants["count"].active is not None:
+                # The depth cut: the count epoch's deadline, expired
+                # now, truncates it at its last completed level.
+                svc.tenants["count"].active.deadline = Deadline(0.0)
+            if not more:
+                break
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t_rounds
+    overlap = get_registry().gauge("mastic_sched_overlap_efficiency").value()
+    status.publish(svc.metrics())
+    if fetched is None:
+        fetched = _check_endpoints(status.port)
+    status.stop()
+    wal_stats = wal.stats()
+    wal.close()
+    if drill is None:
+        raise AssertionError("l1: the crash drill never ran")
+    traces = sorted(profile_dir.glob("*.json")) if profile_dir.exists() \
+        else []
+    if len(traces) != 1:
+        raise AssertionError(f"l1: {len(traces)} profile traces, not one")
+    trace_text = traces[0].read_text()
+    if PROFILE_KERNEL not in trace_text:
+        raise AssertionError(f"l1: the profiled round's trace does not name "
+                             f"K3's kernel ({PROFILE_KERNEL})")
+
+    mx = svc.metrics()["tenants"]
+    (crec, arec) = (mx["count"]["epochs"], mx["attrs"]["epochs"])
+    if len(crec) != 1 or len(arec) != 1:
+        raise AssertionError(f"l1: epochs {crec} {arec}")
+    (crec, arec) = (crec[0], arec[0])
+    # The count tenant: every level the runs stepped (the first run up
+    # to the drill, the restored one after) equals phase a's.
+    levels = []
+    for run in tl.runs["count"]:
+        levels = levels[:run.rounds_completed() - len(run.level_results)] \
+            + run.level_results
+    want = count["level_results"]
+    done = crec["levels_completed"]
+    if len(levels) != done or levels != want[:done]:
+        raise AssertionError(f"l1 count: {len(levels)} levels, some differ "
+                             f"from phase a's")
+    planted = sorted(tuple(bool(b) for b in p) for p in count["planted"])
+    got = sorted(tuple(p) for p in crec["result"])
+    if cut:
+        survivors = sorted(p for (p, c) in zip(*want[done - 1])
+                           if c >= THRESHOLD)
+        if not crec["truncated"] or done != SERVICE_CUT_LEVELS \
+                or got != survivors:
+            raise AssertionError(f"l1 count (cut): {crec}")
+    elif crec["truncated"] or done != BITS or got != planted:
+        raise AssertionError(f"l1 count: heavy hitters are not the planted "
+                             f"strings ({len(got)} found)")
+    # The attrs tenant: phase e's sums, the tampered reports rejected
+    # per check.
+    valid = attrs["valid"]
+    keep = valid & ~attrs["tampered"]
+    want_sums = attribute_sums(attrs["asked"], attrs["path_of"],
+                               attrs["alphas"], attrs["weights"], keep)
+    if [tuple(x) for x in arec["result"]] != want_sums:
+        raise AssertionError("l1 attrs: per-attribute sums differ from "
+                             "phase e's numpy sums")
+    m = next((run.metrics[0] for run in reversed(tl.runs["attrs"])
+              if run.metrics), None)
+    if m is None or m.accepted != int(keep.sum()) \
+            or m.rejected_eval_proof + m.rejected_weight_check \
+            + m.rejected_fallback != int((valid & attrs["tampered"]).sum()):
+        raise AssertionError(f"l1 attrs: verdicts {m}")
+    for name in ("count", "attrs"):
+        idle = [c for c in SERVICE_COUNTERS["rounds"]
+                if not tl.launches.get(name, {}).get(c)]
+        if idle:
+            raise AssertionError(f"l1 {name}: rounds launched no {idle}")
+    for (name, t) in (("count", count), ("attrs", attrs)):
+        idle = [c for c in SERVICE_COUNTERS["shard"]
+                if not t["shard_launches"].get(c)]
+        if idle:
+            raise AssertionError(f"l1 {name}: the clients' shard launched "
+                                 f"no {idle}")
+    counters = {name: mx[name]["counters"] for name in mx}
+    return {"uploads": n_good, "malformed": n_bad, "load": load,
+            "burst_codes": burst_load["codes"], "door_ms": door_ms,
+            "check_s": count_check_s + attr_check_s,
+            "parse_ms": {"count": crec.get("parse_ms"),
+                         "attrs": arec.get("parse_ms")},
+            "rounds": {name: counters[name]["rounds"] for name in counters},
+            "levels": done, "truncated": crec["truncated"],
+            "rounds_s": rounds_s, "steps": steps, "drill": drill,
+            "overlap_efficiency": overlap, "endpoints": fetched,
+            "trace": str(traces[0].relative_to(SERVICE_DIR.parent.parent)),
+            "trace_bytes": len(trace_text), "wal": wal_stats,
+            "launches": tl.launches,
+            "shard_launches": {"count": count["shard_launches"],
+                               "attrs": attrs["shard_launches"]},
+            "accepted": m.accepted,
+            "rejected": (m.rejected_eval_proof, m.rejected_weight_check,
+                         m.rejected_fallback),
+            "counters": counters}
+
+
+def service_l2() -> dict:
+    """Phase l2: the service tool's smoke gate as a child process on the
+    card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mastic_tpu_torch.tools.serve", "--smoke",
+         "--status-port", "0", "--device", "cuda"],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or out.get("ok") is not True:
+        raise AssertionError(f"l2: tools.serve --smoke rc={proc.returncode}"
+                             f": {proc.stderr[-2000:]}")
+    return {"wall_s": time.perf_counter() - t0, "platform": out["platform"],
+            "scheduler_rounds": out["scheduler_rounds"],
+            "tenants": sorted(out["tenants"])}
+
+
+def service_phase(dev: torch.device, results: dict, elapsed_s: float
+                  ) -> dict:
+    """Phase l: l1 then l2, each with the smoke's launch counts set to 0
+    before it.  Past SERVICE_CUT_AFTER_S the count tenant's epoch is cut
+    to SERVICE_CUT_LEVELS levels."""
+    from mastic_tpu_torch.ops import kernels
+
+    cut = elapsed_s >= SERVICE_CUT_AFTER_S
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    l1 = service_l1(dev, results, cut)
+    l1["phase_s"] = time.perf_counter() - t0
+    l1["counts"] = dict(kernels.launches)
+    l1["cut"] = cut
+    l1["elapsed_before_s"] = elapsed_s
+    kernels.reset_launches()
+    l2 = service_l2()
+    return {"l1": l1, "l2": l2}
+
+
+def _print_service(s: dict) -> None:
+    l1 = s["l1"]
+    load = l1["load"]
+    print(f"service l1: CollectorService on the card, overlap 2, two ingest "
+          f"threads, pages of {SERVICE_PAGE}, group-fsync WAL; tenants "
+          f"count (MasticCount({BITS}), threshold {THRESHOLD}, "
+          f"{l1['uploads']['count']} uploads) and attrs (MasticSum("
+          f"{ATTR_BITS}, {SUM_MAX}), {ATTR_ASKED} attributes, "
+          f"{l1['uploads']['attrs']} uploads), malformed extras "
+          f"{json.dumps(l1['malformed'])}")
+    print(f"service l1: admission {load['answered']} PUTs in "
+          f"{load['wall_s']:.3f} s ({load['achieved_rate_per_sec']} "
+          f"uploads/s, 8 workers), latency ms {json.dumps(load['latency_ms'])}"
+          f", codes {json.dumps(load['codes'])} = the counters' deltas; "
+          f"burst behind the stopped ingest front codes "
+          f"{json.dumps(l1['burst_codes'])}; door decode (decode_upload, "
+          f"one thread) count {l1['door_ms']['count']:.3f} ms, attrs "
+          f"{l1['door_ms']['attrs']:.3f} ms an upload; epoch device parse "
+          f"count {l1['parse_ms']['count']} ms, attrs "
+          f"{l1['parse_ms']['attrs']} ms (the restored count epoch's)")
+    if l1["cut"]:
+        print(f"cut: the service's count epoch stopped by its deadline after "
+              f"{SERVICE_CUT_LEVELS} of {BITS} levels: the smoke had run "
+              f"{l1['elapsed_before_s']:.0f} s, past "
+              f"{SERVICE_CUT_AFTER_S:.0f} s, before phase l")
+    d = l1["drill"]
+    print(f"service l1: rounds {json.dumps(l1['rounds'])} in "
+          f"{l1['rounds_s']:.3f} s ({l1['steps']} scheduler quanta), count "
+          f"levels {l1['levels']} = phase a's (truncated {l1['truncated']}), "
+          f"attrs sums = phase e's, accepted {l1['accepted']}, rejected "
+          f"(eval proof, weight check, fallback) {l1['rejected']}; "
+          f"overlap_efficiency {l1['overlap_efficiency']}")
+    print(f"service l1: crash drill after count level {d['at_level'] - 1}: "
+          f"snapshot {d['snapshot_bytes']} B in {d['save_s']:.3f} s, restore "
+          f"+ WAL recovery {d['restore_s']:.3f} s "
+          f"({json.dumps(d['recovery'])})"
+          f"; the WAL before the drill {json.dumps(d['wal'])}, the "
+          f"recovered WAL at the end {json.dumps(l1['wal'])}")
+    print(f"service l1: endpoints mid-run {json.dumps(l1['endpoints'])}; "
+          f"profile trace {l1['trace']} ({l1['trace_bytes']} B) names "
+          f"{PROFILE_KERNEL}")
+    for (name, launches) in sorted(l1["launches"].items()):
+        print(f"service l1 {name}: rounds launched " + ", ".join(
+            f"{k} {v}" for (k, v) in launches.items() if v)
+            + "; its clients' shard launched " + ", ".join(
+            f"{k} {v}" for (k, v) in l1["shard_launches"][name].items() if v))
+    print(f"service l2: tools.serve --smoke --device cuda ok in "
+          f"{s['l2']['wall_s']:.1f} s ({s['l2']['scheduler_rounds']} "
+          f"scheduler rounds, tenants {s['l2']['tenants']}); phase l "
+          f"{l1['phase_s']:.1f} s + {s['l2']['wall_s']:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2921,6 +3473,16 @@ def main() -> int:
         row["launches_parties"] = {"phase": sub, **{
             party: entry["launches"][counter]
             for (party, entry) in sorted(k[sub]["parties"].items())}}
+
+    # Phase l, the collector service, last.
+    service = service_phase(dev, results, time.perf_counter() - t_start)
+    tenant_of = {"count": "count", "sum": "attrs", "attributes": "attrs"}
+    for row in rows:
+        counter = row_counter[row["name"]][1]
+        tenant = tenant_of.get(row["launches_path"])
+        row["launches_service"] = (
+            None if tenant is None
+            else service["l1"]["launches"].get(tenant, {}).get(counter, 0))
 
     result = results["count"]
     if result["levels"] < BITS:
@@ -3105,10 +3667,13 @@ def main() -> int:
     _print_launches(counts["count_chunked"], result)
     _print_mesh(mesh)
     _print_parties(k)
+    _print_service(service)
     print("path seconds: " + ", ".join(
         f"{name} {r['path_s']:.1f}" for (name, r) in results.items())
         + f", mesh {mesh['nccl_s'] + mesh['gloo_s']:.1f}, parties "
-        + ", ".join(f"{name} {r['phase_s']:.1f}" for (name, r) in k.items()))
+        + ", ".join(f"{name} {r['phase_s']:.1f}" for (name, r) in k.items())
+        + f", service "
+        f"{service['l1']['phase_s'] + service['l2']['wall_s']:.1f}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

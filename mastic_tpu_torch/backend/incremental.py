@@ -170,8 +170,17 @@ class IncrementalRound(NamedTuple):
 
 
 def round_inputs(plan: RoundPlan, device) -> IncrementalRound:
+    """The plan's index tensors on `device`.  On a card each goes up
+    from pinned memory without blocking: a blocking copy from pageable
+    memory synchronizes the stream, which would make the round's stage
+    wait for every round queued before it."""
+    on_card = torch.device(device).type == "cuda"
+
     def dev(x):
-        return torch.as_tensor(x, device=device)
+        t = torch.as_tensor(x)
+        if on_card:
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
 
     return IncrementalRound(
         level=plan.level, parent_idx=dev(plan.parent_idx),

@@ -34,8 +34,7 @@ def build_msg(batch_shape: tuple, device, *parts) -> torch.Tensor:
     arrs = []
     for part in parts:
         if isinstance(part, (bytes, bytearray)):
-            part = torch.as_tensor(np.frombuffer(bytes(part), np.uint8).copy(),
-                                   device=device)
+            part = kernels.const_bytes(bytes(part), torch.device(device))
         if part.shape[-1] == 0:
             continue
         arrs.append(part.expand(tuple(batch_shape) + (part.shape[-1],)))

@@ -44,8 +44,10 @@ from .. import resolve_device
 from ..backend.mastic import BatchedMastic, Mastic, ReportBatch
 from ..backend.schedule import LevelSchedule
 from .chunked import HostReportStore, _host, map_batch
-from .heavy_hitters import (_ms, finalize_round, run_round_collect,
-                            run_round_stage)
+from ..obs import trace as obs_trace
+from .heavy_hitters import (_ms, begin_round_obs, end_round_obs,
+                            finalize_round, run_round_collect,
+                            run_round_stage, stamp_round)
 from .pipeline import ChunkedRound, CopyStreams, pipeline_mode
 
 
@@ -150,12 +152,13 @@ class AttributeMetricsRun:
         self.valid = valid
         self.prefixes = prefixes
         self.metrics: list = []
+        self.obs_tenant = ""   # telemetry label (set by the service)
         self.done = False
         self._result: Optional[list] = None
 
     def step(self) -> bool:
         """Run the single aggregation round.  Returns False: no more
-        rounds."""
+        rounds.  The round's telemetry is HeavyHittersRun.step's."""
         handle = self.step_begin()
         if handle is None:
             return False
@@ -163,36 +166,54 @@ class AttributeMetricsRun:
 
     def step_begin(self) -> Optional[dict]:
         """Dispatch the round without blocking; None when the run has
-        finished."""
+        finished.  A chunked round runs whole here (its executor makes
+        one wait per chunk): its handle is "atomic"."""
         if self.done:
             return None
-        agg_param = (self.mastic.bits - 1, self.prefixes, True)
+        level = self.mastic.bits - 1
+        agg_param = (level, self.prefixes, True)
         if not self.mastic.is_valid(agg_param, []):
             raise ValueError("invalid aggregation parameter")
         t0 = time.perf_counter()
-        if self.chunk_size is not None:
-            # The chunked round runs whole: its executor makes one wait
-            # per chunk.
-            handle = _run_round_chunked(
-                self.bm, self.verify_key, self.ctx, agg_param, self.device,
-                self.chunk_size, self.valid, self.metrics,
-                reports=self.reports, store=self.store, mesh=self.mesh)
-        else:
-            handle = run_round_stage(self.bm, self.verify_key, self.ctx,
-                                     agg_param, self.batch, self.valid)
-        handle.update(agg_param=agg_param, t0=t0)
+        num = (self.store.num_reports if self.store is not None
+               else int(self.batch.nonces.shape[0]) if self.batch is not None
+               else len(self.reports))
+        obs = begin_round_obs(self.obs_tenant, 0, level, len(self.prefixes),
+                              num, self.device)
+        try:
+            with obs_trace.get_tracer().use_parent(obs["span"]):
+                if self.chunk_size is not None:
+                    handle = _run_round_chunked(
+                        self.bm, self.verify_key, self.ctx, agg_param,
+                        self.device, self.chunk_size, self.valid,
+                        self.metrics, reports=self.reports, store=self.store,
+                        mesh=self.mesh)
+                else:
+                    handle = run_round_stage(self.bm, self.verify_key,
+                                             self.ctx, agg_param, self.batch,
+                                             self.valid)
+        except BaseException as exc:
+            end_round_obs(obs, error=exc)
+            raise
+        handle.update(obs, agg_param=agg_param, t0=t0,
+                      atomic=self.chunk_size is not None)
         return handle
 
     def step_finish(self, handle: dict) -> bool:
         """Collect the round (its one blocking sync), stamp its metrics,
         keep the result.  Returns False: there is exactly one round."""
         result = handle.get("result")
-        if result is None:
-            result = run_round_collect(self.bm, handle["agg_param"], handle,
-                                       metrics_out=self.metrics,
-                                       reports=self.reports)
-        self.metrics[-1].extra["round_wall_ms"] = \
-            (time.perf_counter() - handle["t0"]) * 1e3
+        try:
+            if result is None:
+                with obs_trace.get_tracer().use_parent(handle["span"]):
+                    result = run_round_collect(
+                        self.bm, handle["agg_param"], handle,
+                        metrics_out=self.metrics, reports=self.reports)
+        except BaseException as exc:
+            end_round_obs(handle, error=exc)
+            raise
+        end_round_obs(handle)
+        stamp_round(self.metrics[-1], handle["t0"], self.obs_tenant)
         self._result = list(zip(self.attributes, result))
         self.done = True
         return False

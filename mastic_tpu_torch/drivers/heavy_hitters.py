@@ -87,6 +87,8 @@ from ..backend.mastic import (BatchedMastic, Mastic, ReportBatch,
 from ..convert import carry_from_arrays, carry_to_arrays
 from ..metrics import (RoundMetrics, attribute_rejections,
                        count_round_bytes, count_round_ops)
+from ..obs import devtime
+from ..obs import trace as obs_trace
 from ..parallel.mesh import (gather_round, gather_rows, mesh_block,
                              place_reports, shard_incremental_runner,
                              tree_map)
@@ -110,6 +112,44 @@ def _pad_nodes(x: torch.Tensor, dim: int, pad: int) -> torch.Tensor:
 
 def _ms(t0: float, t1: float) -> float:
     return (t1 - t0) * 1e3
+
+
+# -- the rounds' telemetry ----------------------------------------------
+
+def begin_round_obs(tenant: str, rnd: int, level: int, frontier_width: int,
+                    reports: int, device) -> dict:
+    """Open a round's telemetry: the detached "round" span, with the
+    JAX package's attributes, and the one-shot profiler when
+    `MASTIC_TORCH_PROFILE` is armed.  Returns the handle entries
+    `end_round_obs` closes."""
+    prof = devtime.round_profiler(device, tenant)
+    span = obs_trace.get_tracer().start_detached_span(
+        "round", tenant=tenant, round=rnd, level=level,
+        frontier_width=frontier_width, reports=reports,
+        profiled=prof is not None)
+    return {"span": span, "prof": prof}
+
+
+def end_round_obs(handle: dict, error: Optional[BaseException] = None
+                  ) -> None:
+    """Close the profiler bracket (writing its trace) and the round span
+    exactly once; either half of a round may take the error path."""
+    prof = handle.pop("prof", None)
+    if prof is not None:
+        handle["profile_trace"] = prof.stop()
+    span = handle.pop("span", None)
+    if span is not None:
+        if error is not None:
+            span.set_default("error", type(error).__name__)
+        obs_trace.get_tracer().end_span(span)
+
+
+def stamp_round(metrics: RoundMetrics, t0: float, tenant: str) -> None:
+    """A finished round's record: its wall time, the schema check of its
+    blocks, and its registry series."""
+    metrics.extra["round_wall_ms"] = _ms(t0, time.perf_counter())
+    metrics.validate_extra()
+    devtime.observe_round(metrics, tenant=tenant)
 
 
 # -- the scalar fallback -----------------------------------------------
@@ -360,10 +400,19 @@ class IncrementalRunner:
         metrics.extra["excluded_invalid"] = int((~valid).sum())
         metrics.extra["rejected_fallback_by"] = rejected_by
         metrics.extra["splice_ms"] = _ms(t_wait, t_splice)
-        metrics.extra["phases"] = {
-            "plan_upload_ms": _ms(t0, t_plan),
-            "dispatch_ms": _ms(t_plan, t_disp),
-            "compute_wait_ms": _ms(t_disp, t_wait)}
+        t_host = time.perf_counter()
+        # The JAX package's resident block: one chunk, so nothing to
+        # overlap within the round.  The downloads are the round's one
+        # sync, so their time is inside compute_wait_ms; the port
+        # compiles no program, so there is no compile_ms phase.
+        metrics.extra["pipeline"] = {
+            "mode": "resident-deferred", "fallback": None,
+            "round_wall_ms": _ms(t0, t_host), "overlap_efficiency": 0.0,
+            "compile_inline_ms": 0.0, "host_syncs": 1,
+            "phases": {"upload_ms": _ms(t0, t_plan),
+                       "dispatch_ms": _ms(t_plan, t_disp),
+                       "compute_wait_ms": _ms(t_disp, t_wait),
+                       "host_ms": _ms(t_wait, t_host)}}
         if self.mesh is not None:
             metrics.extra["mesh"] = mesh_block(self.mesh, num, g.share_bytes,
                                                [g.skew_ms])
@@ -566,10 +615,18 @@ class HeavyHittersRun:
         self.heavy_hitters: list = []
         # Per completed level: (prefixes, weighted counts).
         self.level_results: list = []
+        self.device = dev
+        self.obs_tenant = ""   # telemetry label (set by the service)
         self.done = False
 
     def step(self) -> bool:
-        """Run one level's round.  Returns True while more remain."""
+        """Run one level's round.  Returns True while more remain.
+
+        Each round runs inside a detached "round" trace span (tenant,
+        round, level, frontier width, reports) and feeds the registry
+        (`obs.devtime.observe_round`); with `MASTIC_TORCH_PROFILE=dir`
+        armed, the first round stepped in the process runs under
+        `torch.profiler` and leaves a Chrome trace in `dir`."""
         handle = self.step_begin()
         if handle is None:
             return False
@@ -577,7 +634,10 @@ class HeavyHittersRun:
 
     def step_begin(self) -> Optional[dict]:
         """Dispatch one level's round without blocking; None when no
-        rounds remain.  Every handle goes to `step_finish`."""
+        rounds remain.  The handle's "atomic" flag is True when the
+        round ran whole here instead (the chunked runner, whose
+        executor makes one wait per chunk).  Every handle goes to
+        `step_finish`: the frontier advances only there."""
         if self.done:
             return None
         if not self.prefixes:
@@ -587,17 +647,25 @@ class HeavyHittersRun:
         if not self.mastic.is_valid(agg_param, self.prev_agg_params):
             raise ValueError("invalid aggregation parameter sequence")
         t0 = time.perf_counter()
-        if self.store is not None:
-            # The chunked round runs whole: its executor makes one wait
-            # per chunk.
-            handle = {"counts": self.runner.round(
-                agg_param, metrics_out=self.metrics)}
-        elif self.runner is not None:
-            handle = self.runner.round_stage(agg_param)
-        else:
-            handle = run_round_stage(self.bm, self.verify_key, self.ctx,
-                                     agg_param, self.batch, self.valid)
-        handle.update(agg_param=agg_param, t0=t0)
+        obs = begin_round_obs(self.obs_tenant, self.level, self.level,
+                              len(self.prefixes), self.num_reports,
+                              self.device)
+        try:
+            with obs_trace.get_tracer().use_parent(obs["span"]):
+                if self.store is not None:
+                    handle = {"counts": self.runner.round(
+                        agg_param, metrics_out=self.metrics)}
+                elif self.runner is not None:
+                    handle = self.runner.round_stage(agg_param)
+                else:
+                    handle = run_round_stage(self.bm, self.verify_key,
+                                             self.ctx, agg_param, self.batch,
+                                             self.valid)
+        except BaseException as exc:
+            end_round_obs(obs, error=exc)
+            raise
+        handle.update(obs, agg_param=agg_param, t0=t0,
+                      atomic=self.store is not None)
         return handle
 
     def step_finish(self, handle: dict) -> bool:
@@ -605,17 +673,22 @@ class HeavyHittersRun:
         the threshold, and advance the frontier.  Returns True while
         more rounds remain."""
         (level, prefixes, _wc) = handle["agg_param"]
-        if self.store is not None:
-            counts = handle["counts"]
-        elif self.runner is not None:
-            counts = self.runner.round_collect(handle,
-                                               metrics_out=self.metrics)
-        else:
-            counts = run_round_collect(self.bm, handle["agg_param"], handle,
-                                       metrics_out=self.metrics,
-                                       reports=self.reports)
-        self.metrics[-1].extra["round_wall_ms"] = \
-            (time.perf_counter() - handle["t0"]) * 1e3
+        try:
+            with obs_trace.get_tracer().use_parent(handle["span"]):
+                if self.store is not None:
+                    counts = handle["counts"]
+                elif self.runner is not None:
+                    counts = self.runner.round_collect(
+                        handle, metrics_out=self.metrics)
+                else:
+                    counts = run_round_collect(
+                        self.bm, handle["agg_param"], handle,
+                        metrics_out=self.metrics, reports=self.reports)
+        except BaseException as exc:
+            end_round_obs(handle, error=exc)
+            raise
+        end_round_obs(handle)
+        stamp_round(self.metrics[-1], handle["t0"], self.obs_tenant)
         self.prev_agg_params.append(handle["agg_param"])
         self.level_results.append((list(prefixes), counts))
         survivors = [p for (p, c) in zip(prefixes, counts)
@@ -632,6 +705,28 @@ class HeavyHittersRun:
 
     def result(self) -> list:
         return self.heavy_hitters
+
+    def frontier(self) -> list:
+        """The output after the last COMPLETED level (what a collector
+        service reports for an epoch cut short by its deadline): the
+        heavy hitters once done; [] before any round; mid-tree the
+        survivors of the last completed level, the unique parents of
+        the expanded candidates.  Nothing is claimed about levels that
+        never ran."""
+        if self.done:
+            return list(self.heavy_hitters)
+        if self.level == 0:
+            return []
+        seen: dict = {}
+        for p in self.prefixes:
+            seen.setdefault(p[:-1], None)
+        return list(seen)
+
+    def rounds_completed(self) -> int:
+        """Levels completed over the run's lifetime (a restored run
+        counts the levels before its checkpoint; `metrics` covers only
+        this process's)."""
+        return self.level
 
     def excluded(self) -> np.ndarray:
         """Reports left out of the aggregates (bool (R,)): those whose

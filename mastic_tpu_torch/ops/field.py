@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..scalar.field import Field64, Field128
+from . import kernels
 from .bits import I32, I64
 
 _MASK16 = 0xFFFF
@@ -57,7 +58,10 @@ class FieldSpec:
         """A limb tensor or a host constant as a list of n int64
         tensors (constants broadcast)."""
         if not isinstance(x, torch.Tensor):
-            x = torch.as_tensor(np.asarray(x, np.int64), device=like.device)
+            # A host constant, uploaded once per device (a blocking copy
+            # each call would synchronize the stream).
+            a = np.ascontiguousarray(x, np.int64)
+            x = kernels.const_int64(a.tobytes(), a.shape, like.device)
         x = x.to(I64)
         return [x[..., i] for i in range(x.shape[-1])]
 

@@ -202,8 +202,7 @@ def _sponge_cuda(msg: torch.Tensor, length: int, domain: int,
         raise ValueError("the sponge kernel runs Keccak-p[1600, 12]")
     kernels.check_cuda(msg, torch.uint8, "msg")
     plen = len(prefix)
-    pre = torch.as_tensor(np.frombuffer(bytes(prefix) or b"\0", np.uint8).copy(),
-                          device=msg.device)
+    pre = kernels.const_bytes(bytes(prefix) or b"\0", msg.device)
     batch_shape = msg.shape[:-1]
     batch = 1
     for d in batch_shape:

@@ -35,6 +35,7 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -159,12 +160,21 @@ def launch(name: str, fn: str, *args, counter: str = "") -> None:
     launches[counter or name] += 1
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=1024)
 def const_bytes(data: bytes, device: torch.device) -> torch.Tensor:
     """A constant byte string (a dst prefix) as a uint8 tensor on the
     card, uploaded once: a copy from pageable host memory would wait
     for the stream at every launch.  Kernels only read it."""
     return torch.tensor(list(data), dtype=torch.uint8, device=device)
+
+
+@functools.lru_cache(maxsize=1024)
+def const_int64(data: bytes, shape: tuple,
+                device: torch.device) -> torch.Tensor:
+    """A constant int64 array (its bytes and shape) on `device`,
+    uploaded once, as `const_bytes`.  Callers only read it."""
+    return torch.from_numpy(np.frombuffer(data, np.int64).reshape(
+        shape).copy()).to(device)
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:

@@ -101,11 +101,12 @@ def test_aggregate_by_attribute_matches_jax(rounds):
 
 
 def test_round_metrics_match_jax(rounds):
-    """RoundMetrics.as_dict() equals the JAX package's record but for
-    `extra`'s wall times, artifact-tier block and schema stamp (layers
-    the port has not brought over) and the port's own entries (no
-    report left out as invalid, no splice rejection); the two tampered
-    reports are attributed to the eval proof and the weight check."""
+    """RoundMetrics.as_dict() equals the JAX package's record, its schema
+    stamp included, but for `extra`'s wall times and artifact-tier block
+    (a layer the port has not brought over) and the port's own entries
+    (no report left out as invalid, no splice rejection); the two
+    tampered reports are attributed to the eval proof and the weight
+    check."""
     ((_tr, tmetrics), (_jr, jmetrics), _votes) = rounds
     assert len(tmetrics) == len(jmetrics) == 1
     (got, want) = (tmetrics[0].as_dict(), jmetrics[0].as_dict())
@@ -113,7 +114,7 @@ def test_round_metrics_match_jax(rounds):
     assert got["extra"].pop("splice_ms") >= 0
     assert (got["extra"].pop("excluded_invalid"),
             got["extra"].pop("rejected_fallback_by")) == (0, {})
-    for key in ("round_wall_ms", "artifacts", "schema"):
+    for key in ("round_wall_ms", "artifacts"):
         want["extra"].pop(key)
     assert got == want
     assert (got["accepted"], got["rejected_eval_proof"],

@@ -58,11 +58,11 @@ def _jax_batch(arrays: dict) -> JReportBatch:
         peer_parts=(None, None))
 
 
-# RoundMetrics.extra entries that are times, or blocks of layers the
-# port does not have yet (the AOT tier, the pipeline, the mesh, the
-# schema stamp).
+# RoundMetrics.extra entries that are times (the "pipeline" block is the
+# round's phase times), or blocks of layers the port does not have yet
+# (the AOT tier) or that this run does not use (the mesh).
 _UNSHARED_EXTRA = ("round_wall_ms", "splice_ms", "phases", "artifacts",
-                   "pipeline", "mesh", "schema")
+                   "pipeline", "mesh")
 
 
 def _comparable(metrics) -> dict:

@@ -244,3 +244,38 @@ def test_party_layer_imports_no_jax(name, run):
         cwd=REPO, capture_output=True, text=True, timeout=120,
         check=True).stdout
     assert out.strip() == "[]"
+
+
+SERVICE_MODULES = ["drivers.service", "drivers.wal", "net.ingest",
+                   "net.admission", "net.loadgen", "obs.schema",
+                   "obs.devtime", "obs.statusz", "tools.serve",
+                   "tools.loadgen"]
+
+
+@pytest.mark.parametrize("name", SERVICE_MODULES)
+def test_service_layer_is_in_the_package_walk(name):
+    """Each module of the service layer is reached by the package walk,
+    so the probe of the whole package covers it."""
+    names = [m.name for m in pkgutil.walk_packages(
+        mastic_tpu_torch.__path__, "mastic_tpu_torch.")]
+    assert f"mastic_tpu_torch.{name}" in names
+
+
+def test_service_layer_imports_no_jax():
+    """In a fresh interpreter, the service layer (the service, the WAL,
+    the upload front, the observability modules and both tools) loads
+    neither jax nor mastic_tpu, and neither does building a service on
+    the CPU."""
+    probe = "\n".join(
+        ["import sys"]
+        + [f"import mastic_tpu_torch.{n}" for n in SERVICE_MODULES]
+        + ["from mastic_tpu_torch.drivers import service as s",
+           "s.CollectorService([s.TenantSpec('t', {'class': 'MasticCount', "
+           "'args': [2]}, b'c', bytes(32), thresholds={'default': 1})], "
+           "s.ServiceConfig(), device='cpu').metrics()",
+           "print([m for m in sys.modules if m.split('.')[0] in "
+           "('jax', 'mastic_tpu')])"])
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
