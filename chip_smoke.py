@@ -38,7 +38,15 @@
    attribute row's shape, fresh parent seeds drawn until a launch
    returns ok False (about 200 launches expected, at most 3000), and
    that launch held bit-exact against `level_step_plain`, ok included.
-3. Drives thirteen phases, each with every launch counter set to 0 just
+   And at phase n's shapes: K3 at MasticMultihotCountVec(64, 16, 4,
+   4)'s from-root level (Field128, VALUE_LEN 20, 21 convert blocks, R x
+   16 parents) and at the 100 000-report Histogram cell's chunk x 16
+   parents; K1's binder sponge on each of those rounds' flat Field128
+   trees (level 63 over 16 attributes), timed at the path's report count
+   and checked against the plain version (the multihot tree on its first
+   BINDER_CHECK_R reports, the Histogram chunk's on every report with
+   the index lists cut at both ends); K2 at 21 blocks.
+3. Drives fifteen phases, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
    runs (K1's binder sponge and K3 count Field128 launches apart).
    Every path hands its runs the scalar reports behind its batch
@@ -112,7 +120,33 @@
       at most 1.1x `memory_envelope`'s pipelined per-chunk peak.  The
       cuts (R, levels) are printed, and per level the wall time, the
       card's upload, compute and download times and the overlap.
-   j. The mesh, last (`parallel.launch.spawn`, one process a rank,
+   n. After phase h: n1, MasticMultihotCountVec(64, 16, 4, 4) over R
+      reports (four in five on 16 hashed 64-bit attribute strings, 0-4
+      of 16 entries hot), 100 with a changed leader proof limb: both
+      aggregators' weight check from their depth-0 payloads (the FLP
+      verdicts exactly the untampered reports, every joint rand
+      confirmed), then `aggregate_by_attribute` from the root at level
+      63 over the 16 attributes: every attribute's 16-entry count equal
+      to numpy's, exactly the tampered reports rejected, at the weight
+      check.  n2, BASELINE.json's "Histogram(len=16), BITS=64, 100k
+      clients": MasticHistogram(64, 16, 4) over 100 000 reports (each
+      one of 16 hashed attributes, buckets uniform), sharded in batches
+      of 4096 into a pinned `HostReportStore`, then the weight-checked
+      round from the root at level 63 in chunks priced by
+      `memory_envelope` at the tree's padded width 32 (two chunks in
+      flight): every attribute's 16 buckets equal to numpy's, every
+      report accepted (32 768 reports past HIST100K_CUT_AFTER_S, printed
+      as a cut).
+   m. The north-star tool (`python -m mastic_tpu_torch.tools.northstar`,
+      its `collect` in this process), after phase n: 32 768
+      MasticCount(32) reports (the tool's recipe: three planted paths,
+      threshold 0.1 R) chunked in chunks of 4096 from a pinned store,
+      `--resident`, and `--mesh 1` over NCCL (one spawned rank, which
+      shards its rows and counts its launches); each line must say ok,
+      its heavy hitters equal the planted paths and the oracle's
+      (`oracle.weighted_heavy_hitters`), and each run must launch K1,
+      K2 and K3.  16 bits past NORTHSTAR_CUT_AFTER_S (printed as a cut).
+   j. The mesh (`parallel.launch.spawn`, one process a rank,
       each run's counters set to 0 in the rank): over NCCL, 1 rank on
       the card, the Count path's reports through `HeavyHittersRun(mesh=)`
       for 16 levels, each equal to phase a's; over gloo, 2 ranks sharing
@@ -192,9 +226,11 @@
    party's launches in phase k's sub-phase of the row's instantiation,
    Count k2, MasticSum k1, Field128 k3; `launches_service` are the
    launches in phase l's rounds of the row's tenant, Count rows from
-   "count", MasticSum rows from "attrs", Field128 rows null), the
-   card, each path's figures, and last `{"ok": true, "device":
-   {...}}`.
+   "count", MasticSum rows from "attrs", Field128 rows null;
+   `launches_northstar` on the Count rows are each phase-m run's
+   launches, the mesh run's counted in its rank; phase n's rows take
+   their launches from n1 and n2), the card, each path's figures, and
+   last `{"ok": true, "device": {...}}`.
    Any failure exits non-zero before that line.
 
 Exits 2 without a card.  Needs the repository beside it (it imports
@@ -304,6 +340,34 @@ MESH_COUNTERS = {
     "attributes": ("keccak", "keccak_binder", "aes", "level"),
     "nccl": ("keccak", "keccak_binder", "aes", "level"),
 }
+# Phase m, the north-star tool (`python -m mastic_tpu_torch.tools.northstar`)
+# in this process: NORTHSTAR_R MasticCount reports with the tool's three
+# planted paths, chunked in chunks of NORTHSTAR_CHUNK, resident, and over
+# NCCL at one rank (chunked); NORTHSTAR_CUT_BITS bits past
+# NORTHSTAR_CUT_AFTER_S.
+NORTHSTAR_R = 8 * R
+NORTHSTAR_CHUNK = R
+NORTHSTAR_BITS = 32
+NORTHSTAR_CUT_BITS = 16
+NORTHSTAR_CUT_AFTER_S = 700.0
+NORTHSTAR_RUNS = (("chunked", []), ("resident", ["--resident"]),
+                  ("mesh", ["--mesh", "1", "--backend", "nccl"]))
+NORTHSTAR_COUNTERS = ("keccak", "keccak_binder", "aes", "level")
+# Phase n: MasticMultihotCountVec at the Histogram cell's shape (64-bit
+# attribute strings, 16 entries, chunk 4, at most 4 hot) over R reports
+# with MULTIHOT_TAMPERED tampered proof shares; MasticHistogram(64, 16,
+# 4) at BASELINE.json's 100 000 reports from the root (HIST100K_CUT_R
+# past HIST100K_CUT_AFTER_S), its chunk priced by memory_envelope at the
+# from-root tree's padded width.  K1's binder rows at these shapes are
+# checked on their first BINDER_CHECK_R reports.
+MULTIHOT = (64, 16, 4, 4)
+MULTIHOT_ATTRS = 16
+MULTIHOT_TAMPERED = 100
+HIST100K_R = 100_000
+HIST100K_CUT_R = 8 * R
+HIST100K_CUT_AFTER_S = 650.0
+HIST100K_WIDTH = 32
+BINDER_CHECK_R = 128
 # The launch counters each path must reach (ops/kernels.py): K1's
 # in-place sponge and its binder sponge (per field), K2's fixed-key
 # entry, K3 (per field).  The from-root cross-check of the Count path
@@ -319,6 +383,8 @@ PATH_COUNTERS = {
     "resident_checkpoint": ("keccak", "keccak_binder", "aes", "level"),
     "count_chunked": ("keccak", "keccak_binder", "aes", "level"),
     "chunked_checkpoint": ("keccak", "keccak_binder", "level"),
+    "multihot": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
+    "histogram_100k": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
 }
 # Phase k, the party layer: the lanes whose upload blobs are held
 # against the scalar encoder in k1, and where the party processes'
@@ -664,9 +730,6 @@ def check_new_shapes(dev: torch.device, gen: torch.Generator) -> list:
     depth 64, and the kernel alone at depth 256) and on two Field128
     carries at the Histogram path's last level; K2 at 10, 18 and 1026
     blocks."""
-    from mastic_tpu_torch.backend.xof import (fixed_key_blocks,
-                                              fixed_key_blocks_plain)
-    from mastic_tpu_torch.ops import aes
     from mastic_tpu_torch.ops.field import FIELD64, FIELD128
 
     rows = []
@@ -717,37 +780,50 @@ def check_new_shapes(dev: torch.device, gen: torch.Generator) -> list:
     for (blocks, name) in ((10, "aes_fixed_key_blocks_sum"),
                            (18, "aes_fixed_key_blocks_histogram"),
                            (1026, "aes_fixed_key_blocks_sumvec")):
-        keys = torch.randint(0, 256, (R, 16), dtype=torch.uint8, device=dev,
-                             generator=gen)
-        seeds = torch.randint(0, 256, (R, 2, 16), dtype=torch.uint8,
-                              device=dev, generator=gen)
-        rk = aes.aes128_key_schedule(keys)
-        err = _max_err([fixed_key_blocks(rk, seeds, blocks)],
-                       [fixed_key_blocks_plain(rk, seeds, blocks)])
-        ms = _time(lambda: fixed_key_blocks(rk, seeds, blocks), 50)
-        device_ms = _device_ms(lambda: fixed_key_blocks(rk, seeds, blocks),
-                               ("fixed_key_kernel",), 50)["fixed_key_kernel"]
-        plain_ms = _time(lambda: fixed_key_blocks_plain(rk, seeds, blocks), 1)
-        columns = R // 32 * 2 * blocks
-        (bound, by) = _bound(float(R * (11 * 16 + 2 * 16 + 2 * blocks * 16)),
-                             columns * AES_BLOCK_OPS)
-        print(f"K2 fixed_key_blocks at {R} reports x 2 seeds x {blocks} "
-              f"blocks: whole call {ms:.4f} ms, kernel {device_ms:.4f} ms "
-              f"(plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by}), "
-              f"max_abs_err {err}")
-        rows.append({"name": name, "route": "cuda",
-                     "source": "mastic_tpu_torch/csrc/aes.cu",
-                     "replaces": "mastic_tpu/ops/aes_pallas.py:149",
-                     "max_abs_err": err, "kernel_ms": ms, "ms": ms,
-                     "device_ms": device_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "library_ms": None,
-                     "shape": f"fixed_key_blocks, {R} reports x 2 seeds x "
-                              f"{blocks} blocks"})
+        rows.append(_aes_row(dev, gen, blocks, name))
     for row in rows:
         if row["max_abs_err"]:
             raise AssertionError(f"{row['name']} disagrees with its plain "
                                  f"version: {row['max_abs_err']}")
     return rows
+
+
+def _aes_row(dev: torch.device, gen: torch.Generator, blocks: int,
+             name: str) -> dict:
+    """K2's fixed-key entry at a payload's convert shape, R reports x 2
+    seeds x `blocks` blocks, against its plain version: the whole call
+    (CUDA events), the kernel (profiler), the plain version and the
+    bound."""
+    from mastic_tpu_torch.backend.xof import (fixed_key_blocks,
+                                              fixed_key_blocks_plain)
+    from mastic_tpu_torch.ops import aes
+
+    keys = torch.randint(0, 256, (R, 16), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    seeds = torch.randint(0, 256, (R, 2, 16), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    rk = aes.aes128_key_schedule(keys)
+    err = _max_err([fixed_key_blocks(rk, seeds, blocks)],
+                   [fixed_key_blocks_plain(rk, seeds, blocks)])
+    ms = _time(lambda: fixed_key_blocks(rk, seeds, blocks), 50)
+    device_ms = _device_ms(lambda: fixed_key_blocks(rk, seeds, blocks),
+                           ("fixed_key_kernel",), 50)["fixed_key_kernel"]
+    plain_ms = _time(lambda: fixed_key_blocks_plain(rk, seeds, blocks), 1)
+    columns = R // 32 * 2 * blocks
+    (bound, by) = _bound(float(R * (11 * 16 + 2 * 16 + 2 * blocks * 16)),
+                         columns * AES_BLOCK_OPS)
+    print(f"K2 fixed_key_blocks at {R} reports x 2 seeds x {blocks} "
+          f"blocks: whole call {ms:.4f} ms, kernel {device_ms:.4f} ms "
+          f"(plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by}), "
+          f"max_abs_err {err}")
+    return {"name": name, "route": "cuda",
+            "source": "mastic_tpu_torch/csrc/aes.cu",
+            "replaces": "mastic_tpu/ops/aes_pallas.py:149",
+            "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": f"fixed_key_blocks, {R} reports x 2 seeds x "
+                     f"{blocks} blocks"}
 
 
 def flat_binder_inputs(dev: torch.device, gen: torch.Generator, sched,
@@ -2003,26 +2079,6 @@ def chunked_checkpoint(dev: torch.device, handoff: tuple) -> dict:
             "heavy_hitters": len(back.result())}
 
 
-def _cat_batches(batches: list):
-    """Report batches concatenated along the report axis."""
-    first = batches[0]
-
-    def cat(get):
-        parts = [get(b) for b in batches]
-        return None if parts[0] is None else torch.cat(parts)
-
-    return first._replace(
-        nonces=cat(lambda b: b.nonces),
-        cws=type(first.cws)(*(cat(lambda b, i=i: b.cws[i])
-                              for i in range(len(first.cws)))),
-        keys=cat(lambda b: b.keys),
-        leader_proofs=cat(lambda b: b.leader_proofs),
-        helper_seeds=cat(lambda b: b.helper_seeds),
-        leader_seeds=cat(lambda b: b.leader_seeds),
-        peer_parts=tuple(cat(lambda b, a=a: b.peer_parts[a])
-                         for a in range(2)))
-
-
 def _mem_available() -> int:
     """This host's available memory (/proc/meminfo's MemAvailable), in
     bytes."""
@@ -2045,7 +2101,7 @@ def count_chunked(dev: torch.device, seed: int, levels: int) -> dict:
     from mastic_tpu_torch import HostReportStore
     from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticCount
     from mastic_tpu_torch.drivers.chunked import (
-        _host_budget, memory_envelope, per_report_bytes)
+        _host_budget, cat_batches, memory_envelope, per_report_bytes)
     from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
     from mastic_tpu_torch.ops import kernels
 
@@ -2073,7 +2129,7 @@ def count_chunked(dev: torch.device, seed: int, levels: int) -> dict:
         batches.append(batch)
         oks.append(ok)
         shard_s += secs
-    batch = _cat_batches(batches)
+    batch = cat_batches(batches)
     shard_ok = torch.cat(oks)
     del batches, oks
     shard_launches = dict(kernels.launches)
@@ -2136,6 +2192,438 @@ def count_chunked(dev: torch.device, seed: int, levels: int) -> dict:
             "rejected": int(excluded.sum()),
             "xof_fallbacks": run.metrics[-1].xof_fallbacks,
             "shard_launches": shard_launches}
+
+
+# -- phase m: the north-star tool ------------------------------------------
+
+def northstar_argv(bits: int) -> list:
+    """The tool's command line in phase m, before each run's mode."""
+    return ["--reports", str(NORTHSTAR_R), "--bits", str(bits),
+            "--chunk-size", str(NORTHSTAR_CHUNK), "--seed", "0",
+            "--device", "cuda"]
+
+
+def northstar_oracle(bits: int) -> tuple:
+    """`oracle.weighted_heavy_hitters` over the tool's measurements at
+    phase m's shape (identical paths merged into one weighted
+    measurement: the weights add, so the result is the same)."""
+    from mastic_tpu_torch.oracle import weighted_heavy_hitters
+    from mastic_tpu_torch.tools import northstar
+
+    args = northstar.parse_args(northstar_argv(bits))
+    rep = northstar.synthetic_reports(args)
+    merged: dict = {}
+    for (alpha, weight) in zip(np.packbits(rep.alphas, axis=1), rep.weights):
+        key = alpha.tobytes()
+        merged[key] = merged.get(key, 0) + int(weight)
+    meas = [(tuple(bool(b) for b in np.unpackbits(
+        np.frombuffer(key, np.uint8))[:bits]), w)
+        for (key, w) in merged.items()]
+    return (weighted_heavy_hitters(meas, rep.threshold, bits),
+            sorted(tuple(bool(b) for b in p) for p in rep.paths))
+
+
+def northstar_phase(dev: torch.device, elapsed_s: float) -> dict:
+    """Phase m: `python -m mastic_tpu_torch.tools.northstar`'s `collect`
+    in this process, three times on the same reports (NORTHSTAR_R x
+    NORTHSTAR_BITS, three planted paths): chunked from a pinned store in
+    chunks of NORTHSTAR_CHUNK, `--resident`, and `--mesh 1` over NCCL
+    (one spawned rank, chunked).  Each line must say `ok: true` and its
+    heavy hitters must equal the planted paths and the oracle's; every
+    run must launch K1 (in-place sponge and binder), K2 and K3, counted
+    from 0 just before it (the mesh rank counts its own).  Past
+    NORTHSTAR_CUT_AFTER_S the runs take NORTHSTAR_CUT_BITS bits (a cut,
+    printed)."""
+    from mastic_tpu_torch.drivers.chunked import _release_pinned
+    from mastic_tpu_torch.ops import kernels
+    from mastic_tpu_torch.tools import northstar
+
+    bits = (NORTHSTAR_BITS if elapsed_s < NORTHSTAR_CUT_AFTER_S
+            else NORTHSTAR_CUT_BITS)
+    t0 = time.perf_counter()
+    (oracle, planted) = northstar_oracle(bits)
+    oracle_s = time.perf_counter() - t0
+    if oracle != planted:
+        raise AssertionError("north star: the oracle's heavy hitters are not "
+                             "the planted paths")
+    out = {"bits": bits, "oracle_s": oracle_s, "runs": {}}
+    for (name, extra) in NORTHSTAR_RUNS:
+        torch.cuda.empty_cache()
+        _release_pinned()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        (_args, result, ranks) = northstar.collect(northstar_argv(bits)
+                                                   + extra)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = ranks[0] if ranks else dict(kernels.launches)
+        line = result["line"]
+        got = sorted(result["heavy_hitters"])
+        if not line["ok"] or got != oracle:
+            raise AssertionError(f"north star {name}: ok {line['ok']}, heavy "
+                                 f"hitters {len(got)} against the oracle's "
+                                 f"{len(oracle)}")
+        idle = [c for c in NORTHSTAR_COUNTERS if launches[c] == 0]
+        if idle:
+            raise AssertionError(f"north star {name}: kernels not launched: "
+                                 f"{idle}")
+        out["runs"][name] = {
+            "line": line, "launches": launches, "wall_s": wall_s,
+            "peak": None if ranks else torch.cuda.max_memory_allocated(dev)}
+    return out
+
+
+def _print_northstar(m: dict) -> None:
+    if m["bits"] < NORTHSTAR_BITS:
+        print(f"cut: the north-star runs took {m['bits']} bits, not "
+              f"{NORTHSTAR_BITS}: the smoke had run past "
+              f"{NORTHSTAR_CUT_AFTER_S:.0f} s")
+    print(f"north star: python -m mastic_tpu_torch.tools.northstar, "
+          f"MasticCount({m['bits']}), {NORTHSTAR_R} reports, 3 planted paths; "
+          f"every run ok, its heavy hitters = the planted paths = the "
+          f"oracle's ({m['oracle_s']:.3f} s)")
+    for (name, run) in m["runs"].items():
+        line = run["line"]
+        env = line["envelope"]
+        bound = (env["device_peak_bytes_per_chunk"] if name == "resident"
+                 else env["device_peak_bytes_per_chunk_pipelined_per_shard"])
+        peak = ("device peak measured in the rank" if run["peak"] is None
+                else f"device peak {run['peak']} B against the envelope's "
+                     f"{bound} B")
+        print(f"north star {name}: {line['levels']} levels, width "
+              f"{env['width']}, shard {line['shard_seconds']} s, rounds "
+              f"{line['wall_seconds']} s, {line['node_evals_per_sec']} node "
+              f"evals/s (p50 a chunk {line['per_chunk_evals_per_sec_p50']}), "
+              f"{peak}; call {run['wall_s']:.3f} s; launches "
+              + ", ".join(f"{k} {v}" for (k, v) in run["launches"].items()
+                          if v))
+        print(f"north star {name} line: {json.dumps(line)}")
+
+
+# -- phase n: MasticMultihotCountVec, and Histogram at 100 000 reports ----
+
+def multihot_inputs(dev: torch.device, seed: int) -> dict:
+    """Phase n1's reports: MasticMultihotCountVec(64, 16, 4, 4), R
+    reports of which four in five take one of 16 hashed attribute
+    strings (the rest one of 2^64 others), each a 16-entry vector with
+    0 to 4 entries hot; sharded on the card, then MULTIHOT_TAMPERED
+    reports' leader proof shares changed (one limb's bit 0), and the
+    scalar reports behind the batch tampered alike."""
+    from mastic_tpu_torch import hash_attribute
+    from mastic_tpu_torch.backend.mastic import (BatchedMastic,
+                                                 MasticMultihotCountVec)
+
+    (bits, length, max_weight, _chunk) = MULTIHOT
+    mastic = MasticMultihotCountVec(*MULTIHOT)
+    bm = BatchedMastic(mastic)
+    rng = np.random.default_rng(seed + 30)
+    asked = [f"multihot-{i}" for i in range(MULTIHOT_ATTRS)]
+    paths = np.array([hash_attribute(mastic, a) for a in asked], bool)
+    alphas = np.where((rng.random(R) < 0.8)[:, None],
+                      paths[rng.integers(0, MULTIHOT_ATTRS, R)],
+                      rng.integers(0, 2, (R, bits)).astype(bool))
+    values = np.zeros((R, length), bool)
+    for r in range(R):
+        hot = rng.choice(length, int(rng.integers(0, max_weight + 1)),
+                         replace=False)
+        values[r, hot] = True
+    (nonces, rand, vk) = _path_inputs(dev, seed + 31, mastic.RAND_SIZE, R)
+    meas = [(tuple(bool(b) for b in alphas[r]), values[r].tolist())
+            for r in range(R)]
+    (batch, shard_ok, shard_s) = _shard(dev, bm, meas, nonces, rand)
+    rows = np.sort(rng.choice(R, MULTIHOT_TAMPERED, replace=False))
+    at = rng.integers(0, mastic.valid.PROOF_LEN, MULTIHOT_TAMPERED)
+    batch.leader_proofs[torch.as_tensor(rows, device=dev),
+                        torch.as_tensor(at, device=dev), 0] ^= 1
+    tamper_at = {int(r): int(j) for (r, j) in zip(rows, at)}
+
+    def tamper(r: int, report: tuple) -> tuple:
+        if r not in tamper_at:
+            return report
+        (nonce, public_share, shares) = report
+        (key, proof_share, seed_, part) = shares[0]
+        proof_share = list(proof_share)
+        j = tamper_at[r]
+        proof_share[j] = type(proof_share[j])(proof_share[j].int() ^ 1)
+        return (nonce, public_share, [(key, proof_share, seed_, part),
+                                      shares[1]])
+
+    tampered = np.zeros(R, bool)
+    tampered[rows] = True
+    return {"mastic": mastic, "bm": bm, "asked": asked, "paths": paths,
+            "alphas": alphas, "values": values, "vk": vk, "batch": batch,
+            "shard_ok": shard_ok, "shard_s": shard_s, "tampered": tampered,
+            "reports": ScalarReports(mastic, meas, nonces, rand, tamper)}
+
+
+def multihot_path(dev: torch.device, seed: int) -> dict:
+    """Phase n1 (`multihot_inputs`): both aggregators' weight check from
+    their depth-0 payloads, the joint rand confirmed: exactly the
+    tampered reports fail the FLP check.  Then one weight-checked round
+    from the root at level 63 over the 16 attributes
+    (`aggregate_by_attribute`): every attribute's 16-entry count must
+    equal numpy's over the untampered reports, and the round must
+    reject exactly the tampered reports, attributed to the weight
+    check."""
+    from mastic_tpu_torch import aggregate_by_attribute
+    from mastic_tpu_torch.ops import kernels
+
+    i = multihot_inputs(dev, seed)
+    shard_launches = dict(kernels.launches)
+    (bm, batch, vk) = (i["bm"], i["batch"], i["vk"])
+    valid = i["shard_ok"].cpu().numpy()
+    tampered = i["tampered"]
+    t0 = time.perf_counter()
+    root = bm.schedule((0, ((False,), (True,)), True), dev)
+    trees = [bm.vidpf.eval_full(a, batch.cws, batch.keys[:, a], root, CTX,
+                                batch.nonces) for a in range(2)]
+    (checks, wc_ok) = bm.weight_check_device(vk, CTX, 0, batch, trees[0][0],
+                                             trees[1][0])
+    ok = (wc_ok & trees[0][3] & trees[1][3]).cpu().numpy()
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    flp = checks["weight_check"].cpu().numpy()
+    joint = checks["joint_rand"].cpu().numpy()
+    live = valid & ok
+    if not (np.array_equal(flp[live], ~tampered[live]) and joint[live].all()):
+        raise AssertionError("MasticMultihotCountVec weight check: the FLP "
+                             "verdicts are not exactly the untampered "
+                             "reports, or a joint rand was not confirmed")
+    del trees, checks
+    metrics = []
+    t0 = time.perf_counter()
+    got = aggregate_by_attribute(i["mastic"], CTX, i["asked"], vk, batch,
+                                 valid=i["shard_ok"], metrics_out=metrics,
+                                 device=dev, reports=i["reports"])
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    keep = valid & ~tampered
+    want = [(a, i["values"][(i["alphas"] == p).all(axis=1) & keep]
+             .sum(axis=0).tolist()) for (a, p) in zip(i["asked"], i["paths"])]
+    if got != want:
+        raise AssertionError("MasticMultihotCountVec: per-attribute counts "
+                             "differ from numpy's")
+    m = metrics[0]
+    rejected = int((valid & tampered).sum())
+    if (m.accepted, m.rejected_weight_check, m.rejected_eval_proof,
+            m.rejected_joint_rand, m.xof_fallbacks) != (
+            int(keep.sum()), rejected, 0, 0, 0):
+        raise AssertionError(f"MasticMultihotCountVec: rejections "
+                             f"misattributed: {m}")
+    return {"shard_s": i["shard_s"], "check_s": check_s,
+            "round_s": round_s, "accepted": m.accepted,
+            "rejected_weight_check": m.rejected_weight_check,
+            "rejected_eval_proof": m.rejected_eval_proof,
+            "xof_fallbacks": m.xof_fallbacks, "nodes": m.padded_width,
+            "in_set": int(sum((i["alphas"] == p).all(axis=1).sum()
+                              for p in i["paths"])),
+            "shard_rejected": int((~valid).sum()),
+            "shard_launches": shard_launches, "levels": 1}
+
+
+def hist100k_chunk(dev: torch.device, reports: int) -> int:
+    """Phase n2's chunk size: `memory_envelope`'s largest pipelined
+    chunk at the from-root tree's padded width 32 (two chunks' trees on
+    the card at once), in multiples of 1024 when it holds one, at most
+    `reports`."""
+    from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticHistogram
+    from mastic_tpu_torch.drivers.chunked import memory_envelope
+
+    env = memory_envelope(BatchedMastic(MasticHistogram(*HIST)), 1024,
+                          HIST100K_WIDTH, reports, dev)
+    most = env["max_pipelined_chunk_size_at_width"]
+    return min(reports, most // 1024 * 1024 if most >= 1024 else most)
+
+
+def histogram_100k(dev: torch.device, seed: int, elapsed_s: float) -> dict:
+    """Phase n2: BASELINE.json's "Histogram(len=16), BITS=64, 100k
+    clients".  MasticHistogram(64, 16, 4) over HIST100K_R reports, the
+    Histogram cell's recipe (each report one of 16 attribute strings,
+    here hashed names, with a uniform bucket), sharded on the card in
+    batches of 4096 into a pinned `HostReportStore`, then the
+    weight-checked round from the root at level 63 over the 16
+    attributes in chunks (`aggregate_by_attribute(chunk_size=, store=)`,
+    the chunk from `hist100k_chunk`): every attribute's 16 buckets must
+    equal numpy's, every report accepted.  Past HIST100K_CUT_AFTER_S it
+    runs HIST100K_CUT_R reports (a cut, printed)."""
+    from mastic_tpu_torch import (HostReportStore, aggregate_by_attribute,
+                                  hash_attribute)
+    from mastic_tpu_torch.backend.mastic import (BatchedMastic,
+                                                 MasticHistogram)
+    from mastic_tpu_torch.drivers.chunked import cat_batches
+    from mastic_tpu_torch.ops import kernels
+
+    reports = (HIST100K_R if elapsed_s < HIST100K_CUT_AFTER_S
+               else HIST100K_CUT_R)
+    (bits, length, _chunk) = HIST
+    mastic = MasticHistogram(*HIST)
+    bm = BatchedMastic(mastic)
+    rng = np.random.default_rng(seed + 32)
+    asked = [f"histogram-{i}" for i in range(HIST_ATTRS)]
+    paths = np.array([hash_attribute(mastic, a) for a in asked], bool)
+    attr = rng.integers(0, HIST_ATTRS, reports)
+    buckets = rng.integers(0, length, reports)
+    (nonces, rand, vk) = _path_inputs(dev, seed + 33, mastic.RAND_SIZE,
+                                      reports)
+    meas = [(tuple(bool(b) for b in paths[attr[r]]), int(buckets[r]))
+            for r in range(reports)]
+    (batches, oks) = ([], [])
+    shard_s = 0.0
+    for lo in range(0, reports, R):
+        (batch, ok, secs) = _shard(dev, bm, meas[lo:lo + R],
+                                   nonces[lo:lo + R], rand[lo:lo + R])
+        batches.append(batch)
+        oks.append(ok)
+        shard_s += secs
+    batch = cat_batches(batches)
+    shard_ok = torch.cat(oks)
+    del batches, oks
+    shard_launches = dict(kernels.launches)
+    chunk = hist100k_chunk(dev, reports)
+    t0 = time.perf_counter()
+    store = HostReportStore.from_batch(batch, chunk)
+    store_s = time.perf_counter() - t0
+    del batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = []
+    t0 = time.perf_counter()
+    got = aggregate_by_attribute(
+        mastic, CTX, asked, vk, valid=shard_ok, metrics_out=metrics,
+        device=dev, chunk_size=chunk, store=store,
+        reports=ScalarReports(mastic, meas, nonces, rand))
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    valid = shard_ok.cpu().numpy()
+    want = [(a, np.bincount(buckets[(attr == k) & valid],
+                            minlength=length).tolist())
+            for (k, a) in enumerate(asked)]
+    m = metrics[0]
+    if got != want or m.accepted != int(valid.sum()):
+        raise AssertionError(f"Histogram at {reports} reports: buckets "
+                             f"differ from numpy's, or a report was "
+                             f"rejected ({m.accepted} accepted)")
+    pipe = m.extra["pipeline"]
+    return {"reports": reports, "chunk": chunk, "shard_s": shard_s,
+            "store_s": store_s, "store_bytes": store.host_bytes(),
+            "round_s": round_s, "accepted": m.accepted,
+            "nodes": m.padded_width, "node_evals": m.node_evals,
+            "chunks": len(m.extra["chunks"]),
+            "mode": (pipe["mode"], pipe["fallback"]),
+            "overlap": pipe["overlap_efficiency"],
+            "round_peak": torch.cuda.max_memory_allocated(dev),
+            "shard_rejected": int((~valid).sum()),
+            "shard_launches": shard_launches, "levels": 1}
+
+
+def _print_phase_n(results: dict, peaks: dict, counts: dict) -> None:
+    r = results["multihot"]
+    print(f"multihot path: MasticMultihotCountVec{MULTIHOT}, {R} reports "
+          f"({r['in_set']} on the {MULTIHOT_ATTRS} attributes), "
+          f"{MULTIHOT_TAMPERED} tampered leader proof shares; both "
+          f"aggregators' weight check {r['check_s']:.3f} s (the FLP "
+          f"verdicts exactly the untampered reports, every joint rand "
+          f"confirmed); the round from the root at level {MULTIHOT[0] - 1} "
+          f"over {MULTIHOT_ATTRS} attributes ({r['nodes']} nodes a report) "
+          f"{r['round_s']:.3f} s: every attribute's {MULTIHOT[1]}-entry "
+          f"count = numpy's, accepted {r['accepted']}, rejected_weight_check "
+          f"{r['rejected_weight_check']}, rejected_eval_proof "
+          f"{r['rejected_eval_proof']}, xof_fallbacks {r['xof_fallbacks']} "
+          f"({r['shard_rejected']} at sharding); shard {r['shard_s']:.3f} s; "
+          f"peak device memory {peaks['multihot']} B")
+    _print_launches(counts["multihot"], r)
+    r = results["histogram_100k"]
+    if r["reports"] < HIST100K_R:
+        print(f"cut: the Histogram cell ran {r['reports']} reports, not "
+              f"{HIST100K_R}: the smoke had run past "
+              f"{HIST100K_CUT_AFTER_S:.0f} s")
+    print(f"histogram 100k: MasticHistogram{HIST}, {r['reports']} reports "
+          f"over {HIST_ATTRS} attributes, sharded in batches of {R} "
+          f"({r['shard_s']:.3f} s), a pinned store of {r['store_bytes']} B "
+          f"({r['store_s']:.3f} s); the weight-checked round from the root "
+          f"at level {HIST[0] - 1} in {r['chunks']} chunks of {r['chunk']} "
+          f"(memory_envelope at width {HIST100K_WIDTH}; {r['mode']}, overlap "
+          f"efficiency {r['overlap']}) {r['round_s']:.3f} s, {r['nodes']} "
+          f"nodes a report, {r['node_evals']} node evals "
+          f"({r['node_evals'] / r['round_s']:.4g} evals/s): every "
+          f"attribute's {HIST[1]} buckets = numpy's, accepted "
+          f"{r['accepted']} ({r['shard_rejected']} rejected at sharding); "
+          f"peak device memory of the round {r['round_peak']} B")
+    _print_launches(counts["histogram_100k"], r)
+
+
+def check_phase_n_shapes(dev: torch.device, gen: torch.Generator) -> list:
+    """The kernels at phase n's shapes, each row under its own name: K3 at
+    MasticMultihotCountVec(64, 16, 4, 4)'s (Field128, VALUE_LEN 20, 21
+    convert blocks) from-root level, R x 16 parents, and at the
+    Histogram cell's chunk x 16 parents (VALUE_LEN 17); K1's binder
+    sponge on each round's flat Field128 tree (one aggregator, the
+    schedule's index lists at level 63 over the 16 attributes), timed at
+    the path's report count and checked against the plain version: the
+    multihot tree on its first BINDER_CHECK_R reports, the Histogram
+    chunk's on every report with the index lists cut by `_end_rows`
+    (the plain sponge's time goes with the rows); K2 at 21 blocks."""
+    from mastic_tpu_torch import hash_attribute
+    from mastic_tpu_torch.backend.mastic import (BatchedMastic,
+                                                 MasticHistogram,
+                                                 MasticMultihotCountVec)
+    from mastic_tpu_torch.backend.schedule import LevelSchedule
+    from mastic_tpu_torch.ops.field import FIELD128
+
+    rows = []
+    multihot = MasticMultihotCountVec(*MULTIHOT)
+    hist = MasticHistogram(*HIST)
+    chunk = hist100k_chunk(dev, HIST100K_R)
+    binder_len = 4 + MULTIHOT[0] // 8
+    for (mastic, reports, name) in (
+            (multihot, R, "level_step_f128_multihot"),
+            (hist, chunk, "level_step_f128_histogram_100k")):
+        row = check_level(dev, gen, FIELD128, mastic.value_len,
+                          MULTIHOT_ATTRS, CTX, name, reports=reports,
+                          binder_len=binder_len)
+        print(f"K3 ({name}): whole call {row['ms']:.4f} ms, kernels "
+              f"{row['device_ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
+              f"{row['shape']}, max_abs_err {row['max_abs_err']}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    for (mastic, prefix, reports, name) in (
+            (multihot, "multihot", R,
+             "keccak_binder_sponge_from_root_multihot"),
+            (hist, "histogram", chunk,
+             "keccak_binder_sponge_from_root_histogram_100k")):
+        paths = sorted(hash_attribute(mastic, f"{prefix}-{i}")
+                       for i in range(MULTIHOT_ATTRS))
+        sched = LevelSchedule(paths, mastic.bits - 1, mastic.bits)
+        args = flat_binder_inputs(dev, gen, sched, reports, FIELD128,
+                                  mastic.value_len, type(mastic).ID)
+        if mastic is multihot:
+            compare = (args[0], (args[1][0][:BINDER_CHECK_R],),
+                       (args[2][0][:BINDER_CHECK_R],), *args[3:])
+            what = (f"on the first {BINDER_CHECK_R} of {reports} reports x "
+                    f"{sched.total_nodes} nodes")
+        else:
+            # The plain sponge's time goes with the rows, not the
+            # reports: every report, the index lists cut at both ends.
+            compare = _end_rows(args, onehot=8, payload=3)
+            what = (f"on all {reports} reports x {sched.total_nodes} nodes "
+                    f"with the index lists cut to onehot rows "
+                    f"{compare[3].tolist()} and payload rows (par, left, "
+                    f"right) "
+                    f"{list(zip(*(t.tolist() for t in compare[4:7])))}")
+        rows.append(_flat_binder_row(name, args, compare,
+                                     PAYLOAD_ELEM_OPS_F128, what))
+        del args, compare
+        torch.cuda.empty_cache()
+    rows.append(_aes_row(dev, gen,
+                         BatchedMastic(multihot).vidpf.convert_blocks,
+                         "aes_fixed_key_blocks_multihot"))
+    for row in rows:
+        if row["max_abs_err"]:
+            raise AssertionError(f"{row['name']} disagrees with its plain "
+                                 f"version: {row['max_abs_err']}")
+    return rows
 
 
 def _widest_mesh(run) -> dict:
@@ -3379,7 +3867,8 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = check_kernels(dev, gen) + check_new_shapes(dev, gen) \
-        + check_from_root(dev, gen, args.seed)
+        + check_from_root(dev, gen, args.seed) \
+        + check_phase_n_shapes(dev, gen)
     torch.cuda.empty_cache()
 
     # Each path with every count set to 0 just before it and read just
@@ -3400,7 +3889,10 @@ def main() -> int:
             ("chunked_checkpoint", lambda: chunked_checkpoint(
                 dev, results["resident_checkpoint"].pop("handoff"))),
             ("count_chunked", lambda: count_chunked(
-                dev, args.seed, CHUNKED_LEVELS))):
+                dev, args.seed, CHUNKED_LEVELS)),
+            ("multihot", lambda: multihot_path(dev, args.seed)),
+            ("histogram_100k", lambda: histogram_100k(
+                dev, args.seed, time.perf_counter() - t_start))):
         torch.cuda.empty_cache()
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3431,7 +3923,14 @@ def main() -> int:
         "level_step_ok_predicate": ("attributes", "level"),
         "keccak_binder_sponge_from_root_sum": ("attributes", "keccak_binder"),
         "keccak_binder_sponge_from_root_sumvec": ("sumvec",
-                                                  "keccak_binder_f128")}
+                                                  "keccak_binder_f128"),
+        "level_step_f128_multihot": ("multihot", "level_f128"),
+        "level_step_f128_histogram_100k": ("histogram_100k", "level_f128"),
+        "keccak_binder_sponge_from_root_multihot": ("multihot",
+                                                    "keccak_binder_f128"),
+        "keccak_binder_sponge_from_root_histogram_100k": (
+            "histogram_100k", "keccak_binder_f128"),
+        "aes_fixed_key_blocks_multihot": ("multihot", "aes")}
     for row in rows:
         (path, counter) = row_counter[row["name"]]
         row["launches"] = counts[path][counter]
@@ -3444,6 +3943,16 @@ def main() -> int:
                 for name in ("count_chunked", "chunked_checkpoint")}
     # K1's in-place sponge (the shard's and the eval-proof XOF's).
     rows[0]["launches_turboshake"] = counts["count"]["keccak"]
+
+    # Phase m, the north-star tool, before the mesh: each run counted
+    # from 0 (the mesh run's rank counts its own).
+    northstar = northstar_phase(dev, time.perf_counter() - t_start)
+    for row in rows:
+        if row["launches_path"] == "count":
+            counter = row_counter[row["name"]][1]
+            row["launches_northstar"] = {
+                name: run["launches"][counter]
+                for (name, run) in northstar["runs"].items()}
 
     # Phase j, the mesh, last: its ranks are processes of their own, each
     # with its counts set to 0 before each run.
@@ -3469,10 +3978,11 @@ def main() -> int:
         # the parties launch no K2 (their AES runs inside K3).
         counter = row_counter[row["name"]][1]
         sub = {"count": "k2", "sum": "k1", "attributes": "k1",
-               "histogram": "k3", "sumvec": "k3"}[row["launches_path"]]
-        row["launches_parties"] = {"phase": sub, **{
-            party: entry["launches"][counter]
-            for (party, entry) in sorted(k[sub]["parties"].items())}}
+               "histogram": "k3", "sumvec": "k3"}.get(row["launches_path"])
+        row["launches_parties"] = None if sub is None else {
+            "phase": sub, **{
+                party: entry["launches"][counter]
+                for (party, entry) in sorted(k[sub]["parties"].items())}}
 
     # Phase l, the collector service, last.
     service = service_phase(dev, results, time.perf_counter() - t_start)
@@ -3665,11 +4175,16 @@ def main() -> int:
               f"({moved / lv['upload_ms'] / 1e6:.3f} GB/s up, "
               f"{moved / lv['download_ms'] / 1e6:.3f} GB/s down)")
     _print_launches(counts["count_chunked"], result)
+    _print_phase_n(results, peaks, counts)
+    _print_northstar(northstar)
     _print_mesh(mesh)
     _print_parties(k)
     _print_service(service)
     print("path seconds: " + ", ".join(
         f"{name} {r['path_s']:.1f}" for (name, r) in results.items())
+        + ", " + ", ".join(
+            f"northstar {name} {r['wall_s']:.1f}"
+            for (name, r) in northstar["runs"].items())
         + f", mesh {mesh['nccl_s'] + mesh['gloo_s']:.1f}, parties "
         + ", ".join(f"{name} {r['phase_s']:.1f}" for (name, r) in k.items())
         + f", service "

@@ -149,6 +149,13 @@ class ReportBatch(NamedTuple):
     leader_seeds: Optional[torch.Tensor] = None   # (R, 32) or None
     peer_parts: tuple = (None, None)  # per aggregator: (R, 32) or None
 
+    def tensors(self) -> list:
+        """Every tensor of the batch, in a fixed order (None left out)."""
+        return [t for t in (self.nonces, *self.cws, self.keys,
+                            self.leader_proofs, self.helper_seeds,
+                            self.leader_seeds, *self.peer_parts)
+                if t is not None]
+
 
 class BatchedPrep(NamedTuple):
     """Per-report results of one aggregator's from-root prep.

@@ -370,6 +370,27 @@ def map_batch(batch: ReportBatch, fn) -> ReportBatch:
         peer_parts=tuple(map(f, batch.peer_parts)))
 
 
+def cat_batches(batches: list) -> ReportBatch:
+    """Report batches concatenated along the report axis (None stays
+    None)."""
+    first = batches[0]
+
+    def cat(get):
+        return None if get(first) is None else torch.cat(
+            [get(b) for b in batches])
+
+    return ReportBatch(
+        nonces=cat(lambda b: b.nonces),
+        cws=BatchedCorrectionWords(*(cat(lambda b, i=i: b.cws[i])
+                                     for i in range(len(first.cws)))),
+        keys=cat(lambda b: b.keys),
+        leader_proofs=cat(lambda b: b.leader_proofs),
+        helper_seeds=cat(lambda b: b.helper_seeds),
+        leader_seeds=cat(lambda b: b.leader_seeds),
+        peer_parts=tuple(cat(lambda b, a=a: b.peer_parts[a])
+                         for a in range(len(first.peer_parts))))
+
+
 def _widen(x: torch.Tensor, dim: int, width: int, pin: bool) -> torch.Tensor:
     """`x` with its node axis `dim` zero-padded to `width`, in a new
     host tensor."""

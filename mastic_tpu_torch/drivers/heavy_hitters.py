@@ -316,6 +316,17 @@ class IncrementalRunner:
         self.carries = carries
         self.layouts = list(layouts)
 
+    def memory_accounting(self) -> dict:
+        """This rank's card for the whole run, under the JAX package's
+        keys: both carries, the round keys and the report batch (the
+        chunked runner's `memory_accounting` is the streaming twin)."""
+        carry = 2 * sum(t.nbytes for t in self.carries[0])
+        rk = self.ext_rk.nbytes + self.conv_rk.nbytes
+        batch = sum(t.nbytes for t in self.batch.tensors())
+        return {"chunk_size": 0, "num_chunks": 1,
+                "device_bytes_total": carry + rk + batch,
+                "device_carry_bytes": carry, "host_bytes_total": 0}
+
     def state(self) -> tuple:
         """(fallback (R,) bool, [carry of every report] x 2) in host
         memory, gathered over the ranks: what a checkpoint stores."""

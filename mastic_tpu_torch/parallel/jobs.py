@@ -1,9 +1,10 @@
 """Rank programs for `parallel.launch.spawn`: what each rank of a report
-mesh runs for the multichip tool (`tools/multichip.py`) and the CPU
-tests.  Each takes the mesh and one `case` dict of picklable inputs
-(scalar reports, bytes, numpy arrays; the instantiation as its class
-name and arguments) and returns a picklable summary, the same on every
-rank.
+mesh runs for the multichip tool (`tools/multichip.py`), the north-star
+tool (`tools/northstar.py --mesh`) and the CPU tests.  Each takes the
+mesh and one `case` dict of picklable inputs (scalar reports, bytes,
+numpy arrays; the instantiation as its class name and arguments), or
+for `northstar` the tool's parsed command line, and returns a picklable
+summary, the same on every rank.
 
 `run_all` runs several cases in one group, so that one spawn serves a
 whole suite; `force` clears aggregator 0's `ok` for one report at one
@@ -154,6 +155,15 @@ def round_from_root(mesh, case: dict) -> dict:
     out = sharded_round(bm, mesh, case["verify_key"], case["ctx"],
                         case["agg_param"])(batch)
     return [t.numpy() for t in out]
+
+
+def northstar(mesh, args) -> dict:
+    """The north-star tool's collection on this rank (`args` its parsed
+    command line): each rank shards its rows of every chunk, and every
+    rank returns the same line and heavy hitters."""
+    from ..tools.northstar import collection
+
+    return collection(args, mesh)
 
 
 def modules(mesh, case: Optional[dict] = None) -> list:

@@ -261,6 +261,39 @@ def test_service_layer_is_in_the_package_walk(name):
     assert f"mastic_tpu_torch.{name}" in names
 
 
+NEW_MODULES = ["oracle", "gen_test_vec", "tools.northstar"]
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_north_star_modules_are_in_the_package_walk(name):
+    """The oracle, the test-vector generator and the north-star tool are
+    reached by the package walk, so the probe of the whole package
+    covers them."""
+    names = [m.name for m in pkgutil.walk_packages(
+        mastic_tpu_torch.__path__, "mastic_tpu_torch.")]
+    assert f"mastic_tpu_torch.{name}" in names
+
+
+def test_north_star_modules_import_no_jax():
+    """In a fresh interpreter, the oracle, the generator (rendering a
+    vector) and the north-star tool (parsing its arguments and drawing
+    its reports) load neither jax nor mastic_tpu."""
+    probe = "\n".join(
+        ["import sys"]
+        + [f"import mastic_tpu_torch.{n}" for n in NEW_MODULES]
+        + ["from mastic_tpu_torch import gen_test_vec as g",
+           "(_, m, a, ms) = g.all_test_vecs()[0]",
+           "g.render_test_vec(g.gen_test_vec(m, a, b'c', ms))",
+           "from mastic_tpu_torch.tools import northstar as ns",
+           "ns.synthetic_reports(ns.parse_args(['--reports', '8']))",
+           "print([m for m in sys.modules if m.split('.')[0] in "
+           "('jax', 'mastic_tpu')])"])
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
 def test_service_layer_imports_no_jax():
     """In a fresh interpreter, the service layer (the service, the WAL,
     the upload front, the observability modules and both tools) loads
