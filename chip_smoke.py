@@ -10,8 +10,18 @@
    eval proof's gathered binder sponge over two aggregators' distinct
    level-255 carries (both checks of both aggregators in one launch,
    payloads holding values >= p; also at depth 64 behind a 35-byte
-   prefix), as the bare permutation over R x 2W node-proof states and
-   as the in-place sponge; K2 (bitsliced AES) as the main path's
+   prefix); its in-place sponge (row keccak_turboshake) at the shapes
+   the paths launch, timed: the shard's node proof at level 255 (2 x R
+   messages), the key schedule's (R, domain 2), SumVec's joint-rand
+   part (the longest message, 99 rate blocks) and helper proof share
+   (the longest squeeze, 3056 B), R x (32 + 4096) B, and at its edges
+   (lengths at the block ends behind a 13-byte prefix, a 170-byte
+   prefix, a view at an odd byte offset, two squeezes, outputs of 1,
+   33 and 170 bytes, batches of 1, 33, 37 and 4097); its bare
+   permutation at 1, 4097 and 1 048 576 states, 12 and 24 rounds
+   (under the row's "permutation", with its launches counted apart as
+   "keccak_permute" on every path); K2 (bitsliced AES) as the main
+   path's
    `fixed_key_blocks` at the client sharding's extend and convert
    shapes, at R = 4093 with 3 blocks and at 64 seeds a report, and as
    the planes entry at the sharding's plane stack; K3 (the level
@@ -417,7 +427,10 @@ SERVICE_COUNTERS = {"rounds": ("keccak", "keccak_binder", "level"),
 # 64-bit rotate is two funnel shifts (SHF).
 # Keccak round: theta parities 5 columns x 2 halves x 2 LOP3, their
 # rotations 5 x 2 SHF, theta applied 25 x 2 LOP3 (a ^ c[x-1] ^ rot
-# c[x+1]), rho 24 x 2 SHF, chi 25 x 2 LOP3 (b ^ (~c & d)), iota 2.
+# c[x+1]), rho 24 x 2 SHF, chi 25 x 2 LOP3 (b ^ (~c & d)), iota 2: the
+# fewest the function needs.  (ptxas compiles csrc/keccak.cuh's
+# keccak_p1600 to 194 a round, 136 LOP3 and 58 SHF: the compiled code's
+# loss, not part of the bound.)
 KECCAK_PERM_OPS = 12 * (20 + 10 + 50 + 48 + 50 + 2)
 KECCAK_ABSORB_OPS = 42          # one rate block: 21 lanes x 2 XOR
 # The payload check's arithmetic per Field64 element: 3 values from 4
@@ -502,79 +515,15 @@ def _max_err(got, want) -> int:
 
 def check_kernels(dev: torch.device, gen: torch.Generator) -> list:
     """Each kernel against its plain version at main-path shapes."""
-    from mastic_tpu_torch.backend.mastic import MasticCount
-    from mastic_tpu_torch.backend.xof import ts_prefix
-    from mastic_tpu_torch.scalar.dst import USAGE_ONEHOT_CHECK, dst_alg
-    from mastic_tpu_torch.ops import keccak
     from mastic_tpu_torch.ops.field import FIELD64
-
-    def rand_u8(*shape):
-        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
-                             generator=gen)
-
-    def rand_i32(*shape):
-        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
-                             device=dev, generator=gen)
 
     rows = []
 
     # K1's gathered binder sponge at a level-255 carry (W = 64: 32
     # parents per depth), index lists shaped like RoundPlan's.
-    k1 = check_binder_sponge(dev, gen)
-
-    # K1, bare permutation over R x 2W node-proof states.
-    states = R * 256
-    lo = rand_i32(states, 25)
-    hi = rand_i32(states, 25)
-    err = _max_err(keccak.keccak_p1600(lo, hi), keccak.keccak_p1600_plain(lo, hi))
-    perm_ms = _time(lambda: keccak.keccak_p1600(lo, hi), 5)
-    perm_plain = _time(lambda: keccak.keccak_p1600_plain(lo, hi), 1)
-    (perm_bound, perm_by) = _bound(states * 400.0, states * KECCAK_PERM_OPS)
-    print(f"K1 permutation: {states} states, {perm_ms:.4f} ms "
-          f"(plain {perm_plain:.3f} ms, bound {perm_bound:.4f} ms by "
-          f"{perm_by}), max_abs_err {err}")
-    if err:
-        raise AssertionError("K1 permutation disagrees with its plain version")
-    del lo, hi
-
-    # K1, the in-place sponge (the eval-proof XOF's and the shard's) over
-    # 4096 messages behind a dst prefix, and without one with a
-    # multi-block squeeze.
-    prefix = ts_prefix(dst_alg(CTX, USAGE_ONEHOT_CHECK, MasticCount.ID), 0)
-    length = 4096
-    msg = rand_u8(R, length)
-    got = keccak.turbo_shake128_dynamic(msg, length, 1, 32, prefix=prefix)
-    want = keccak.turbo_shake128_dynamic_plain(msg, length, 1, 32,
-                                               prefix=prefix)
-    err_s = _max_err([got], [want])
-    short = [f(msg, 1000, 1, 200) for f in (keccak.turbo_shake128_dynamic,
-                                           keccak.turbo_shake128_dynamic_plain)]
-    err_s = max(err_s, _max_err(short[:1], short[1:]))
-    sponge_ms = _time(lambda: keccak.turbo_shake128_dynamic(
-        msg, length, 1, 32, prefix=prefix), 5)
-    sponge_plain = _time(lambda: keccak.turbo_shake128_dynamic_plain(
-        msg, length, 1, 32, prefix=prefix), 1)
-    # Each message absorbs its prefix, its bytes and the domain byte in
-    # 168-byte rate blocks, one permutation each; the 32-byte output
-    # comes from the last one.
-    blocks = (len(prefix) + length + 1 + 167) // 168
-    (sponge_bound, sponge_by) = _bound(
-        R * (len(prefix) + length + 32.0),
-        R * blocks * (KECCAK_PERM_OPS + KECCAK_ABSORB_OPS))
-    print(f"K1 in-place sponge: {R} messages x ({len(prefix)} + {length}) B, "
-          f"{blocks} rate blocks each, {sponge_ms:.4f} ms (plain "
-          f"{sponge_plain:.3f} ms, bound {sponge_bound:.4f} ms by "
-          f"{sponge_by}), max_abs_err {err_s}")
-    if err_s:
-        raise AssertionError("K1's sponge disagrees with its plain version")
-    del msg, got, want, short
-    k1["max_abs_err"] = max(k1["max_abs_err"], err, err_s)
-    k1["shape"] += (f"; permutation {states} states: {perm_ms:.4f} ms, bound "
-                    f"{perm_bound:.4f} ms; in-place sponge {R} x "
-                    f"{len(prefix) + length} B: {sponge_ms:.4f} ms, plain "
-                    f"{sponge_plain:.3f} ms, bound {sponge_bound:.4f} ms by "
-                    f"{sponge_by}")
-    rows.append(k1)
+    rows.append(check_binder_sponge(dev, gen))
+    # K1's in-place sponge at the paths' shapes and its permutation.
+    rows.append(check_k1_entries(dev, gen))
 
     rows.append(check_aes(dev, gen))
     # K3 with a level-255 node binder, at the main path's R x 32 parents
@@ -1037,6 +986,8 @@ def check_aes(dev: torch.device, gen: torch.Generator) -> dict:
     plain_ms = _time(lambda: fixed_key_blocks_plain(*extend), 2)
     parent_ms = _time(lambda: parent_path(*extend), 20)
     planes_ms = _time(lambda: aes.aes128_encrypt_bitsliced(kp, planes), 20)
+    planes_plain = _time(
+        lambda: aes.aes128_encrypt_bitsliced_plain(kp, planes), 1)
     wide_ms = _time(lambda: fixed_key_blocks(*wide), 20)
     wide_device = _device_ms(lambda: fixed_key_blocks(*wide),
                              ("fixed_key_kernel",), 20)["fixed_key_kernel"]
@@ -1051,7 +1002,9 @@ def check_aes(dev: torch.device, gen: torch.Generator) -> dict:
     print(f"K2 fixed_key_blocks at {R} reports x 64 seeds x 2 blocks: whole "
           f"call {wide_ms:.4f} ms, kernel {wide_device:.4f} ms (bound "
           f"{wide_b:.4f} ms by {wide_by}); planes entry at (8, 16, 2, 2, "
-          f"{R // 32}) {planes_ms:.4f} ms")
+          f"{R // 32}) {planes_ms:.4f} ms (plain {planes_plain:.3f} ms; the "
+          f"extend shape's {R * 2 * 2} blocks: bound {b:.6f} ms by {by}; "
+          f"launched by no program path)")
     return {"name": "aes_fixed_key_blocks", "route": "cuda",
             "source": "mastic_tpu_torch/csrc/aes.cu",
             "replaces": "mastic_tpu/ops/aes_pallas.py:149",
@@ -1191,6 +1144,196 @@ def _binder_row(name: str, args: tuple, err: int, plain_ms: float,
             "max_abs_err": err, "kernel_ms": ms, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "shape": shape}
+
+
+def _sponge_cost(batch: int, plen: int, length: int, out_len: int) -> tuple:
+    """Rate blocks absorbed, permutations, and the bound of TurboSHAKE128
+    over `batch` messages of plen + length bytes squeezed to out_len:
+    (blocks, permutations, bound ms, bound by).  Each message byte is
+    read once and each output byte written once; every absorbed block
+    costs a permutation and its XOR, every further 168 output bytes a
+    permutation."""
+    blocks = (plen + length) // 168 + 1
+    perms = blocks + max(0, -(-out_len // 168) - 1)
+    ops = batch * (blocks * KECCAK_ABSORB_OPS + perms * KECCAK_PERM_OPS)
+    (bound, by) = _bound(batch * float(length + out_len), float(ops))
+    return (blocks, perms, bound, by)
+
+
+def k1_sponge_cases(dev: torch.device, gen: torch.Generator) -> list:
+    """K1's in-place sponge (`turbo_shake128_dynamic`): the shapes the
+    program paths launch (timed) and the edges of its layout (checked
+    only).  Each case: (name, timed, msg, length, domain, out_len,
+    prefix)."""
+    from mastic_tpu_torch.backend.mastic import MasticCount
+    from mastic_tpu_torch.backend.vidpf import KEY_SIZE
+    from mastic_tpu_torch.backend.xof import ts_prefix
+    from mastic_tpu_torch.scalar.common import to_le_bytes
+    from mastic_tpu_torch.scalar.dst import (USAGE_EXTEND, USAGE_NODE_PROOF,
+                                             USAGE_ONEHOT_CHECK, dst,
+                                             dst_alg)
+
+    def rand_u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    def const(data: bytes, shape: tuple) -> torch.Tensor:
+        row = torch.tensor(list(data), dtype=torch.uint8, device=dev)
+        return row.expand(shape + (len(data),))
+
+    cases = []
+    # The shard's node proof at level 255 of MasticCount(256), built as
+    # BatchedVidpf._node_proof_dynamic builds it: 2 x R rows of prefix |
+    # seed | le16(BITS) | le16(255) | packed path, hashed over their
+    # first len(prefix) + 52 bytes.
+    prefix = ts_prefix(dst(CTX, USAGE_NODE_PROOF), KEY_SIZE)
+    path = rand_u8(R, 1, BITS // 8).expand(R, 2, BITS // 8)
+    msg = torch.cat([const(prefix, (R, 2)), rand_u8(R, 2, KEY_SIZE),
+                     const(to_le_bytes(BITS, 2) + to_le_bytes(BITS - 1, 2),
+                           (R, 2)), path], dim=-1)
+    cases.append(("node proof, level 255 of MasticCount(256)", True, msg,
+                  len(prefix) + KEY_SIZE + 4 + (BITS - 1) // 8 + 1, 1, 32,
+                  b""))
+    # fixed_key_schedule's key: le16(len(dst)) | dst | nonce, domain 2.
+    ext = dst(CTX, USAGE_EXTEND)
+    msg = torch.cat([const(to_le_bytes(len(ext), 2) + ext, (R,)),
+                     rand_u8(R, 16)], dim=-1)
+    cases.append(("fixed_key_schedule (extend)", True, msg, msg.shape[-1],
+                  2, 16, b""))
+    # The longest message a path sends: MasticSumVec(128, 1024, 1, 32)'s
+    # joint-rand part (prefix | seed | nonce | 1024 Field128 weight
+    # shares), and its longest squeeze: the helper proof share's 191
+    # Field128 elements from a 64-byte message.
+    cases.append(("SumVec joint_rand_part (longest message)", True,
+                  rand_u8(R, 16464), 16464, 1, 32, b""))
+    cases.append(("SumVec helper_proof_share (longest squeeze)", True,
+                  rand_u8(R, 64), 64, 1, 3056, b""))
+    # The earlier synthetic shape: 25 rate blocks behind the onehot
+    # check's prefix.
+    onehot = ts_prefix(dst_alg(CTX, USAGE_ONEHOT_CHECK, MasticCount.ID), 0)
+    cases.append(("4096 B behind a 32-byte prefix", True, rand_u8(R, 4096),
+                  4096, 1, 32, onehot))
+    # Edges: lengths at the block ends behind a 13-byte prefix, and 37
+    # rows (not a multiple of a block's messages); a prefix that spans a
+    # rate block; a view at an odd byte offset with an odd stride; two
+    # squeezes; outputs of lengths that are not a multiple of 4; one
+    # message; 4097 messages; a batch of two dimensions.
+    pre13 = bytes(rand_u8(13).tolist())
+    pre170 = bytes(rand_u8(170).tolist())
+    rows = rand_u8(37, 400)
+    for length in (0, 154, 155, 156, 167, 168, 169, 400):
+        cases.append((f"prefix 13 B, length {length}", False, rows, length,
+                      1, 32, pre13))
+    for length in (0, 3, 400):
+        cases.append((f"prefix 170 B, length {length}", False, rows[:33],
+                      length, 1, 32, pre170))
+    odd = rand_u8(1 + 45 * 333)[1:].view(45, 333)
+    cases.append(("odd byte offset, stride 333", False, odd, 333, 1, 200,
+                  pre13[:5]))
+    cases.append(("odd byte offset, length 200", False, odd, 200, 7, 32,
+                  b""))
+    cases.append(("out_len 200", False, rand_u8(64, 1000), 1000, 1, 200,
+                  b""))
+    for out_len in (1, 33, 170):   # not a multiple of 4: byte stores
+        cases.append((f"out_len {out_len}", False, rows, 200, 1, out_len,
+                      pre13))
+    cases.append(("batch 1", False, rand_u8(1, 300), 300, 1, 32, pre13))
+    cases.append(("batch 4097", False, rand_u8(4097, 100), 100, 1, 32,
+                  b""))
+    cases.append(("batch (3, 5)", False, rand_u8(3, 5, 200), 181, 3, 64,
+                  pre13))
+    return cases
+
+
+def check_k1_entries(dev: torch.device, gen: torch.Generator) -> dict:
+    """K1's in-place sponge and bare permutation, bit-exact against
+    their plain versions at every shape of `k1_sponge_cases` and at
+    1, 4097 and 1 048 576 states (12 and 24 rounds); the timed shapes
+    by CUDA events (whole call) and the profiler (device time).  The
+    row is the sponge's, headed by the 25-block shape, with every timed
+    shape under "shapes" and the permutation under "permutation"."""
+    from mastic_tpu_torch.ops import keccak
+
+    shapes = []
+    err_all = 0
+    for (name, timed, msg, length, domain, out_len, prefix) in \
+            k1_sponge_cases(dev, gen):
+        def call(msg=msg, length=length, domain=domain, out_len=out_len,
+                 prefix=prefix):
+            return keccak.turbo_shake128_dynamic(msg, length, domain, out_len,
+                                                 prefix=prefix)
+
+        def plain(msg=msg, length=length, domain=domain, out_len=out_len,
+                  prefix=prefix):
+            return keccak.turbo_shake128_dynamic_plain(
+                msg, length, domain, out_len, prefix=prefix)
+
+        err = _max_err([call()], [plain()])
+        err_all = max(err_all, err)
+        batch = msg.numel() // msg.shape[-1]
+        (blocks, perms, bound, by) = _sponge_cost(batch, len(prefix), length,
+                                                  out_len)
+        desc = (f"{name}: {batch} messages x ({len(prefix)} + {length}) B, "
+                f"{blocks} rate blocks, {out_len} B out")
+        if not timed:
+            print(f"K1 sponge, {desc}: max_abs_err {err}")
+        else:
+            ms = _time(call, 20)
+            kernel_ms = _device_ms(call, ("turboshake",), 20)["turboshake"]
+            plain_ms = _time(plain, 1)
+            print(f"K1 sponge, {desc}: whole call {ms:.4f} ms, kernel "
+                  f"{kernel_ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+                  f"{bound:.4f} ms by {by}: {batch * perms} permutations, "
+                  f"{bound / kernel_ms:.1%} of it), max_abs_err {err}")
+            shapes.append({"shape": desc, "ms": ms, "kernel_ms": kernel_ms,
+                           "plain_ms": plain_ms, "bound_ms": bound,
+                           "bound_by": by, "max_abs_err": err})
+        if err:
+            raise AssertionError(f"K1's sponge disagrees with its plain "
+                                 f"version at {desc}")
+    row = dict(shapes[-1])
+    row.update({"name": "keccak_turboshake", "route": "cuda",
+                "source": "mastic_tpu_torch/csrc/keccak.cu",
+                "replaces": "mastic_tpu/ops/keccak_pallas.py:72",
+                "max_abs_err": err_all, "library_ms": None,
+                "shapes": shapes})
+
+    perm = []
+    for (states, rounds) in ((1, 12), (4097, 12), (4097, 24),
+                             (R * 256, 24), (R * 256, 12)):
+        lo = torch.randint(-2 ** 31, 2 ** 31, (states, 25), dtype=torch.int32,
+                           device=dev, generator=gen)
+        hi = torch.randint(-2 ** 31, 2 ** 31, (states, 25), dtype=torch.int32,
+                           device=dev, generator=gen)
+        err = _max_err(keccak.keccak_p1600(lo, hi, rounds),
+                       keccak.keccak_p1600_plain(lo, hi, rounds))
+        desc = f"{states} states, {rounds} rounds"
+        if err:
+            raise AssertionError(f"K1's permutation disagrees with its plain "
+                                 f"version at {desc}")
+        if states < R * 256:
+            print(f"K1 permutation, {desc}: max_abs_err {err}")
+            continue
+        ms = _time(lambda: keccak.keccak_p1600(lo, hi, rounds), 5)
+        kernel_ms = _device_ms(lambda: keccak.keccak_p1600(lo, hi, rounds),
+                               ("keccak_permute",), 5)["keccak_permute"]
+        plain_ms = _time(lambda: keccak.keccak_p1600_plain(lo, hi, rounds), 1)
+        (bound, by) = _bound(states * 400.0,
+                             states * KECCAK_PERM_OPS * rounds / 12)
+        print(f"K1 permutation, {desc}: whole call {ms:.4f} ms, kernel "
+              f"{kernel_ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+              f"{bound:.4f} ms by {by}, {bound / kernel_ms:.1%} of it), "
+              f"max_abs_err {err}")
+        perm.append({"name": "keccak_permute", "route": "cuda",
+                     "source": "mastic_tpu_torch/csrc/keccak.cu",
+                     "replaces": "mastic_tpu/ops/keccak_pallas.py:72",
+                     "shape": desc, "ms": ms, "kernel_ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None, "max_abs_err": err})
+        del lo, hi
+    row["permutation"] = perm[-1]
+    row["permutation_24_rounds"] = perm[0]
+    return row
 
 
 def check_binder_sponge(dev: torch.device, gen: torch.Generator) -> dict:
@@ -3909,6 +4052,7 @@ def main() -> int:
     # Each row's launches: its kernel's counter in the path of its shape.
     row_counter = {
         "keccak_binder_sponge": ("count", "keccak_binder"),
+        "keccak_turboshake": ("count", "keccak"),
         "aes_fixed_key_blocks": ("count", "aes"),
         "level_step": ("count", "level"),
         "level_step_sum": ("sum", "level"),
@@ -3941,8 +4085,16 @@ def main() -> int:
             row["launches_chunked"] = {
                 name: counts[name][counter]
                 for name in ("count_chunked", "chunked_checkpoint")}
-    # K1's in-place sponge (the shard's and the eval-proof XOF's).
-    rows[0]["launches_turboshake"] = counts["count"]["keccak"]
+        # K1's bare permutation, counted apart from the sponge: its
+        # launches in the main path's run and in every other path's.
+        if "permutation" in row:
+            per_path = {name: c["keccak_permute"]
+                        for (name, c) in counts.items()}
+            for perm in (row["permutation"], row["permutation_24_rounds"]):
+                perm.update(launches=per_path["count"], launches_path="count",
+                            launches_paths=per_path)
+            print("K1 permutation launches per path: " + ", ".join(
+                f"{name} {n}" for (name, n) in per_path.items()))
 
     # Phase m, the north-star tool, before the mesh: each run counted
     # from 0 (the mesh run's rank counts its own).

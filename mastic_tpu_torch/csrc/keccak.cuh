@@ -1,5 +1,6 @@
-// Keccak-p[1600] and the TurboSHAKE128 sponge as device code, shared by
-// keccak.cu (kernel K1) and level.cu (kernel K3's node proofs).
+// Keccak-p[1600] as device code, shared by keccak.cu (kernel K1's
+// permutation and binder sponge) and level.cu (kernel K3's node proofs);
+// the in-place sponge's split form is keccak_pair.cuh.
 //
 // One thread holds one 1600-bit state as 25 uint64_t lanes in registers
 // (lane index x + 5*y, as in mastic_tpu/keccak.py).  Every lane index is
@@ -84,84 +85,6 @@ __device__ __forceinline__ void keccak_p1600(uint64_t a[25], int num_rounds) {
 // A read-only 64-bit load (__ldg's overload is the unsigned long long one).
 __device__ __forceinline__ uint64_t ldg64(const uint64_t* p) {
   return __ldg(reinterpret_cast<const unsigned long long*>(p));
-}
-
-__device__ __forceinline__ uint64_t load_lane(const uint8_t* p, bool aligned) {
-  if (aligned) return *reinterpret_cast<const uint64_t*>(p);
-  uint64_t v = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v |= static_cast<uint64_t>(p[k]) << (8 * k);
-  return v;
-}
-
-// Byte q of the message pre[0:plen] || m.
-__device__ __forceinline__ uint32_t msg_byte(const uint8_t* pre, int plen,
-                                             const uint8_t* m, long long q) {
-  return q < plen ? pre[q] : m[q - plen];
-}
-
-// Absorb the `length` bytes of pre[0:plen] || m into the zero state a, with
-// TurboSHAKE's pad10*1: the domain byte at position `length`, 0x80 on the
-// last byte of the final block.  m is read in place (a short prefix, such as
-// an XOF's dst, never has to be copied in front of a long binder); only the
-// blocks that hold prefix bytes and the final block are assembled byte by
-// byte.  `aligned` says m + (k * KECCAK_RATE - plen) is 8-byte aligned.
-__device__ __forceinline__ void turboshake_absorb(uint64_t a[25], const uint8_t* pre,
-                                                  int plen, const uint8_t* m,
-                                                  long long length, int domain,
-                                                  bool aligned) {
-  const long long full = length / KECCAK_RATE;
-  for (long long blk = 0; blk < full; ++blk) {
-    const long long q0 = blk * KECCAK_RATE;
-    if (q0 >= plen) {
-      const uint8_t* p = m + (q0 - plen);
-#pragma unroll
-      for (int l = 0; l < 21; ++l) a[l] ^= load_lane(p + 8 * l, aligned);
-    } else {
-#pragma unroll
-      for (int l = 0; l < 21; ++l) {
-        uint64_t v = 0;
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          v |= static_cast<uint64_t>(msg_byte(pre, plen, m, q0 + 8 * l + k)) << (8 * k);
-        a[l] ^= v;
-      }
-    }
-    keccak_p1600(a, 12);
-  }
-  const long long q0 = full * KECCAK_RATE;
-  const int rem = static_cast<int>(length - q0);
-#pragma unroll
-  for (int l = 0; l < 21; ++l) {
-    uint64_t v = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int pos = 8 * l + k;
-      uint32_t byte = pos < rem ? msg_byte(pre, plen, m, q0 + pos) : 0u;
-      if (pos == rem) byte ^= static_cast<uint32_t>(domain);
-      if (pos == KECCAK_RATE - 1) byte ^= 0x80u;
-      v |= static_cast<uint64_t>(byte) << (8 * k);
-    }
-    a[l] ^= v;
-  }
-  keccak_p1600(a, 12);
-}
-
-// Squeeze out_len bytes into out.
-__device__ __forceinline__ void turboshake_squeeze(uint64_t a[25], uint8_t* out,
-                                                   int out_len) {
-  for (int produced = 0; produced < out_len; produced += KECCAK_RATE) {
-    if (produced > 0) keccak_p1600(a, 12);
-    const int n = out_len - produced;
-#pragma unroll
-    for (int l = 0; l < 21; ++l) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (8 * l + k < n)
-          out[produced + 8 * l + k] = static_cast<uint8_t>(a[l] >> (8 * k));
-      }
-    }
-  }
 }
 
 }  // namespace mtk

@@ -9,14 +9,23 @@ theta / rho / pi / chi / iota.
 
 Kernel K1 (`csrc/keccak.cu`) replaces the Pallas permutation
 `keccak_p1600_pallas` (mastic_tpu/ops/keccak_pallas.py:84).  Its entry
-points: the bare permutation behind `keccak_p1600`; a sponge that
-absorbs a runtime number of rate blocks in one launch behind
-`turbo_shake128_dynamic` and `turbo_shake128`, reading the message in
-place (no padded copy, and no copy behind a short shared prefix); and
-the eval proof's binder sponge, which reads its message straight from
-the carried tree (`ops/binder.py`).  The first two count as "keccak"
-in `ops.kernels.launches`, the binder sponge as "keccak_binder".
+points: the bare permutation behind `keccak_p1600` (one thread a state,
+staged through shared memory); a sponge that absorbs every rate block
+of a batch in one launch behind `turbo_shake128_dynamic` and
+`turbo_shake128`, each state split over a pair of threads so that the
+paths' 4096-8192 messages put twice the warps on the card, reading the
+rows in place through double-buffered shared memory (no padded copy,
+and no copy behind a short shared prefix); and the eval proof's binder
+sponge, which reads its message straight from the carried tree
+(`ops/binder.py`).  The sponge's prefix, domain byte and padding reach
+it as a lane template built here and uploaded once per (prefix, length,
+domain) (`sponge_template`), so the kernel assembles every block
+lane-wise.  In `ops.kernels.launches` the sponge counts as "keccak",
+the permutation as "keccak_permute", the binder sponge as
+"keccak_binder".
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -98,7 +107,8 @@ def _permute_cuda(lo: torch.Tensor, hi: torch.Tensor,
         kernels.launch("keccak", "keccak_permute", lo.data_ptr(),
                        hi.data_ptr(), lo_out.data_ptr(),
                        hi_out.data_ptr(), batch, num_rounds,
-                       kernels.stream_ptr(lo.device))
+                       kernels.stream_ptr(lo.device),
+                       counter="keccak_permute")
     return (lo_out, hi_out)
 
 
@@ -196,13 +206,49 @@ def turbo_shake128_dynamic_plain(msg: torch.Tensor, length: int,
     return torch.cat(out, dim=-1)[..., :out_len]
 
 
+def sponge_template(prefix: bytes, length: int, domain: int) -> tuple:
+    """The public part of every block of TurboSHAKE128 over `prefix`
+    followed by `length` message bytes, for the sponge kernel: (a (2, nt,
+    RATE) uint8 array, head).  Row 0 of template block j holds the bytes
+    to XOR into the block (the prefix's, the domain byte, pad10*1's
+    0x80), row 1 a mask, 0xFF on the message's bytes and 0 elsewhere.
+    Template blocks 0 .. head-1 are the rate blocks that hold prefix
+    bytes; block `head`, present when the final rate block holds none,
+    is that final block.  Every other rate block is message bytes only."""
+    plen = len(prefix)
+    total = plen + length
+    last = total // RATE
+    head = -(-plen // RATE)
+    blocks = list(range(head)) + ([last] if last >= head else [])
+    pre = np.frombuffer(bytes(prefix), np.uint8)
+    out = np.zeros((2, len(blocks), RATE), np.uint8)
+    for (j, k) in enumerate(blocks):
+        q = k * RATE + np.arange(RATE)
+        in_prefix = q < plen
+        out[0, j, in_prefix] = pre[q[in_prefix]]
+        out[1, j] = np.where((q >= plen) & (q < total), 0xFF, 0)
+        if k == last:
+            out[0, j, total - k * RATE] ^= domain
+            out[0, j, RATE - 1] ^= 0x80
+    return (out, head)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_template(prefix: bytes, length: int, domain: int,
+                     device: torch.device) -> tuple:
+    """`sponge_template` on the card, uploaded once per (prefix, length,
+    domain): (uint8 tensor, head, template blocks)."""
+    (tmpl, head) = sponge_template(prefix, length, domain)
+    return (torch.from_numpy(tmpl).to(device), head, tmpl.shape[1])
+
+
 def _sponge_cuda(msg: torch.Tensor, length: int, domain: int,
                  out_len: int, num_rounds: int, prefix: bytes) -> torch.Tensor:
     if num_rounds != 12:
         raise ValueError("the sponge kernel runs Keccak-p[1600, 12]")
+    if len(prefix) + length >= 2 ** 31 - 2 * RATE:
+        raise ValueError("the sponge kernel takes messages under 2 GiB")
     kernels.check_cuda(msg, torch.uint8, "msg")
-    plen = len(prefix)
-    pre = kernels.const_bytes(bytes(prefix) or b"\0", msg.device)
     batch_shape = msg.shape[:-1]
     batch = 1
     for d in batch_shape:
@@ -210,11 +256,10 @@ def _sponge_cuda(msg: torch.Tensor, length: int, domain: int,
     out = torch.empty(batch_shape + (out_len,), dtype=torch.uint8,
                       device=msg.device)
     if batch and out_len:
-        stride = msg.shape[-1]
-        aligned = int(msg.data_ptr() % 8 == 0 and stride % 8 == 0
-                      and plen % 8 == 0)
-        kernels.launch("keccak", "turboshake", pre.data_ptr(), plen,
-                       msg.data_ptr(), stride, plen + length, domain,
-                       out.data_ptr(), out_len, batch, aligned,
+        (tmpl, head, nt) = _device_template(bytes(prefix), length, domain,
+                                            msg.device)
+        kernels.launch("keccak", "turboshake", tmpl.data_ptr(), head, nt,
+                       msg.data_ptr(), msg.shape[-1], len(prefix), length,
+                       out.data_ptr(), out_len, batch,
                        kernels.stream_ptr(msg.device))
     return out

@@ -19,10 +19,10 @@ cross as `c_void_p` (the wrappers pass `tensor.data_ptr()` and
 `launches` counts, per kernel, the launches its wrappers made: each
 wrapper adds one where it launches, and nowhere else.  K1's binder
 sponge counts under its own keys, "keccak_binder" on Field64 carries
-and "keccak_binder_f128" on Field128 ones; "keccak" counts the
-permutation and the in-place sponge.  K2's fixed-key entry (the one
-`fixed_key_blocks` launches) counts as "aes", its planes entry as
-"aes_planes".  K3 counts as "level" on Field64 payloads and
+and "keccak_binder_f128" on Field128 ones; "keccak" counts the in-place
+sponge and "keccak_permute" the bare permutation.  K2's fixed-key entry
+(the one `fixed_key_blocks` launches) counts as "aes", its planes entry
+as "aes_planes".  K3 counts as "level" on Field64 payloads and
 "level_f128" on Field128 ones.
 """
 
@@ -54,7 +54,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "keccak": {
         "keccak_permute": (_P, _P, _P, _P, _I, _I, _P),
-        "turboshake": (_P, _I, _P, _L, _L, _I, _P, _I, _I, _I, _P),
+        "turboshake": (_P, _I, _I, _P, _L, _I, _I, _P, _I, _I, _P),
         "binder_sponge": (_P, _P, _P, _P, _L, _I, _I, _P, _L, _P, _P, _P,
                           _L, _P, _P, _I, _P, _I, _I, _P),
     },
@@ -68,8 +68,8 @@ SIGNATURES = {
     },
 }
 
-launches = {name: 0 for name in SOURCES + ("keccak_binder", "aes_planes",
-                                           "keccak_binder_f128",
+launches = {name: 0 for name in SOURCES + ("keccak_permute", "keccak_binder",
+                                           "aes_planes", "keccak_binder_f128",
                                            "level_f128")}
 build_info: dict = {}
 _libs: dict = {}

@@ -67,20 +67,37 @@ def test_lane_byte_conversions_match_jax():
     assert np.array_equal(back.numpy(), data)
 
 
-@pytest.mark.parametrize("length", [0, 1, 167, 168, 169, 400, 505])
-def test_turbo_shake128_dynamic_matches_jax(length):
+def _at_offset(arr: np.ndarray, offset: int) -> torch.Tensor:
+    """arr as a contiguous tensor that starts `offset` bytes into its
+    storage (a row view at an odd byte address)."""
+    flat = np.zeros(offset + arr.size, np.uint8)
+    flat[offset:] = arr.reshape(-1)
+    return torch.from_numpy(flat)[offset:].view(arr.shape)
+
+
+@pytest.mark.parametrize("length,offset", [
+    *(pytest.param(n, 0, id=str(n)) for n in (0, 1, 167, 168, 169, 400, 505)),
+    (167, 1), (400, 3), (505, 1)])
+def test_turbo_shake128_dynamic_matches_jax(length, offset):
     """Runtime lengths across the block edges and several blocks, with
-    a multi-block squeeze."""
+    a multi-block squeeze; also rows at an odd byte offset."""
     rng = np.random.default_rng(length)
     msg = rng.integers(0, 256, (3, 2, 505), dtype=np.uint8)
     want = _JAX_SPONGE(jnp.asarray(msg), jnp.int32(length))
-    got = tkeccak.turbo_shake128_dynamic(torch.from_numpy(msg), length, 1,
+    got = tkeccak.turbo_shake128_dynamic(_at_offset(msg, offset), length, 1,
                                          200)
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("plen,length", [(14, 0), (14, 154), (14, 505),
-                                         (170, 3), (170, 400)])
+# Prefixes of 1-15 bytes (each lane split between prefix and message
+# in its own way) at lengths that put the total on a block edge.
+_PREFIX_CASES = [(14, 0), (14, 154), (14, 505), (170, 3), (170, 400)]
+_PREFIX_CASES += [(p, n) for p in range(1, 16)
+                  for n in sorted({0, 167 - p, 168 - p, 169 - p, 400})
+                  if (p, n) not in _PREFIX_CASES]
+
+
+@pytest.mark.parametrize("plen,length", _PREFIX_CASES)
 def test_turbo_shake128_dynamic_prefix_matches_jax(plen, length):
     """A shared prefix in front of the rows, also one that spans a
     block, hashes as the prefix and row concatenated."""
@@ -88,10 +105,64 @@ def test_turbo_shake128_dynamic_prefix_matches_jax(plen, length):
     prefix = rng.integers(0, 256, plen, dtype=np.uint8)
     msg = rng.integers(0, 256, (3, 2, 505), dtype=np.uint8)
     whole = np.concatenate([np.broadcast_to(prefix, (3, 2, plen)), msg], -1)
+    if plen < 14:   # the 14-byte prefix's width: no new JAX program
+        whole = np.concatenate([whole, np.zeros((3, 2, 14 - plen), np.uint8)],
+                               -1)
     want = _JAX_SPONGE(jnp.asarray(whole), jnp.int32(plen + length))
     got = tkeccak.turbo_shake128_dynamic(torch.from_numpy(msg), length, 1,
                                          200, prefix=prefix.tobytes())
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def _template_sponge(msg: np.ndarray, length: int, prefix: bytes,
+                     domain: int, out_len: int) -> np.ndarray:
+    """TurboSHAKE128 absorbed as the sponge kernel absorbs: each rate
+    block is the row's bytes where they fall in it, anything elsewhere
+    (here random bytes), and in the template's blocks those bytes masked
+    and the template XORed in (`sponge_template`)."""
+    (tmpl, head) = tkeccak.sponge_template(prefix, length, domain)
+    tmpl = np.frombuffer(tmpl, np.uint8).reshape(2, -1, tkeccak.RATE)
+    total = len(prefix) + length
+    nblk = total // tkeccak.RATE + 1
+    rng = np.random.default_rng(total)
+    buf = rng.integers(0, 256, msg.shape[:-1] + (nblk * tkeccak.RATE,),
+                       dtype=np.uint8)
+    buf[..., len(prefix):total] = msg[..., :length]
+    state = torch.zeros((25,) + msg.shape[:-1], dtype=torch.int64)
+    for k in range(nblk):
+        block = buf[..., k * tkeccak.RATE:(k + 1) * tkeccak.RATE]
+        j = k if k < head else head if k == nblk - 1 else None
+        if j is not None:
+            block = (block & tmpl[1, j]) ^ tmpl[0, j]
+        lanes = tkeccak._bytes_lane64(torch.from_numpy(block.copy()))
+        state = torch.cat([state[:21] ^ torch.movedim(lanes, -1, 0),
+                           state[21:]])
+        state = tkeccak._permute_plain(state, 12)
+    out = []
+    for n in range(-(-out_len // tkeccak.RATE)):
+        if n:
+            state = tkeccak._permute_plain(state, 12)
+        out.append(tkeccak._lane64_bytes(torch.movedim(state[:21], 0, -1)))
+    return torch.cat(out, dim=-1)[..., :out_len].numpy()
+
+
+@pytest.mark.parametrize("plen,length", [(0, 0), (0, 167), (0, 168),
+                                         (5, 162), (5, 163), (13, 400),
+                                         (14, 505), (170, 0), (170, 400)])
+def test_sponge_template_absorb_matches_jax(plen, length):
+    """The kernel's host-side lane template (prefix, domain byte and
+    pad10*1 for the blocks that hold them, masks for the message's
+    bytes) driving a plain absorb equals the JAX sponge."""
+    rng = np.random.default_rng(100 + plen + length)
+    prefix = rng.integers(0, 256, plen, dtype=np.uint8)
+    msg = rng.integers(0, 256, (3, 2, 505), dtype=np.uint8)
+    whole = np.concatenate([np.broadcast_to(prefix, (3, 2, plen)), msg], -1)
+    if plen <= 14:
+        whole = np.concatenate([whole, np.zeros((3, 2, 14 - plen), np.uint8)],
+                               -1)
+    want = _JAX_SPONGE(jnp.asarray(whole), jnp.int32(plen + length))
+    got = _template_sponge(msg, length, prefix.tobytes(), 1, 200)
+    assert np.array_equal(got, np.asarray(want))
 
 
 def test_turbo_shake128_static_matches_jax():
