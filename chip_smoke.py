@@ -90,9 +90,10 @@
       weight check from their depth-0 payloads: every honest report must
       be accepted.  Then the batch moves to a pinned `HostReportStore`
       and `aggregate_by_attribute(chunk_size=512, store=...)` runs the
-      round from the root over all 4096 reports in 8 chunks (the flat
-      tree is about 33 MB a report): every attribute's 1024-entry
-      vector must equal numpy's.  No incremental rounds: its carry does
+      round from the root over the first SUMVEC_ROOT_R reports in
+      chunks of 512 (the flat tree is about 33 MB a report; cut from
+      all 4096 for time, printed): every attribute's 1024-entry vector
+      must equal numpy's.  No incremental rounds: its carry does
       not fit a 128-level tree.
    e. Attributes: MasticSum(32, 255) over 10 000 reports and 64
       attributes of interest (BASELINE.json's attribute-metrics
@@ -103,10 +104,13 @@
       attribute them to the eval proof and the weight check, and every
       attribute's aggregate must equal numpy's weight sum over every
       report but the tampered ones.
-   f. A forced splice from the root: the attributes round again with
-      the `ok` of an honest report and of a report with a tampered proof
-      share cleared after the prep (`BatchedMastic.prep_both` wrapped);
-      both lanes' scalar reports must marshal to the batch's rows, and
+   f. A forced splice from the root: the attributes round again, over
+      SPLICE_ASKED of its attributes (the honest lane's among them; cut
+      for time, printed), with the `ok` of an honest report and of a
+      report with a tampered proof share cleared after the prep
+      (`BatchedMastic.prep_both` wrapped); both lanes' scalar reports
+      must marshal to the batch's rows, an unforced round over the same
+      attributes must give the full round's aggregates for them, and
       the splice must give the unforced result, the honest lane
       accepted and the tampered one rejected at the weight check.
    g. A forced splice and a checkpoint on the resident runner:
@@ -124,7 +128,7 @@
       ones, threshold 48 x 8), sharded on the card in batches of 4096,
       moved into a pinned `HostReportStore` and run through
       `HeavyHittersRun(chunk_size=4096)` (8 chunks, pipelined) for the
-      first 16 levels (`CHUNKED_LEVELS`); R drops to 16 384 when the
+      first 8 levels (`CHUNKED_LEVELS`); R drops to 16 384 when the
       host's available memory cannot hold the carries and the store.
       Every level must equal numpy's count, and the device peak must be
       at most 1.1x `memory_envelope`'s pipelined per-chunk peak.  The
@@ -229,6 +233,22 @@
       (phase a's and e's client shards launched K2).  l2: `python -m
       mastic_tpu_torch.tools.serve --smoke --status-port 0 --device
       cuda` as a child process prints `"ok": true`.
+   o. The kernel store (`drivers/artifacts.py`), last.  A store baked
+      (`tools.bake.bake`) from a fresh nvcc build in a temporary root,
+      each library's kernels held against their plain versions' probe
+      digests; then the serve tool's default scenario as fresh child
+      processes, each from a temporary copy of the package (no
+      build/kernels/ to reuse): o1 without a store (nvcc inline); o2
+      with `--artifact-dir` and nvcc off PATH and out of CUDA_HOME: no
+      inline build, 3 store hits, no round reporting an inline build,
+      results and per-round counters equal o1's; o3 over a copy of the
+      store with one byte of the level library's blob flipped: outcome
+      `corrupt`, that library alone built inline, results equal o1's;
+      o4, run beside o3, killed by `MASTIC_FAULTS=kill:party=collector:
+      step=epoch_round:nth=2` with a snapshot, then `--resume`d with the
+      store and nvcc hidden: results equal o1's.  Each child's time from
+      its spawn to the end of its first round is printed (o3's and o4's
+      side by side), with the per-library load and probe times.
 4. Prints the `kernels` JSON line (every kernel and instantiation; the
    Count rows' `launches_mesh` are rank 0's launches in the gloo
    resident run, its shard of its rows included, the MasticSum rows' in
@@ -250,9 +270,12 @@ mastic_tpu_torch).
 import argparse
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -290,12 +313,15 @@ ATTR_BITS = 32
 ATTR_R = 10_000
 ATTR_ASKED = 64
 ATTR_TAMPERED = 100
-# SumVec from the root: 4 attributes over all of the sumvec path's 4096
-# reports, in chunks of 512 (the flat tree is about 33 MB a report, so
-# about 17 GB a chunk and aggregator).  K1's SumVec row keeps the 1024
-# reports of the unchunked round it was first held at.
+# SumVec from the root: 4 attributes over the first SUMVEC_ROOT_R of the
+# sumvec path's 4096 reports, in chunks of 512 (the flat tree is about
+# 33 MB a report, so about 17 GB a chunk and aggregator; about 12 s a
+# chunk on an H100, so R is cut from 4096 for time, and the cut
+# printed).  K1's SumVec row keeps the 1024 reports of the unchunked
+# round it was first held at.
 SUMVEC_ASKED = 4
 SUMVEC_CHUNK = 512
+SUMVEC_ROOT_R = 2048
 SUMVEC_BINDER_R = 1024
 # K3's in-range predicate on the card: fresh parents at the attribute
 # row's shape (10 000 x 64 parents x 2 children x 17 Field64 elements,
@@ -315,15 +341,15 @@ CKPT_CHUNK = R // 4
 # The chunked Count cell: the Count path's recipe scaled x8 (32 planted
 # strings x 512 reports and 16 384 uniform ones), sharded in batches of
 # 4096, streamed from pinned host memory in 8 chunks of 4096, pipelined,
-# through the first 16 levels, threshold 48 x 8.  A resident run would
+# through the first 8 levels, threshold 48 x 8.  A resident run would
 # hold 32 768 x 2.0 MiB of carries at width 64 on the card (68.8 GB),
 # and its peak, the resident Count path's scaled x8, is past the card.
-# If the smoke runs over time, CHUNKED_LEVELS is cut first (never below
-# 8), and the cut is printed.
+# CHUNKED_LEVELS was cut from 16 to 8 (its floor) for the smoke's time;
+# the cut is printed.
 CHUNKED_R = 8 * R
 CHUNKED_FALLBACK_R = 4 * R
 CHUNKED_CHUNK = R
-CHUNKED_LEVELS = 16
+CHUNKED_LEVELS = 8
 CHUNKED_THRESHOLD = 8 * THRESHOLD
 # The mesh phase (j), over torch.distributed: NCCL at 1 rank on the card
 # (the Count path's reports, MESH_NCCL_LEVELS levels, each against phase
@@ -421,6 +447,17 @@ PROFILE_KERNEL = "level_kernel"   # K3's __global__ (csrc/level.cu)
 # What each tenant's rounds must launch, and its clients' shard.
 SERVICE_COUNTERS = {"rounds": ("keccak", "keccak_binder", "level"),
                     "shard": ("aes",)}
+
+# The forced splice from the root asks SPLICE_ASKED of phase e's
+# attributes (the honest lane's among them): its scalar prep of the two
+# forced lanes grows with the attributes asked (about 78 s at all 64 on
+# an H100 host, 12 s at 8), and it is held against an unforced round
+# over the same attributes.
+SPLICE_ASKED = 4
+# Phase o, the kernel store: the library whose blob the corrupted store
+# flips a byte of, and the fault that kills the serve child mid-epoch.
+STORE_CORRUPT = "level"
+STORE_KILL = "kill:party=collector:step=epoch_round:nth=2"
 
 # Operation counts for the bounds, in 32-bit instructions as the card
 # issues them: one LOP3 computes any function of three words, and a
@@ -1731,8 +1768,9 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
     with 1026 convert blocks), then both aggregators' weight check from
     their depth-0 payloads: every honest report must be accepted and
     the two beta shares must sum to the encoded measurement.  Then the
-    batch moves to a pinned `HostReportStore` and the attribute-metrics
-    round from the root runs over all 4096 reports in chunks of 512
+    batch's first SUMVEC_ROOT_R reports move to a pinned
+    `HostReportStore` and the attribute-metrics round from the root runs
+    over them in chunks of 512
     (`aggregate_by_attribute(chunk_size=512, store=...)`: per chunk 128
     depths of 1026-block level steps for each aggregator, K1 on Field128
     rows of 1025 elements): each attribute's 1024-entry vector must
@@ -1740,6 +1778,7 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
     from mastic_tpu_torch import (HostReportStore, aggregate_by_attribute,
                                   hash_attribute)
     from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticSumVec
+    from mastic_tpu_torch.drivers.chunked import map_batch
 
     (bits, length, vbits, _chunk) = SUMVEC
     rng = np.random.default_rng(seed + 6)
@@ -1783,8 +1822,11 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
     cw_bytes = batch.cws.w.numel() * batch.cws.w.element_size()
     accepted = int(accept.sum())
     del trees, checks, wc_ok, accept, beta, w0, w1
+    n = SUMVEC_ROOT_R
+    shard_rejected = int((~shard_ok).sum())
     t0 = time.perf_counter()
-    store = HostReportStore.from_batch(batch, SUMVEC_CHUNK)
+    store = HostReportStore.from_batch(map_batch(batch, lambda t: t[:n]),
+                                       SUMVEC_CHUNK)
     store_s = time.perf_counter() - t0
     del batch
     torch.cuda.empty_cache()
@@ -1793,12 +1835,13 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
     metrics = []
     t0 = time.perf_counter()
     got = aggregate_by_attribute(
-        mastic, CTX, asked, vk, valid=shard_ok, metrics_out=metrics,
+        mastic, CTX, asked, vk, valid=shard_ok[:n], metrics_out=metrics,
         device=dev, chunk_size=SUMVEC_CHUNK, store=store,
-        reports=ScalarReports(mastic, meas, nonces, rand))
+        reports=ScalarReports(mastic, meas[:n], nonces[:n], rand[:n]))
     torch.cuda.synchronize()
     root_s = time.perf_counter() - t0
-    kept = shard_ok.cpu().numpy()
+    (alphas, values) = (alphas[:n], values[:n])
+    kept = shard_ok[:n].cpu().numpy()
     if metrics[0].extra["excluded_invalid"] != int((~kept).sum()) \
             or metrics[0].accepted != int(kept.sum()):
         raise AssertionError(f"MasticSumVec from the root: {metrics[0]}")
@@ -1809,7 +1852,7 @@ def sumvec_path(dev: torch.device, seed: int) -> dict:
                              "vectors differ from numpy's")
     pipe = metrics[0].extra["pipeline"]
     return {"shard_s": shard_s, "check_s": check_s,
-            "shard_rejected": int((~kept).sum()),
+            "shard_rejected": shard_rejected,
             "accepted": accepted, "cws_w_bytes": cw_bytes,
             "shard_peak": shard_peak, "root_s": root_s,
             "root_peak": torch.cuda.max_memory_allocated(dev),
@@ -1987,6 +2030,7 @@ def attributes_path(dev: torch.device, seed: int) -> dict:
     handoff = {"bm": inputs["bm"], "vk": inputs["vk"], "batch": batch,
                "shard_ok": shard_ok, "reports": inputs["reports"],
                "asked": inputs["asked"], "result": run.result(),
+               "path_of": inputs["path_of"], "alphas": inputs["alphas"],
                "metrics": m, "fallback": fallback, "tampered_mask": tampered,
                "honest": int(np.flatnonzero(in_set & ~tampered & valid)[0]),
                "tampered": int(inputs["proof_rows"][0])}
@@ -2004,23 +2048,47 @@ def attributes_path(dev: torch.device, seed: int) -> dict:
 
 def attributes_splice(dev: torch.device, handoff: dict) -> dict:
     """A forced splice on the from-root engine at full size: the
-    attribute round again over the same batch, with two lanes' `ok`
+    attribute round again over the same batch, asking SPLICE_ASKED of
+    the attributes (the honest lane's among them), with two lanes' `ok`
     cleared after the prep (`BatchedMastic.prep_both` wrapped here and
     restored after), one honest report and one with a tampered proof
     share.  Their scalar reports (the port's scalar shard of the same
     measurement, nonce and rand, tampered alike) must marshal to the
-    device batch's rows.  The result must equal the unforced round's
-    (itself numpy's over every report but the tampered ones), the two
-    lanes must count as XOF fallbacks, the honest one accepted and the
-    tampered one rejected by the splice, at the weight check."""
+    device batch's rows.  An unforced round over the same attributes
+    must give the full round's aggregates of those attributes (numpy's),
+    and the forced round the unforced one's; the two lanes must count
+    as XOF fallbacks, the honest one accepted and the tampered one
+    rejected by the splice, at the weight check."""
     from mastic_tpu_torch import AttributeMetricsRun
     from mastic_tpu_torch.backend.mastic import BatchedMastic
 
     h = handoff
     lanes = [h["honest"], h["tampered"]]
+    honest = next(a for a in h["asked"]
+                  if tuple(h["path_of"][a]) == tuple(h["alphas"][lanes[0]]))
+    asked = [a for a in h["asked"]
+             if a == honest or h["asked"].index(a) < SPLICE_ASKED - 1]
     t0 = time.perf_counter()
     _marshal_matches(dev, h["bm"], h["batch"], h["reports"], lanes)
     scalar_s = time.perf_counter() - t0
+    valid = h["shard_ok"].cpu().numpy()
+
+    def attribute_round() -> tuple:
+        run = AttributeMetricsRun(h["bm"].m, CTX, asked, h["vk"], h["batch"],
+                                  valid=h["shard_ok"], device=dev,
+                                  reports=h["reports"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = run.step_begin()
+        run.step_finish(handle)
+        return (run, handle, time.perf_counter() - t0)
+
+    (base_run, base_handle, _) = attribute_round()
+    if base_run.result() != [(a, v) for (a, v) in h["result"] if a in asked]:
+        raise AssertionError("forced splice from the root: the unforced "
+                             "round over the cut attributes differs from the "
+                             "full round's")
+    fallback = ~base_handle["out"][3].cpu().numpy() & valid
     real = BatchedMastic.prep_both
     cleared = torch.as_tensor(lanes, device=dev)
 
@@ -2032,22 +2100,15 @@ def attributes_splice(dev: torch.device, handoff: dict) -> dict:
 
     BatchedMastic.prep_both = prep_both
     try:
-        run = AttributeMetricsRun(h["bm"].m, CTX, h["asked"], h["vk"],
-                                  h["batch"], valid=h["shard_ok"], device=dev,
-                                  reports=h["reports"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        handle = run.step_begin()
-        run.step_finish(handle)
-        round_s = time.perf_counter() - t0
+        (run, handle, round_s) = attribute_round()
     finally:
         BatchedMastic.prep_both = real
-    (m, base) = (run.metrics[0], h["metrics"])
+    (m, base) = (run.metrics[0], base_run.metrics[0])
     accept = handle["accept"]
-    forced = h["fallback"].copy()
+    forced = fallback.copy()
     forced[lanes] = True
-    newly = int(not h["fallback"][h["tampered"]])
-    if run.result() != h["result"]:
+    newly = int(not fallback[h["tampered"]])
+    if run.result() != base_run.result():
         raise AssertionError("forced splice from the root: the result "
                              "differs from the unforced round's")
     if (m.xof_fallbacks, m.accepted, m.rejected_fallback,
@@ -2060,7 +2121,7 @@ def attributes_splice(dev: torch.device, handoff: dict) -> dict:
         raise AssertionError(f"forced splice from the root: {m}")
     return {"round_s": round_s, "scalar_shard_s": scalar_s,
             "splice_ms": m.extra["splice_ms"], "lanes": lanes,
-            "xof_fallbacks": m.xof_fallbacks,
+            "asked": len(asked), "xof_fallbacks": m.xof_fallbacks,
             "rejected_fallback": m.rejected_fallback,
             "rejected_fallback_by": m.extra["rejected_fallback_by"],
             "accepted": m.accepted}
@@ -3977,6 +4038,141 @@ def _print_service(s: dict) -> None:
           f"{l1['phase_s']:.1f} s + {s['l2']['wall_s']:.1f} s")
 
 
+# -- phase o: the kernel store --------------------------------------------
+
+def _store_child(what: str, out: dict) -> dict:
+    """One serve child's figures: time to its first round, its kernel
+    loading, and its rounds' inline builds."""
+    from mastic_tpu_torch.tools import bake as bake_tool
+
+    ks = out["kernel_store"]
+    return {"what": what, "first_round_s": out["first_round_s"],
+            "inline_compiles": ks["inline_compiles"],
+            "artifact_hits": ks["artifact_hits"],
+            "artifact_load_ms": ks["artifact_load_ms"],
+            "outcomes": ks.get("outcomes", {}),
+            "timings": ks.get("timings", {}),
+            "round_inline": bake_tool.epoch_inline_compiles(out)}
+
+
+def store_phase(dev: torch.device) -> dict:
+    """Phase o: bake a kernel store from a fresh build, then serve from
+    it in fresh children (module docstring, o1-o4)."""
+    from mastic_tpu_torch.drivers import artifacts
+    from mastic_tpu_torch.ops import kernels
+    from mastic_tpu_torch.tools import bake as bake_tool
+
+    t_start = time.perf_counter()
+    sources = len(kernels.SOURCES)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="mastic_store_phase_"))
+    try:
+        rec = bake_tool.bake(str(tmp / "store"), dev)
+        store = artifacts.ArtifactStore(rec["store"])
+        for name in kernels.SOURCES:
+            entry = store.entry(artifacts.library_key(name))
+            if "registers" not in entry["ptxas"]:
+                raise AssertionError(f"o: the store's {name} entry holds no "
+                                     f"ptxas report")
+        children = {}
+        # o1: no store, nvcc inline.
+        inline = bake_tool.serve_child(
+            bake_tool.package_copy(str(tmp / "o1")), [],
+            bake_tool.child_env())
+        children["o1"] = _store_child("no store, nvcc inline", inline)
+        if inline["kernel_store"]["inline_compiles"] != sources:
+            raise AssertionError(f"o1: {children['o1']}")
+        # o2: the store, nvcc hidden.
+        warm_root = bake_tool.package_copy(str(tmp / "o2"))
+        warm = bake_tool.serve_child(
+            warm_root, ["--artifact-dir", rec["store"]],
+            bake_tool.child_env(hide_nvcc=True))
+        children["o2"] = _store_child("the store, nvcc hidden", warm)
+        problems = bake_tool.compare_children(inline, warm, "o2")
+        ks = warm["kernel_store"]
+        if ks["inline_compiles"] or ks["artifact_hits"] != sources \
+                or any(children["o2"]["round_inline"]) \
+                or ks["outcomes"].get("hit", 0) < sources:
+            problems.append(f"o2: {children['o2']}")
+        # o3: one byte of one blob flipped, nvcc at hand; beside it, o4:
+        # killed mid-epoch with a snapshot, resumed from the store.
+        shutil.copytree(rec["store"], tmp / "corrupt")
+        blob = tmp / "corrupt" / store.entry(
+            artifacts.library_key(STORE_CORRUPT))["blob"]
+        data = bytearray(blob.read_bytes())
+        data[len(data) // 2] ^= 0x40
+        blob.write_bytes(bytes(data))
+        snap = str(tmp / "serve.snap")
+
+        def kill_and_resume() -> tuple:
+            killed = bake_tool.serve_child(
+                warm_root, ["--snapshot", snap, "--artifact-dir",
+                            rec["store"]],
+                bake_tool.child_env(hide_nvcc=True, MASTIC_FAULTS=STORE_KILL),
+                check=False)
+            if killed["rc"] == 0 or not pathlib.Path(snap).exists():
+                raise AssertionError(f"o4: the faulted child was not killed "
+                                     f"after a snapshot (rc {killed['rc']})")
+            return (killed, bake_tool.serve_child(
+                warm_root, ["--snapshot", snap, "--resume", "--artifact-dir",
+                            rec["store"]], bake_tool.child_env(hide_nvcc=True)))
+
+        with ThreadPoolExecutor(2) as pool:
+            o4 = pool.submit(kill_and_resume)
+            bad = bake_tool.serve_child(
+                bake_tool.package_copy(str(tmp / "o3")),
+                ["--artifact-dir", str(tmp / "corrupt")],
+                bake_tool.child_env())
+            (killed, resumed) = o4.result()
+        children["o3"] = _store_child(
+            f"a store with lib{STORE_CORRUPT}.so corrupted, beside o4", bad)
+        problems += bake_tool.compare_children(inline, bad, "o3")
+        ks = bad["kernel_store"]
+        if not ks["outcomes"].get("corrupt") or ks["inline_compiles"] != 1 \
+                or ks["artifact_hits"] != sources - 1:
+            problems.append(f"o3: {children['o3']}")
+        children["o4"] = _store_child("resumed from a kill, the store, nvcc "
+                                      "hidden, beside o3", resumed)
+        children["o4"]["killed_rc"] = killed["rc"]
+        if resumed["results"] != inline["results"]:
+            problems.append(f"o4: results diverge: {resumed['results']} != "
+                            f"{inline['results']}")
+        if resumed["kernel_store"]["inline_compiles"]:
+            problems.append(f"o4: {children['o4']}")
+        if problems:
+            raise AssertionError("o: " + "; ".join(problems))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"bake": rec, "children": children,
+            "results": inline["results"],
+            "phase_s": time.perf_counter() - t_start}
+
+
+def _print_store(o: dict) -> None:
+    rec = o["bake"]
+    print(f"kernel store: baked {rec['entries']} libraries "
+          f"({rec['store_bytes']} B) in {rec['wall_seconds']:.3f} s, nvcc "
+          f"{rec['build_seconds']:.3f} s ({rec['nvcc']}), runtime "
+          f"{rec['runtime']}, key {rec['key']}; each library's kernels = "
+          f"its plain versions' probe digests: " + ", ".join(
+              f"{name} plain {lib['plain_probe_s']:.3f} s (CPU), kernels "
+              f"{lib['kernel_probe_s']:.3f} s"
+              for (name, lib) in rec["libraries"].items()))
+    for (name, c) in o["children"].items():
+        extra = (f", killed first (rc {c['killed_rc']})"
+                 if "killed_rc" in c else "")
+        print(f"kernel store {name} ({c['what']}{extra}): first round "
+              f"{c['first_round_s']:.3f} s after the spawn; inline builds "
+              f"{c['inline_compiles']}, store hits {c['artifact_hits']} "
+              f"({c['artifact_load_ms']:.3f} ms in lib()), outcomes "
+              f"{c['outcomes']}, rounds' inline builds {c['round_inline']}")
+        for (lib, t) in sorted(c["timings"].items()):
+            print(f"kernel store {name} lib{lib}.so: load (read, digest, "
+                  f"dlopen) {t['load_ms']:.3f} ms, probe {t['probe_ms']:.3f} "
+                  f"ms")
+    print(f"kernel store: o2, o3 and o4 results = o1's {o['results']}; o2's "
+          f"per-round counters = o1's")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4136,8 +4332,13 @@ def main() -> int:
                 party: entry["launches"][counter]
                 for (party, entry) in sorted(k[sub]["parties"].items())}}
 
-    # Phase l, the collector service, last.
+    # Phase l, the collector service.
     service = service_phase(dev, results, time.perf_counter() - t_start)
+
+    # Phase o, the kernel store, last: fresh children, each with its own
+    # kernel loading.
+    torch.cuda.empty_cache()
+    store = store_phase(dev)
     tenant_of = {"count": "count", "sum": "attrs", "attributes": "attrs"}
     for row in rows:
         counter = row_counter[row["name"]][1]
@@ -4216,8 +4417,11 @@ def main() -> int:
           f"sharding); peak device memory {peaks['sumvec']} B "
           f"({peaks['sumvec'] / 2 ** 30:.2f} GiB); launches "
           + ", ".join(f"{k} {v}" for (k, v) in counts["sumvec"].items()))
-    print(f"sumvec from the root: {SUMVEC_ASKED} attributes over all {R} "
-          f"reports from a pinned HostReportStore ({result['store_bytes']} "
+    print(f"cut: sumvec from the root over the first {SUMVEC_ROOT_R} of the "
+          f"{R} reports, for time")
+    print(f"sumvec from the root: {SUMVEC_ASKED} attributes over "
+          f"{SUMVEC_ROOT_R} reports from a pinned HostReportStore "
+          f"({result['store_bytes']} "
           f"B, {result['store_s']:.3f} s to fill) in "
           f"{result['root_chunks']} chunks of {SUMVEC_CHUNK} "
           f"({result['root_mode']}, overlap efficiency "
@@ -4249,6 +4453,10 @@ def main() -> int:
           + ", ".join(f"{k} {v}" for (k, v) in counts["attributes"].items()
                       if v))
     result = results["attributes_splice"]
+    print(f"cut: the forced splice from the root asks {result['asked']} of "
+          f"the {ATTR_ASKED} attributes, for time (its scalar prep of the "
+          f"forced lanes scales with them), held against an unforced round "
+          f"over the same {result['asked']}")
     print(f"forced splice from the root: the attributes round again with "
           f"lanes {result['lanes']} (an honest report, a tampered proof "
           f"share) cleared after the prep; their scalar reports marshal to "
@@ -4332,6 +4540,7 @@ def main() -> int:
     _print_mesh(mesh)
     _print_parties(k)
     _print_service(service)
+    _print_store(store)
     print("path seconds: " + ", ".join(
         f"{name} {r['path_s']:.1f}" for (name, r) in results.items())
         + ", " + ", ".join(
@@ -4340,8 +4549,12 @@ def main() -> int:
         + f", mesh {mesh['nccl_s'] + mesh['gloo_s']:.1f}, parties "
         + ", ".join(f"{name} {r['phase_s']:.1f}" for (name, r) in k.items())
         + f", service "
-        f"{service['l1']['phase_s'] + service['l2']['wall_s']:.1f}")
+        f"{service['l1']['phase_s'] + service['l2']['wall_s']:.1f}"
+        + f", store {store['phase_s']:.1f}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
+    print("kernel store outcomes (phase o's children, beside the kernels "
+          "line): " + json.dumps({name: c["outcomes"] for (name, c) in
+                                  store["children"].items()}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

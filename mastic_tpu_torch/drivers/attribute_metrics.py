@@ -43,6 +43,7 @@ import torch
 from .. import resolve_device
 from ..backend.mastic import BatchedMastic, Mastic, ReportBatch
 from ..backend.schedule import LevelSchedule
+from . import artifacts
 from .chunked import HostReportStore, _host, map_batch
 from ..obs import trace as obs_trace
 from .heavy_hitters import (_ms, begin_round_obs, end_round_obs,
@@ -276,6 +277,7 @@ def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
     shares are folded on the host, and `finalize_round` (the metrics
     record and the splice) runs once over every report.  Returns the
     round's handle: the result, and its final accept and ok masks."""
+    mark = artifacts.stats_mark()
     (level, prefixes, _wc) = agg_param
     num = store.num_reports if store is not None else len(reports)
     pin = device.type == "cuda"
@@ -354,7 +356,7 @@ def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
     result = finalize_round(bm, verify_key, ctx, agg_param, reports, ok_all,
                             accept_all, checks_all, cr.agg_shares,
                             padded_width=nodes, nodes_evaluated=nodes,
-                            metrics_out=records, valid=valid_all)
+                            metrics_out=records, valid=valid_all, mark=mark)
     records[0].extra.update({"chunk_size": chunk_size, "chunks": timeline,
                              "pipeline": cr.pipeline_block()})
     if mesh is not None:

@@ -55,6 +55,7 @@ from ..backend.vidpf import BatchedCorrectionWords
 from ..metrics import (RoundMetrics, attribute_rejections,
                        count_round_bytes, count_round_ops)
 from ..parallel.mesh import agree_min, gather_rows, tree_map
+from . import artifacts
 from .heavy_hitters import IncrementalRunner, _ms, splice_rejected
 from .pipeline import ChunkedRound, CopyStreams, pipeline_mode
 
@@ -650,6 +651,7 @@ class ChunkedIncrementalRunner:
         the host.  After every chunk, the scalar splice of the fallback
         lanes, as in the resident runner.  Returns one decoded aggregate
         per prefix."""
+        mark = artifacts.stats_mark()
         (level, prefixes, do_weight_check) = agg_param
         bm = self.bm
         store = self.store
@@ -782,6 +784,7 @@ class ChunkedIncrementalRunner:
         metrics.extra["chunks"] = timeline
         metrics.extra["memory"] = self.memory_accounting()
         metrics.extra["pipeline"] = cr.pipeline_block()
+        metrics.extra["artifacts"] = artifacts.round_block(mark)
         if self.mesh is not None:
             metrics.extra["mesh"] = cr.mesh_block(self._device_rows())
         if metrics_out is not None:

@@ -74,6 +74,7 @@ the dict, else the default.
 import hashlib
 import io
 import time
+from dataclasses import fields
 from typing import Optional, Sequence
 
 import numpy as np
@@ -93,6 +94,7 @@ from ..parallel.mesh import (gather_round, gather_rows, mesh_block,
                              place_reports, shard_incremental_runner,
                              tree_map)
 from ..scalar.mastic import ReportRejected
+from . import artifacts
 
 
 def get_threshold(thresholds: dict, prefix: tuple) -> int:
@@ -146,10 +148,16 @@ def end_round_obs(handle: dict, error: Optional[BaseException] = None
 
 def stamp_round(metrics: RoundMetrics, t0: float, tenant: str) -> None:
     """A finished round's record: its wall time, the schema check of its
-    blocks, and its registry series."""
+    blocks, and its registry series; inside a span (a service epoch's),
+    its counters as a "round_counters" event of that span."""
     metrics.extra["round_wall_ms"] = _ms(t0, time.perf_counter())
     metrics.validate_extra()
     devtime.observe_round(metrics, tenant=tenant)
+    span = obs_trace.get_tracer().current()
+    if span is not None:
+        span.event("round_counters", **{
+            f.name: getattr(metrics, f.name) for f in fields(metrics)
+            if f.name != "extra"})
 
 
 # -- the scalar fallback -----------------------------------------------
@@ -339,6 +347,7 @@ class IncrementalRunner:
         step, the level-0 weight check, the accept combine and the
         masked aggregates.  Returns the handle `round_collect` reads."""
         t0 = time.perf_counter()
+        mark = artifacts.stats_mark()
         (level, prefixes, do_weight_check) = agg_param
         plan = self._plan(prefixes, level)
         rnd = round_inputs(plan, self.device)
@@ -361,7 +370,7 @@ class IncrementalRunner:
         agg = (self.bm.aggregate(out0, keep), self.bm.aggregate(out1, keep))
         self.layouts.append(plan.layout_new)
         return {"agg_param": agg_param, "plan": plan, "agg": agg,
-                "accept": accept, "ok": ok, "checks": checks,
+                "accept": accept, "ok": ok, "checks": checks, "mark": mark,
                 "t": (t0, t_plan, time.perf_counter())}
 
     def round_collect(self, handle: dict,
@@ -415,7 +424,8 @@ class IncrementalRunner:
         # The JAX package's resident block: one chunk, so nothing to
         # overlap within the round.  The downloads are the round's one
         # sync, so their time is inside compute_wait_ms; the port
-        # compiles no program, so there is no compile_ms phase.
+        # compiles no program, so there is no compile_ms phase (a kernel
+        # library built or loaded in the round is in extra["artifacts"]).
         metrics.extra["pipeline"] = {
             "mode": "resident-deferred", "fallback": None,
             "round_wall_ms": _ms(t0, t_host), "overlap_efficiency": 0.0,
@@ -424,6 +434,7 @@ class IncrementalRunner:
                        "dispatch_ms": _ms(t_plan, t_disp),
                        "compute_wait_ms": _ms(t_disp, t_wait),
                        "host_ms": _ms(t_wait, t_host)}}
+        metrics.extra["artifacts"] = artifacts.round_block(handle["mark"])
         if self.mesh is not None:
             metrics.extra["mesh"] = mesh_block(self.mesh, num, g.share_bytes,
                                                [g.skew_ms])
@@ -440,10 +451,11 @@ def run_round_stage(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
     """Dispatch one from-root round without blocking: both preps, the
     checks and the masked aggregates, on the device.  Returns the
     handle `run_round_collect` reads."""
+    mark = artifacts.stats_mark()
     sched = bm.schedule(agg_param, batch.nonces.device)
     return {"out": bm.round_device_checks(verify_key, ctx, agg_param, batch,
                                           valid, sched),
-            "nodes": sched.total_nodes, "valid": valid,
+            "nodes": sched.total_nodes, "valid": valid, "mark": mark,
             "verify_key": verify_key, "ctx": ctx}
 
 
@@ -469,7 +481,8 @@ def run_round_collect(bm: BatchedMastic, agg_param, handle: dict,
     return finalize_round(bm, handle["verify_key"], handle["ctx"], agg_param,
                           reports, ok, accept, checks, agg_shares,
                           padded_width=nodes, nodes_evaluated=nodes,
-                          metrics_out=metrics_out, valid=valid)
+                          metrics_out=metrics_out, valid=valid,
+                          mark=handle["mark"])
 
 
 def run_round(bm: BatchedMastic, verify_key: bytes, ctx: bytes, agg_param,
@@ -488,12 +501,15 @@ def finalize_round(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
                    agg_param, reports: Optional[Sequence], ok: np.ndarray,
                    accept: np.ndarray, checks: dict, agg_shares: list,
                    padded_width: int, nodes_evaluated: int,
-                   metrics_out: Optional[list], valid: np.ndarray) -> list:
+                   metrics_out: Optional[list], valid: np.ndarray,
+                   mark: dict) -> list:
     """The from-root round's host side: the metrics record with the
-    rejections attributed per check, the XOF-rejection splice (lanes
-    with `ok` False and `valid` True; `accept` and `agg_shares` are
-    updated in place), then the unshard.  Lanes with `valid` False are
-    left out of the aggregates and the verdicts."""
+    rejections attributed per check and the kernel loading since
+    `mark` (`artifacts.stats_mark()` at the round's start), the
+    XOF-rejection splice (lanes with `ok` False and `valid` True;
+    `accept` and `agg_shares` are updated in place), then the unshard.
+    Lanes with `valid` False are left out of the aggregates and the
+    verdicts."""
     (level, prefixes, _wc) = agg_param
     num_reports = accept.shape[0]
     metrics = RoundMetrics(level=level, frontier_width=len(prefixes),
@@ -516,6 +532,7 @@ def finalize_round(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
     metrics.extra["rejected_fallback_by"] = rejected_by
     metrics.accepted = int(accept.sum())
     metrics.rejected_fallback = int((fallback & ~accept).sum())
+    metrics.extra["artifacts"] = artifacts.round_block(mark)
     if metrics_out is not None:
         metrics_out.append(metrics)
     return bm.m.unshard(agg_shares)

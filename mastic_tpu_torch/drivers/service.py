@@ -57,8 +57,11 @@ is parsed on the device from the surviving pages' bytes (both views
 through `BatchedMastic.marshal_party_blobs`) instead of decoding every
 blob a second time in Python, and the run gets a lazy `reports`
 sequence (`_EpochReports`) that decodes a lane's blob only when the
-XOF-rejection splice reads it.  `_preload_artifacts` does nothing yet
-(the AOT tier is ROADMAP item 10).
+XOF-rejection splice reads it.  `_preload_artifacts` loads and probes
+the kernel libraries from the kernel store (`drivers/artifacts.py`,
+armed by `MASTIC_ARTIFACT_DIR`) at boot and at tenant admission, on a
+CUDA device only: the libraries belong to the process, so every tenant
+after the first finds them loaded.
 
 Fault injection (`MASTIC_FAULTS`, party ``collector``) plugs in at the
 ingest seams as in the JAX package: checkpoint ``admit`` per admission
@@ -830,7 +833,8 @@ class CollectorService:
             self._ingest = _IngestFront(self,
                                         self.config.ingest_threads,
                                         self.config.ingest_queue)
-        # The AOT artifact tier's boot hook (a no-op until it exists).
+        # The kernel store: load and probe the libraries at boot, so the
+        # first round pays no load.
         for t in self.tenants.values():
             self._preload_artifacts(t)
 
@@ -872,12 +876,27 @@ class CollectorService:
         self._preload_artifacts(t)
 
     def _preload_artifacts(self, t: _Tenant) -> None:
-        """Pull the tenant's programs from the AOT artifact store.
-        The port has no such tier yet (ROADMAP item 10 adds it and
-        fills this hook in): the runs launch hand-written kernels
-        that `ops.kernels` builds once per process, so there is
-        nothing to preload."""
-        del t
+        """Load and probe every kernel library from the armed kernel
+        store (artifacts.ArtifactStore.load: digest, runtime, probe)
+        into the process (`ops.kernels.preload`: a library that fails
+        its gates is built inline now, or raises without nvcc); every
+        outcome lands in mastic_artifact_loads_total and in one
+        `artifact_preload` event.  The runs of every tenant launch the
+        same libraries, so a preload after the first is in-process
+        hits.  On the CPU nothing is opened."""
+        from ..ops import kernels
+        from . import artifacts
+
+        if self.device.type != "cuda":
+            return
+        store = artifacts.store_from_env()
+        if store is None:
+            return
+        with torch.cuda.device(self.device):
+            counts = store.preload()
+            kernels.preload()
+        obs_trace.event("artifact_preload", tenant=t.spec.name,
+                        store=store.path, **counts)
 
     def _checkpoint(self, step: str) -> None:
         if self.injector is not None:

@@ -31,9 +31,12 @@ incremental rounds the plan, dispatch and wait times ("phases") and the
 JAX package's "pipeline" block (mode "resident-deferred"), and
 "round_wall_ms".  The chunked rounds add the JAX package's "chunks",
 "memory" and "pipeline" blocks (`drivers/pipeline.py`), and a run on a
-report mesh its "mesh" block (`parallel/mesh.py::mesh_block`); the
-JAX package's "artifacts" block has no counterpart (the port compiles
-no programs).  Under a mesh every counter is global: each round's
+report mesh its "mesh" block (`parallel/mesh.py::mesh_block`).  Every
+round, resident, chunked or from the root, carries the JAX package's
+"artifacts" block: where the port's kernel libraries came from during
+the round (`drivers/artifacts.py::round_block`: the kernel store's
+hits, the libraries nvcc built inline, the load time).  Under a mesh
+every counter is global: each round's
 masks are gathered over the ranks before they are counted.
 """
 

@@ -76,10 +76,10 @@ SERVICE_REQUIRED = frozenset((
     "tenant", "epoch", "sched_overhead_ms", "buffered_reports",
     "pending_epochs"))
 
-# The AOT artifact-store stamp (drivers/artifacts.py): per-round
-# artifact hits vs inline compiles, and which store served them
-# (None = no store armed).  Producers with a ProgramCache (the two
-# heavy-hitters runners) stamp it every round.
+# The kernel-store stamp (drivers/artifacts.py): per-round store hits
+# vs inline nvcc builds of the kernel libraries, and which store served
+# them (None = no store consulted).  Every round producer (resident,
+# chunked and from-root) stamps it.
 ARTIFACTS_REQUIRED = frozenset((
     "store", "hits", "inline_compiles"))
 

@@ -16,6 +16,19 @@ The libraries are loaded with ctypes; every pointer and the stream
 cross as `c_void_p` (the wrappers pass `tensor.data_ptr()` and
 `torch.cuda.current_stream().cuda_stream`).
 
+With a kernel store armed (`MASTIC_ARTIFACT_DIR`, `drivers/artifacts.py`)
+`lib` looks for a library in this process's memo first, then in the
+store, whose three gates (digest before `dlopen`, runtime, probe against
+the plain versions) every library passes before it serves, and only
+then builds with nvcc.  A failed gate builds inline and is counted;
+with no nvcc it raises, naming the gate's outcome: nothing falls back
+to the plain versions.  nvcc is looked for on PATH, then under
+`$CUDA_HOME/bin` (default /usr/local/cuda).  `stats` keeps the JAX
+`ProgramCache`'s keys: `inline_compiles` (libraries nvcc built in this
+process), `artifact_hits` and `artifact_load_ms` (libraries the store
+served, and the time their loads took), and `store` (the path of the
+store `lib` consulted, None while none was).
+
 `launches` counts, per kernel, the launches its wrappers made: each
 wrapper adds one where it launches, and nowhere else.  K1's binder
 sponge counts under its own keys, "keccak_binder" on Field64 carries
@@ -26,6 +39,7 @@ as "aes_planes".  K3 counts as "level" on Field64 payloads and
 "level_f128" on Field128 ones.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -33,6 +47,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -72,7 +87,13 @@ launches = {name: 0 for name in SOURCES + ("keccak_permute", "keccak_binder",
                                            "aes_planes", "keccak_binder_f128",
                                            "level_f128")}
 build_info: dict = {}
+stats = {"inline_compiles": 0, "artifact_hits": 0, "artifact_load_ms": 0.0,
+         "store": None}
 _libs: dict = {}
+_load_lock = threading.RLock()
+# Libraries on probe (`serving`), per thread: they serve only the probing
+# thread's launches, and those launches are not counted.
+_probing = threading.local()
 
 
 def reset_launches() -> None:
@@ -84,7 +105,8 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", "nvcc")
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
@@ -100,12 +122,13 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> dict:
-    """Build every kernel library that is not built yet, one nvcc per
-    source, all in parallel.  Returns {name: path of the .so}."""
-    out_dir = BUILD_ROOT / _digest()
-    paths = {name: out_dir / f"lib{name}.so" for name in SOURCES}
-    todo = [name for name in SOURCES if not paths[name].exists()]
+def build(names: tuple = SOURCES, root: pathlib.Path = None) -> dict:
+    """Build each library of `names` that is not built yet under `root`
+    (default BUILD_ROOT), one nvcc per source, all in parallel.  Returns
+    {name: path of the .so}."""
+    out_dir = (root or BUILD_ROOT) / _digest()
+    paths = {name: out_dir / f"lib{name}.so" for name in names}
+    todo = [name for name in names if not paths[name].exists()]
     if not todo:
         return paths
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -127,6 +150,7 @@ def build() -> dict:
             failed.append(f"{name}.cu:\n{log}")
             continue
         os.replace(tmp, paths[name])
+    stats["inline_compiles"] += len(todo) - len(failed)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     build_info["seconds"] = time.perf_counter() - t0
@@ -134,17 +158,80 @@ def build() -> dict:
     return paths
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel source (built on first use)."""
-    handle = _libs.get(name)
-    if handle is None:
-        path = build()[name]
-        handle = ctypes.CDLL(str(path))
-        for (fn, argtypes) in SIGNATURES[name].items():
-            getattr(handle, fn).argtypes = list(argtypes)
-            getattr(handle, fn).restype = ctypes.c_int
-        _libs[name] = handle
+def bind(handle: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declare the C signature of every exported function of library
+    `name` on a loaded handle (AttributeError if one is missing)."""
+    for (fn, argtypes) in SIGNATURES[name].items():
+        getattr(handle, fn).argtypes = list(argtypes)
+        getattr(handle, fn).restype = ctypes.c_int
     return handle
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source: this process's memo,
+    else the armed kernel store's, else built with nvcc."""
+    handle = getattr(_probing, "libs", {}).get(name)
+    if handle is None:
+        handle = _libs.get(name)
+    if handle is not None:
+        return handle
+    with _load_lock:
+        if name not in _libs:
+            _libs[name] = _load(name)
+        return _libs[name]
+
+
+def preload() -> None:
+    """Load every library now, as `lib` does, so that no launch pays
+    for it."""
+    for name in SOURCES:
+        lib(name)
+
+
+def _load(name: str) -> ctypes.CDLL:
+    from ..drivers import artifacts
+
+    store = artifacts.store_from_env()
+    (outcome, names) = (None, SOURCES)
+    if store is not None:
+        stats["store"] = store.path
+        key = artifacts.library_key(name)
+        t0 = time.perf_counter()
+        handle = store.load(key)
+        if handle is not None:
+            stats["artifact_hits"] += 1
+            stats["artifact_load_ms"] += (time.perf_counter() - t0) * 1e3
+            return handle
+        outcome = store.outcome(key)
+        # Every library's gates, so that one nvcc run builds all that
+        # failed them and none that the store serves.
+        store.preload()
+        names = tuple(n for n in SOURCES if n not in _libs and store.outcome(
+            artifacts.library_key(n)) != artifacts.HIT)
+    try:
+        path = build(names)[name]
+    except RuntimeError as exc:
+        if outcome is None:
+            raise
+        raise RuntimeError(
+            f"kernel library {name}: the store {store.path} gave "
+            f"{outcome!r} and the library cannot be built here: {exc}"
+        ) from exc
+    return bind(ctypes.CDLL(str(path)), name)
+
+
+@contextlib.contextmanager
+def serving(name: str, handle: ctypes.CDLL):
+    """Serve `handle` as library `name` to this thread's launches inside
+    the block, uncounted: how a library is probed before it is trusted."""
+    probing = getattr(_probing, "libs", None)
+    if probing is None:
+        probing = _probing.libs = {}
+    probing[name] = handle
+    try:
+        yield
+    finally:
+        del probing[name]
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -157,7 +244,8 @@ def launch(name: str, fn: str, *args, counter: str = "") -> None:
     err = getattr(lib(name), fn)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA launch {name}.{fn} failed: error {err}")
-    launches[counter or name] += 1
+    if name not in getattr(_probing, "libs", {}):
+        launches[counter or name] += 1
 
 
 @functools.lru_cache(maxsize=1024)

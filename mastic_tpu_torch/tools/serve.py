@@ -34,6 +34,17 @@ Modes:
 `--device` picks the runs' device (default cuda; without a card the
 tool exits non-zero: nothing moves to the CPU on its own).
 
+``--artifact-dir DIR`` serves the kernel libraries from a kernel store
+(`python -m mastic_tpu_torch.tools.bake --out DIR`): it sets
+`MASTIC_ARTIFACT_DIR` for the process before any kernel loads, so the
+service loads and probes the libraries at boot and a machine without
+nvcc can serve.  Child processes (parties, mesh ranks) inherit it.  The
+default mode's JSON line echoes `artifact_dir` and carries
+`kernel_store` (inline nvcc builds, store hits and outcomes, per-library
+load and probe times), `first_round_at` (the wall clock, `time.time()`,
+at the end of the first scheduler round) and `round_counters` (every
+round's counters, by tenant, from the epochs' trace spans).
+
 `MASTIC_FAULTS` (party ``collector``) is honored end to end, so e.g.
 ``kill:party=collector:step=epoch_round:nth=2`` exercises a real
 process death mid-epoch against the snapshot/resume pair.
@@ -112,14 +123,22 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def drain(svc, snapshot_path=None, deadline=None, status=None) -> None:
+def drain(svc, snapshot_path=None, deadline=None, status=None):
+    """Step the scheduler until every epoch is drained.  Returns the wall
+    clock (`time.time()`) at the end of its first step."""
     from mastic_tpu_torch.drivers.session import Deadline
 
     if deadline is None:
         # The drain itself is deadline-bounded (the scheduler's
         # per-epoch deadlines bound each epoch; this bounds the loop).
         deadline = Deadline(3600.0)
-    while svc.step():
+    first_round_at = None
+    while True:
+        more = svc.step()
+        if first_round_at is None:
+            first_round_at = time.time()
+        if not more:
+            break
         # Snapshots are quiescent points: with the overlapped
         # executor armed, writing one mid-window would force-drain
         # the in-flight rounds every quantum — snapshot only when
@@ -130,6 +149,21 @@ def drain(svc, snapshot_path=None, deadline=None, status=None) -> None:
         if deadline.expired():
             fail("drain deadline expired with epochs still queued")
     publish_status(status, svc)
+    return first_round_at
+
+
+def round_counters() -> dict:
+    """Every round's counters this process ran, by tenant, in order:
+    the "round_counters" events of the finished epoch spans."""
+    from mastic_tpu_torch.obs import trace as obs_trace
+
+    out: dict = {}
+    for span in obs_trace.get_tracer().spans():
+        if span.name == "epoch":
+            out.setdefault(span.attrs["tenant"], []).extend(
+                ev["attrs"] for ev in span.events
+                if ev["name"] == "round_counters")
+    return out
 
 
 def start_status(port):
@@ -350,6 +384,12 @@ def main() -> None:
     parser.add_argument("--device", type=str, default="cuda",
                         help="the runs' device (default cuda; cpu runs "
                              "the kernels' plain versions)")
+    parser.add_argument("--artifact-dir", type=str, default=None,
+                        help="kernel store (tools/bake.py --out): the "
+                             "libraries are loaded and probed from it at "
+                             "boot and on tenant admission, and nvcc "
+                             "runs only for one that fails its gates "
+                             "(sets MASTIC_ARTIFACT_DIR)")
     parser.add_argument("--out", type=str, default=None)
     args = parser.parse_args()
 
@@ -357,6 +397,10 @@ def main() -> None:
         parser.error("--resume needs --snapshot PATH")
     # argv-time environment pinning: these writes happen strictly
     # before any thread exists.
+    if args.artifact_dir:
+        # The one seam every loader reads
+        # (drivers/artifacts.store_from_env); the flag just sets it.
+        pin("MASTIC_ARTIFACT_DIR", args.artifact_dir)
     if args.overlap is not None:
         pin("MASTIC_SERVICE_OVERLAP", str(args.overlap))
     if args.ingest_threads is not None:
@@ -375,6 +419,7 @@ def main() -> None:
         run_smoke(args, device, status=start_status(args.status_port))
         return
 
+    from mastic_tpu_torch.drivers import artifacts
     from mastic_tpu_torch.drivers.service import (CollectorService,
                                             ServiceConfig, TenantSpec)
     from mastic_tpu_torch.backend.mastic import MasticCount
@@ -472,7 +517,7 @@ def main() -> None:
             svc.begin_epoch("attrs")
         if args.snapshot:
             write_snapshot(svc, args.snapshot)
-    drain(svc, snapshot_path=args.snapshot, status=status)
+    first_round_at = drain(svc, snapshot_path=args.snapshot, status=status)
     if args.snapshot:
         digest = write_snapshot(svc, args.snapshot)
         if wal is not None:
@@ -487,9 +532,13 @@ def main() -> None:
         "bits": bits, "reports": args.reports,
         "epochs": args.epochs,
         "status_port": status.port if status is not None else None,
+        "artifact_dir": args.artifact_dir,
+        "kernel_store": artifacts.process_summary(),
+        "first_round_at": first_round_at,
         "wall_seconds": round(time.time() - t_start, 1),
         "results": {name: strip_wall(t["epochs"])
                     for (name, t) in metrics["tenants"].items()},
+        "round_counters": round_counters(),
         "metrics": metrics,
         "ok": True,
     }

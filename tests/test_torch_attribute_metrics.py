@@ -102,11 +102,12 @@ def test_aggregate_by_attribute_matches_jax(rounds):
 
 def test_round_metrics_match_jax(rounds):
     """RoundMetrics.as_dict() equals the JAX package's record, its schema
-    stamp included, but for `extra`'s wall times and artifact-tier block
-    (a layer the port has not brought over) and the port's own entries
-    (no report left out as invalid, no splice rejection); the two
-    tampered reports are attributed to the eval proof and the weight
-    check."""
+    stamp included, but for `extra`'s wall times, the artifact block's
+    values (the port's kernel store, with no store consulted on the CPU,
+    against the JAX package's program tier: the keys are equal) and the
+    port's own entries (no report left out as invalid, no splice
+    rejection); the two tampered reports are attributed to the eval
+    proof and the weight check."""
     ((_tr, tmetrics), (_jr, jmetrics), _votes) = rounds
     assert len(tmetrics) == len(jmetrics) == 1
     (got, want) = (tmetrics[0].as_dict(), jmetrics[0].as_dict())
@@ -114,8 +115,11 @@ def test_round_metrics_match_jax(rounds):
     assert got["extra"].pop("splice_ms") >= 0
     assert (got["extra"].pop("excluded_invalid"),
             got["extra"].pop("rejected_fallback_by")) == (0, {})
-    for key in ("round_wall_ms", "artifacts"):
-        want["extra"].pop(key)
+    assert got["extra"].pop("artifacts") == {
+        "store": None, "hits": 0, "inline_compiles": 0, "load_ms": 0.0}
+    want["extra"].pop("round_wall_ms")
+    assert set(want["extra"].pop("artifacts")) == {
+        "store", "hits", "inline_compiles", "load_ms"}
     assert got == want
     assert (got["accepted"], got["rejected_eval_proof"],
             got["rejected_weight_check"]) == (REPORTS - 2, 1, 1)

@@ -59,8 +59,9 @@ def _jax_batch(arrays: dict) -> JReportBatch:
 
 
 # RoundMetrics.extra entries that are times (the "pipeline" block is the
-# round's phase times), or blocks of layers the port does not have yet
-# (the AOT tier) or that this run does not use (the mesh).
+# round's phase times), blocks whose values are each package's own (the
+# artifact block: the JAX package's program tier, the port's kernel
+# store) or that this run does not use (the mesh).
 _UNSHARED_EXTRA = ("round_wall_ms", "splice_ms", "phases", "artifacts",
                    "pipeline", "mesh")
 

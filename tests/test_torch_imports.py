@@ -312,3 +312,37 @@ def test_service_layer_imports_no_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
     assert out.strip() == "[]"
+
+
+STORE_MODULES = ["drivers.artifacts", "tools.bake"]
+
+
+@pytest.mark.parametrize("name", STORE_MODULES)
+def test_kernel_store_modules_are_in_the_package_walk(name):
+    """The kernel store and its bake tool are reached by the package
+    walk, so the probe of the whole package covers them."""
+    names = [m.name for m in pkgutil.walk_packages(
+        mastic_tpu_torch.__path__, "mastic_tpu_torch.")]
+    assert f"mastic_tpu_torch.{name}" in names
+
+
+def test_kernel_store_imports_no_jax_and_the_bake_needs_a_card():
+    """In a fresh interpreter, the kernel store (computing a probe digest
+    on the CPU) and the bake tool load neither jax nor mastic_tpu; the
+    bake tool exits non-zero without a card."""
+    probe = "\n".join(
+        ["import sys"]
+        + [f"import mastic_tpu_torch.{n}" for n in STORE_MODULES]
+        + ["from mastic_tpu_torch.drivers import artifacts as a",
+           "a.probe_digest('turboshake', 'cpu')",
+           "print([m for m in sys.modules if m.split('.')[0] in "
+           "('jax', 'mastic_tpu')])"])
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+    proc = subprocess.run(
+        [sys.executable, "-m", "mastic_tpu_torch.tools.bake", "--out",
+         "unused"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "torch.cuda.is_available() is False" in proc.stderr
