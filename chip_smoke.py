@@ -56,7 +56,7 @@
    and checked against the plain version (the multihot tree on its first
    BINDER_CHECK_R reports, the Histogram chunk's on every report with
    the index lists cut at both ends); K2 at 21 blocks.
-3. Drives fifteen phases, each with every launch counter set to 0 just
+3. Drives sixteen phases, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
    runs (K1's binder sponge and K3 count Field128 launches apart).
    Every path hands its runs the scalar reports behind its batch
@@ -116,7 +116,8 @@
    g. A forced splice and a checkpoint on the resident runner:
       MasticCount(16) over the Count path's report layout (depth cut
       from 256: at depth 256 each later level reruns a 44 s scalar
-      round), lanes forced at levels 0 and 9, checkpointed after level
+      round), lanes forced at levels 8 and 15 (0 and 9 until phase p
+      needed the time: printed as a cut), checkpointed after level
       8, restored into a fresh run on the card and finished; every
       level must equal the unforced run's and numpy's.
    i. A chunked checkpoint: phase g's reports through
@@ -173,8 +174,9 @@
       `sharded_gen` against the rank's rows of the shard and
       `sharded_round` at level 0 against numpy; the same
       reports chunked (chunk_size 2047: every chunk pads to 2048, 1024
-      rows a rank, the tail holds 4 live reports), pipelined, 16 levels,
-      the frontier equal to the resident run's and each rank's device
+      rows a rank, the tail holds 4 live reports), pipelined, 8 levels
+      (16 until phase p needed the time: printed as a cut), the
+      frontier equal to the resident run's and each rank's device
       peak at most 1.1x the envelope's pipelined per-shard peak; and
       phase e's attribute round over both ranks (each sharding its
       5000 reports), held as e is.  Every
@@ -249,6 +251,19 @@
       store and nvcc hidden: results equal o1's.  Each child's time from
       its spawn to the end of its first round is printed (o3's and o4's
       side by side), with the per-library load and probe times.
+   p. The collector service under a report mesh, after o.  p1: one
+      `CollectorService(mesh=)` on MESH_RANKS gloo ranks sharing the
+      card (`mesh_service_rank`): rank 0 admits phase a's uploads
+      through its ingest front and cuts the epoch, rank 0's pages reach
+      the other rank at the first quantum, overlap 2; every level a
+      rank completed must equal phase a's, both ranks' records be
+      equal, and every rank launch K1 and K3 (past
+      MESH_SERVICE_CUT_AFTER_S the epoch is cut by rank 0's deadline
+      after MESH_SERVICE_CUT_LEVELS levels, printed).  Beside it, as
+      children: p2, `tools.serve --mesh 1 --backend nccl --device
+      cuda`, whose results must equal phase o's serve child's (the same
+      default scenario); p3, `tools.serve --overlap-drill --device
+      cuda`, which must print `"ok": true`.
 4. Prints the `kernels` JSON line (every kernel and instantiation; the
    Count rows' `launches_mesh` are rank 0's launches in the gloo
    resident run, its shard of its rows included, the MasticSum rows' in
@@ -258,7 +273,9 @@
    launches in phase l's rounds of the row's tenant, Count rows from
    "count", MasticSum rows from "attrs", Field128 rows null;
    `launches_northstar` on the Count rows are each phase-m run's
-   launches, the mesh run's counted in its rank; phase n's rows take
+   launches, the mesh run's counted in its rank;
+   `launches_mesh_service` on the Count rows are each p1 rank's
+   launches in its rounds; phase n's rows take
    their launches from n1 and n2), the card, each path's figures, and
    last `{"ok": true, "device": {...}}`.
    Any failure exits non-zero before that line.
@@ -330,10 +347,13 @@ SUMVEC_BINDER_R = 1024
 # and a miss in OK_DRAWS launches has probability about e^-15.
 OK_DRAWS = 3000
 # The resident checkpoint phase: MasticCount(16) over the Count path's
-# report layout, lanes forced to the XOF fallback at levels 0 and 9,
-# checkpointed after level 8.
+# report layout, lanes forced to the XOF fallback at levels 8 and 15,
+# checkpointed after level 8 (the first lane is in `fallback` there).
+# The splice reruns a fired lane's scalar round at every later level,
+# so the levels were moved from 0 and 9 for the smoke's time (23 scalar
+# rounds to 9; the cut is printed).
 CKPT_BITS = 16
-CKPT_FORCED_LEVELS = (0, 9)
+CKPT_FORCED_LEVELS = (8, 15)
 CKPT_SPLIT = 9
 # The chunked checkpoint phase: that phase's reports through the chunked
 # runner in four chunks, checkpointed at the same split.
@@ -359,14 +379,15 @@ CHUNKED_THRESHOLD = 8 * THRESHOLD
 # when the smoke has run past MESH_CUT_AFTER_S by then, printed as a
 # cut).  Chunked: the same reports at chunk_size 2047 (odd: every chunk
 # pads to 2048, 1024 rows a rank, and the tail holds 4 live rows),
-# pipelined, 16 levels.  Then the attribute round of phase e over both
+# pipelined, MESH_CHUNKED_LEVELS levels (cut from 16 to 8 for the
+# smoke's time, printed).  Then the attribute round of phase e over both
 # ranks.  Each rank's device budget is 40% of the card, as two share it.
 MESH_NCCL_LEVELS = 16
 MESH_RANKS = 2
 MESH_R = 2 * R
 MESH_THRESHOLD = 2 * THRESHOLD
 MESH_CHUNK = 2047
-MESH_CHUNKED_LEVELS = 16
+MESH_CHUNKED_LEVELS = 8
 MESH_CUT_LEVELS = 64
 MESH_CUT_AFTER_S = 600.0
 MESH_BUDGET_SHARE = 0.4
@@ -458,6 +479,16 @@ SPLICE_ASKED = 4
 # flips a byte of, and the fault that kills the serve child mid-epoch.
 STORE_CORRUPT = "level"
 STORE_KILL = "kill:party=collector:step=epoch_round:nth=2"
+# Phase p, the service under a report mesh: phase a's uploads to one
+# CollectorService on MESH_RANKS gloo ranks sharing the card, admitted
+# on rank 0 (pages of SERVICE_PAGE, two ingest threads) and broadcast at
+# the epoch's first quantum, overlap 2; past MESH_SERVICE_CUT_AFTER_S
+# (it always is, at the smoke's end) the epoch is cut by rank 0's
+# deadline after MESH_SERVICE_CUT_LEVELS levels, printed.
+MESH_SERVICE_DIR = pathlib.Path(__file__).resolve().parent / "build" \
+    / "mesh_service"
+MESH_SERVICE_CUT_AFTER_S = 800.0
+MESH_SERVICE_CUT_LEVELS = 64
 
 # Operation counts for the bounds, in 32-bit instructions as the card
 # issues them: one LOP3 computes any function of three words, and a
@@ -2133,7 +2164,7 @@ def resident_checkpoint(dev: torch.device, seed: int) -> dict:
     strings x 64 reports and 2048 uniform ones; depth cut from 256 to 16
     because the splice reruns the scalar round at every later level),
     with the frontier up to 64.  A planted report's `ok` is cleared at
-    level 0 and another's at level 9 (`IncrementalMastic.agg_rounds`
+    each level of CKPT_FORCED_LEVELS (`IncrementalMastic.agg_rounds`
     wrapped here and restored after); the run is checkpointed after
     level 8, with the first lane in `fallback`, dropped, restored from
     the checkpoint into a fresh run on the card and finished.  Every
@@ -2215,7 +2246,7 @@ def resident_checkpoint(dev: torch.device, seed: int) -> dict:
                                  f"{len(prefixes[0]) - 1} differs from numpy")
     expect = sorted(tuple(bool(b) for b in p) for p in planted)
     fell = [m.xof_fallbacks for m in metrics]
-    want_fell = [1 + (level >= CKPT_FORCED_LEVELS[1])
+    want_fell = [sum(level >= f for f in CKPT_FORCED_LEVELS)
                  for level in range(len(fell))]
     if sorted(back.result()) != expect or len(levels) != CKPT_BITS \
             or split_fallback.tolist() != [lanes[CKPT_FORCED_LEVELS[0]]] \
@@ -3091,6 +3122,8 @@ def _print_mesh(mesh: dict) -> None:
         print(f"cut: the mesh resident run stopped after {mesh['levels']} "
               f"of {BITS} levels, the smoke having run past "
               f"{MESH_CUT_AFTER_S:.0f} s before phase j")
+    print(f"cut: the mesh chunked run takes {MESH_CHUNKED_LEVELS} levels "
+          f"(16 before phase p was added), for time")
     for (rank, r) in enumerate(gloo):
         res = r["resident"]
         print(f"mesh gloo rank {rank} resident: MasticCount({BITS}), "
@@ -4173,6 +4206,202 @@ def _print_store(o: dict) -> None:
           f"per-round counters = o1's")
 
 
+# -- phase p: the collector service under a report mesh -------------------
+
+def mesh_service_rank(mesh, blobs_path: str, vk: bytes, cut: bool) -> dict:
+    """Phase p1 on one rank: a `CollectorService` with phase a's Count
+    tenant over the mesh; rank 0 admits the uploads (read from
+    `blobs_path`, one fixed-size row each) through its ingest front (its
+    queue deep enough for all of them at once) and cuts the epoch; every
+    rank steps the scheduler (overlap 2) until it drains.  With `cut`, rank 0 alone expires the epoch's deadline once
+    MESH_SERVICE_CUT_LEVELS levels are done.  Returns the rank's epoch
+    records (wall times stripped), every level it stepped, and times."""
+    from mastic_tpu_torch.drivers.service import (QUEUED, CollectorService,
+                                                  ServiceConfig, TenantSpec)
+    from mastic_tpu_torch.drivers.session import Deadline
+    from mastic_tpu_torch.ops import kernels
+    from mastic_tpu_torch.tools.serve import strip_wall
+
+    spec = TenantSpec(name="count", spec={"class": "MasticCount",
+                                          "args": [BITS]},
+                      ctx=CTX, verify_key=vk,
+                      thresholds={"default": THRESHOLD},
+                      max_buffered=10 ** 6)
+    svc = CollectorService([spec], config=ServiceConfig(
+        page_size=SERVICE_PAGE, max_pending_epochs=4,
+        quarantine_limit=10 ** 6, epoch_deadline=3600.0, overlap=2,
+        ingest_threads=2, ingest_queue=2 * R), mesh=mesh, device=mesh.device)
+    admit_s = 0.0
+    uploads = 0
+    if mesh.rank == 0:
+        rows = np.load(blobs_path)
+        t0 = time.perf_counter()
+        outcomes = [svc.submit("count", row.tobytes()) for row in rows]
+        svc.begin_epoch("count")
+        admit_s = time.perf_counter() - t0
+        uploads = len(rows)
+        if any(o[0] != QUEUED for o in outcomes) or svc.metrics()[
+                "tenants"]["count"]["counters"]["admitted"] != uploads:
+            raise AssertionError(f"p1: rank 0 admitted "
+                                 f"{svc.metrics()['tenants']['count']}")
+    kernels.reset_launches()
+    runs = []
+    mesh.broadcast(None)   # every rank's rounds timed from rank 0's cut
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    more = True
+    while more:
+        more = svc.step()
+        epoch = svc.tenants["count"].active
+        if epoch is None or epoch.run is None:
+            continue
+        if not any(r is epoch.run for r in runs):
+            runs.append(epoch.run)
+        if cut and mesh.rank == 0 \
+                and epoch.run.rounds_completed() >= MESH_SERVICE_CUT_LEVELS:
+            epoch.deadline = Deadline(0.0)
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    records = strip_wall(svc.metrics()["tenants"]["count"]["epochs"])
+    return {"records": records, "uploads": uploads, "admit_s": admit_s,
+            "levels": [lv for run in runs for lv in run.level_results],
+            "rounds_s": rounds_s, "launches": dict(kernels.launches)}
+
+
+def _tool_child(args: list) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "mastic_tpu_torch.tools.serve", *args],
+        cwd=pathlib.Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _tool_line(what: str, proc: subprocess.Popen, t0: float) -> dict:
+    (out, err) = proc.communicate(timeout=900)
+    lines = out.strip().splitlines()
+    line = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
+        else {}
+    if proc.returncode != 0 or line.get("ok") is not True:
+        raise AssertionError(f"{what}: rc={proc.returncode}: {err[-2000:]}")
+    line["wall_s"] = time.perf_counter() - t0
+    return line
+
+
+def mesh_service_phase(results: dict, serve_results: dict,
+                       elapsed_s: float) -> dict:
+    """Phase p: p2 (`tools.serve --mesh 1 --backend nccl`, its results
+    held against `serve_results`, phase o's serve child's) and p3
+    (`tools.serve --overlap-drill`) as children, beside p1 (the service
+    over MESH_RANKS gloo ranks sharing the card, `mesh_service_rank`)
+    in this process's ranks.  Every level p1 completed must equal phase
+    a's, and both ranks' records must be equal."""
+    from mastic_tpu_torch.drivers.chunked import _release_pinned
+    from mastic_tpu_torch.parallel import spawn
+
+    torch.cuda.empty_cache()
+    _release_pinned()
+    count = dict(results["count"]["service"])
+    count["check"] = [int(r) for r in np.flatnonzero(count["valid"])
+                      [:SERVICE_LANES]]
+    (blobs, _lanes, _check_s) = service_blobs(count)
+    if MESH_SERVICE_DIR.exists():
+        shutil.rmtree(MESH_SERVICE_DIR)
+    MESH_SERVICE_DIR.mkdir(parents=True)
+    blobs_path = str(MESH_SERVICE_DIR / "uploads.npy")
+    np.save(blobs_path, np.stack([np.frombuffer(b, np.uint8)
+                                  for b in blobs]))
+    cut = elapsed_s >= MESH_SERVICE_CUT_AFTER_S
+    t_start = time.perf_counter()
+    p2 = _tool_child(["--mesh", "1", "--backend", "nccl", "--device",
+                      "cuda"])
+    p3 = _tool_child(["--overlap-drill", "--device", "cuda"])
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_service_rank, MESH_RANKS, "gloo", "cuda", blobs_path,
+                  count["vk"], cut)
+    p1_s = time.perf_counter() - t0
+    p2_line = _tool_line("p2: tools.serve --mesh 1 --backend nccl", p2,
+                         t_start)
+    p3_line = _tool_line("p3: tools.serve --overlap-drill", p3, t_start)
+    p1 = [r[0] for r in ranks]
+    rec = p1[0]["records"]
+    if any(r["records"] != rec for r in p1):
+        raise AssertionError(f"p1: the ranks' records differ: "
+                             f"{[r['records'] for r in p1]}")
+    if len(rec) != 1:
+        raise AssertionError(f"p1: epochs {rec}")
+    rec = rec[0]
+    done = rec["levels_completed"]
+    want = count["level_results"]
+    for (rank, r) in enumerate(p1):
+        if len(r["levels"]) != done or r["levels"] != want[:done]:
+            raise AssertionError(f"p1 rank {rank}: {len(r['levels'])} "
+                                 f"levels, some differ from phase a's")
+        idle = [c for c in SERVICE_COUNTERS["rounds"]
+                if not r["launches"].get(c)]
+        if idle:
+            raise AssertionError(f"p1 rank {rank}: rounds launched no "
+                                 f"{idle}")
+    got = sorted(tuple(p) for p in rec["result"])
+    if cut:
+        survivors = sorted(p for (p, c) in zip(*want[done - 1])
+                           if c >= THRESHOLD)
+        if not rec["truncated"] or done != MESH_SERVICE_CUT_LEVELS \
+                or got != survivors:
+            raise AssertionError(f"p1 (cut): {rec}")
+    else:
+        planted = sorted(tuple(bool(b) for b in p) for p in count["planted"])
+        if rec["truncated"] or done != BITS or got != planted:
+            raise AssertionError(f"p1: heavy hitters are not the planted "
+                                 f"strings ({len(got)} found)")
+    if rec["reports"] != p1[0]["uploads"]:
+        raise AssertionError(f"p1: the epoch holds {rec['reports']} of "
+                             f"{p1[0]['uploads']} uploads")
+    if p2_line["results"] != serve_results \
+            or p2_line["mesh_devices"] != 1:
+        raise AssertionError(f"p2: results {p2_line['results']} != phase "
+                             f"o's serve child's {serve_results}")
+    if not p3_line["kill9_resume_bit_identical"]:
+        raise AssertionError(f"p3: {p3_line}")
+    return {"p1": p1, "p1_s": p1_s, "cut": cut, "levels": done,
+            "truncated": rec["truncated"], "elapsed_before_s": elapsed_s,
+            "p2": p2_line, "p3": p3_line,
+            "phase_s": time.perf_counter() - t_start}
+
+
+def _print_mesh_service(p: dict) -> None:
+    def launches(d: dict) -> str:
+        return ", ".join(f"{k} {v}" for (k, v) in d.items() if v) or "none"
+
+    r0 = p["p1"][0]
+    print(f"mesh service p1: CollectorService on {len(p['p1'])} gloo ranks "
+          f"sharing the card, overlap 2, pages of {SERVICE_PAGE}; tenant "
+          f"count (MasticCount({BITS}), threshold {THRESHOLD}): rank 0 "
+          f"admitted {r0['uploads']} uploads in {r0['admit_s']:.3f} s "
+          f"(two ingest threads) and cut the epoch, its pages sent at the "
+          f"first quantum; {p['levels']} levels = phase a's on every rank "
+          f"(truncated {p['truncated']}), the ranks' records equal; p1 "
+          f"{p['p1_s']:.1f} s with the spawn")
+    if p["cut"]:
+        print(f"cut: the meshed service's epoch stopped by rank 0's deadline "
+              f"after {MESH_SERVICE_CUT_LEVELS} of {BITS} levels: the smoke "
+              f"had run {p['elapsed_before_s']:.0f} s, past "
+              f"{MESH_SERVICE_CUT_AFTER_S:.0f} s, before phase p")
+    for (rank, r) in enumerate(p["p1"]):
+        print(f"mesh service p1 rank {rank}: rounds {r['rounds_s']:.3f} s; "
+              f"launches {launches(r['launches'])}")
+    p2 = p["p2"]
+    print(f"mesh service p2: tools.serve --mesh 1 --backend nccl --device "
+          f"cuda ok in {p2['wall_s']:.1f} s (beside p1), results = phase "
+          f"o's serve child's; rank launches "
+          + "; ".join(launches(d) for d in p2["rank_launches"]))
+    p3 = p["p3"]
+    print(f"mesh service p3: tools.serve --overlap-drill --device cuda ok "
+          f"in {p3['wall_s']:.1f} s (beside p1): burst "
+          f"{p3['burst_submitted']} submitted, {p3['burst_admitted']} "
+          f"admitted, {p3['burst_queue_shed']} shed at the queue; kill -9 "
+          f"and --resume equal the clean child; phase p "
+          f"{p['phase_s']:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4347,6 +4576,17 @@ def main() -> int:
             None if tenant is None
             else service["l1"]["launches"].get(tenant, {}).get(counter, 0))
 
+    # Phase p, the service under a report mesh, after o: its ranks and
+    # children are processes of their own, each counting its launches.
+    meshed = mesh_service_phase(results, store["results"],
+                                time.perf_counter() - t_start)
+    for row in rows:
+        # Each p1 rank's launches in the Count tenant's rounds.
+        counter = row_counter[row["name"]][1]
+        row["launches_mesh_service"] = (
+            [r["launches"][counter] for r in meshed["p1"]]
+            if row["launches_path"] == "count" else None)
+
     result = results["count"]
     if result["levels"] < BITS:
         print(f"cut: the collection stopped after {result['levels']} of "
@@ -4469,6 +4709,9 @@ def main() -> int:
           f"s of which the scalar splice {result['splice_ms'] / 1e3:.3f} s; "
           f"phase {result['path_s']:.3f} s")
     result = results["resident_checkpoint"]
+    print(f"cut: the resident checkpoint forces its lanes at levels "
+          f"{CKPT_FORCED_LEVELS} (0 and 9 before phase p was added: 23 "
+          f"scalar rounds of the splice, now 9), for time")
     print(f"resident checkpoint: MasticCount({CKPT_BITS}), {R} reports "
           f"(depth cut from {BITS} to {CKPT_BITS}), largest frontier "
           f"{result['max_frontier']}, {result['heavy_hitters']} heavy hitters "
@@ -4541,6 +4784,7 @@ def main() -> int:
     _print_parties(k)
     _print_service(service)
     _print_store(store)
+    _print_mesh_service(meshed)
     print("path seconds: " + ", ".join(
         f"{name} {r['path_s']:.1f}" for (name, r) in results.items())
         + ", " + ", ".join(
@@ -4550,7 +4794,8 @@ def main() -> int:
         + ", ".join(f"{name} {r['phase_s']:.1f}" for (name, r) in k.items())
         + f", service "
         f"{service['l1']['phase_s'] + service['l2']['wall_s']:.1f}"
-        + f", store {store['phase_s']:.1f}")
+        + f", store {store['phase_s']:.1f}"
+        + f", mesh service {meshed['phase_s']:.1f}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print("kernel store outcomes (phase o's children, beside the kernels "
           "line): " + json.dumps({name: c["outcomes"] for (name, c) in

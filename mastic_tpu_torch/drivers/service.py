@@ -45,6 +45,19 @@ uploads for several tenants and runs their epochs on the card:
   land verdicts under the tenant's admission lock.  No worker touches
   a CUDA tensor: rounds run on the scheduler's thread only;
 
+* **a report mesh** (`mesh=`, a `parallel.ReportMesh`): every rank is a
+  process running this service, and every run it builds keeps the
+  rank's rows.  Rank 0 decides, the others follow, and every rank
+  reaches every collective in the same order: at the start of each
+  quantum rank 0 sends its scheduler cursor and its queued epochs (an
+  epoch's pages the first time it names it, since only rank 0 may have
+  admitted them: the HTTP door and WAL recovery run there), and its
+  verdict that the quantum's work remains; an epoch's deadline (and a
+  caller's, `expired`) is read on rank 0's clock alone; a round or a
+  run's construction that failed on any rank fails on all, with the
+  first failing rank's cause.  `to_bytes` gathers every rank's carries,
+  so every rank calls it at the same points;
+
 * **crash-resume**: `to_bytes()` writes the JAX package's snapshot
   layout (length-prefixed JSON header + npz: pages, queued and active
   epochs with the active run's own checkpoint, counters), and
@@ -826,6 +839,9 @@ class CollectorService:
         # thread; at most one entry per tenant.
         self._inflight: list = []
         self._sched_window: Optional[dict] = None
+        # Under a mesh, the (tenant, epoch id) pairs whose pages rank 0
+        # has sent the other ranks.
+        self._announced: set = set()
         # Concurrent ingest front: armed by config, stoppable
         # (stop_ingest) so tests and drains can quiesce it.
         self._ingest: Optional[_IngestFront] = None
@@ -901,6 +917,79 @@ class CollectorService:
     def _checkpoint(self, step: str) -> None:
         if self.injector is not None:
             self.injector.checkpoint(step)
+
+    # -- the report mesh: rank 0 decides, the others follow --------
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process takes the service's decisions: always
+        without a mesh, rank 0 under one."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def expired(self, deadline: Deadline) -> bool:
+        """Whether `deadline` has expired, on rank 0's clock under a mesh
+        (a collective: every rank calls it at the same point; the
+        others never read their own clock, which near the edge could
+        disagree)."""
+        if self.mesh is None:
+            return deadline.expired()
+        return self.mesh.broadcast(deadline.expired() if self.lead
+                                   else None)
+
+    def _agreed_cause(self, exc: Optional[Exception]) -> Optional[str]:
+        """A step's failure cause (``type: message``), the same on every
+        rank: None when it succeeded everywhere, else the first failing
+        rank's cause (a collective under a mesh)."""
+        cause = None if exc is None else f"{type(exc).__name__}: {exc}"
+        if self.mesh is None:
+            return cause
+        return next((c for c in self.mesh.gather_objects(cause)
+                     if c is not None), None)
+
+    def _follow_lead(self) -> None:
+        """Under a mesh, at the start of a quantum: every rank takes rank
+        0's scheduler cursor and queued epochs, in its order.  Rank 0
+        sends an epoch's pages the first time it names it (the digests
+        travel with them, so a follower's check of a page is rank 0's);
+        a follower's own queue (the default mode admits the same seeded
+        uploads on every rank) gives way to it, and an epoch rank 0 has
+        shed or not cut is dropped."""
+        if self.mesh is None:
+            return
+        plan = None
+        if self.lead:
+            plan = {"rr": self._rr, "queues": {}}
+            for (name, t) in self.tenants.items():
+                queue = []
+                with t.lock:
+                    for ep in t.pending:
+                        pages = None
+                        if (name, ep.epoch_id) not in self._announced:
+                            self._announced.add((name, ep.epoch_id))
+                            pages = [(p.payload, p.digest, p.count)
+                                     for p in ep.pages]
+                        queue.append((ep.epoch_id, ep.reports_lost, pages))
+                    plan["queues"][name] = (t.epoch_seq, queue)
+        plan = self.mesh.broadcast(plan)
+        self._rr = plan["rr"]
+        if self.lead:
+            return
+        for (name, (seq, queue)) in plan["queues"].items():
+            t = self.tenants[name]
+            with t.lock:
+                mine = {ep.epoch_id: ep for ep in t.pending}
+                pending = []
+                for (epoch_id, lost, pages) in queue:
+                    if pages is None:
+                        pending.append(mine[epoch_id])
+                        continue
+                    epoch = _Epoch(epoch_id, [
+                        ReportPage.from_payload(payload, digest, count)
+                        for (payload, digest, count) in pages])
+                    epoch.reports_lost = lost
+                    pending.append(epoch)
+                t.pending = pending
+                t.epoch_seq = seq
 
     # -- admission -------------------------------------------------
 
@@ -1111,16 +1200,22 @@ class CollectorService:
                                             "surviving reports"))
             return
         t.counters.inc("epochs_started")
+        failed = None
         try:
             epoch.run = self._build_run(t, epoch)
         except Exception as exc:
+            failed = exc
+        cause = self._agreed_cause(failed)
+        if cause is not None:
             # Run construction can refuse (e.g. a memory-envelope
-            # gate for the tenant's chunk config): a config-sick
+            # gate for the tenant's chunk config, or a resident batch
+            # that does not divide over the mesh): a config-sick
             # tenant fails ITS epoch, attributably — not the service.
+            epoch.run = None
             t.counters.inc("epochs_failed")
             t.completed.append(self._record(
                 t, epoch, result=[], truncated=True, levels=0,
-                error=f"{type(exc).__name__}: {exc}"))
+                error=cause))
             return
         epoch.deadline = Deadline(t.eff_epoch_deadline)
         epoch.started_at = time.monotonic()
@@ -1188,8 +1283,18 @@ class CollectorService:
         upload prep, AOT program fetch, dispatch) runs while tenant
         A's dispatched round computes on device.  Returns whether any
         tenant still has epoch work queued, running, or in flight."""
+        self._follow_lead()
         if self.config.overlap >= 2:
-            return self._step_overlapped()
+            more = self._step_overlapped()
+        else:
+            more = self._step_serial()
+        if self.mesh is not None:
+            # Rank 0's verdict: it may have cut an epoch the others
+            # have not seen yet.
+            more = self.mesh.broadcast(more)
+        return more
+
+    def _step_serial(self) -> bool:
         names = list(self.tenants)
         for off in range(len(names)):
             t = self.tenants[names[(self._rr + off) % len(names)]]
@@ -1251,25 +1356,31 @@ class CollectorService:
         epoch = t.active
         self._checkpoint("epoch_round")
         tracer = obs_trace.get_tracer()
-        if epoch.deadline.expired():
+        if self.expired(epoch.deadline):
             self._truncate_epoch(t, epoch)
             return None
         t0 = time.perf_counter()
         before = len(epoch.run.metrics)
         begin = getattr(epoch.run, "step_begin", None)
+        failed = None
         try:
             with tracer.use_parent(epoch.span):
                 if begin is None:
                     # Legacy / stub run kind: no split seam — run the
                     # whole round as one atomic quantum.
                     more = epoch.run.step()
-                    self._after_round(t, epoch, before, t0, more)
-                    self._sched_busy((time.perf_counter() - t0) * 1e3)
-                    return None
-                handle = begin()
+                else:
+                    handle = begin()
         except Exception as exc:   # supervised: fail the epoch, not
             # the service — other tenants keep their schedule
-            self._round_failed(t, epoch, exc)
+            failed = exc
+        cause = self._agreed_cause(failed)
+        if cause is not None:
+            self._round_failed(t, epoch, cause)
+            return None
+        if begin is None:
+            self._after_round(t, epoch, before, t0, more)
+            self._sched_busy((time.perf_counter() - t0) * 1e3)
             return None
         stage_ms = (time.perf_counter() - t0) * 1e3
         self._sched_busy(stage_ms)
@@ -1295,11 +1406,15 @@ class CollectorService:
         epoch = t.active
         tracer = obs_trace.get_tracer()
         t0 = time.perf_counter()
+        failed = None
         try:
             with tracer.use_parent(epoch.span):
                 more = epoch.run.step_finish(entry["handle"])
         except Exception as exc:
-            self._round_failed(t, epoch, exc)
+            failed = exc
+        cause = self._agreed_cause(failed)
+        if cause is not None:
+            self._round_failed(t, epoch, cause)
             return
         collect_ms = (time.perf_counter() - t0) * 1e3
         self._sched_busy(collect_ms + entry["gap_ms"])
@@ -1310,11 +1425,12 @@ class CollectorService:
         epoch = t.active
         self._checkpoint("epoch_round")
         tracer = obs_trace.get_tracer()
-        if epoch.deadline.expired():
+        if self.expired(epoch.deadline):
             self._truncate_epoch(t, epoch)
             return
         t0 = time.perf_counter()
         before = len(epoch.run.metrics)
+        failed = None
         try:
             # The run's own round span (HeavyHittersRun.step /
             # AttributeMetricsRun.step) parents to this tenant's open
@@ -1323,7 +1439,10 @@ class CollectorService:
                 more = epoch.run.step()
         except Exception as exc:   # supervised: fail the epoch, not
             # the service — other tenants keep their schedule
-            self._round_failed(t, epoch, exc)
+            failed = exc
+        cause = self._agreed_cause(failed)
+        if cause is not None:
+            self._round_failed(t, epoch, cause)
             return
         self._after_round(t, epoch, before, t0, more)
 
@@ -1342,9 +1461,9 @@ class CollectorService:
         with t.lock:
             t.active = None
 
-    def _round_failed(self, t: _Tenant, epoch: _Epoch,
-                      exc: Exception) -> None:
-        """Supervision: count the failure; past the retry budget the
+    def _round_failed(self, t: _Tenant, epoch: _Epoch, cause: str) -> None:
+        """Supervision (`cause` the failure's ``type: message``, the same
+        on every rank of a mesh): count the failure; past the retry budget the
         epoch fails with its truncated frontier, otherwise the run is
         REBUILT from the epoch's pages — a round that raises
         mid-execution (staged or collected) can leave the runner's
@@ -1359,14 +1478,14 @@ class CollectorService:
                 t, epoch, result=epoch.run.frontier(),
                 truncated=True,
                 levels=epoch.run.rounds_completed(),
-                error=f"{type(exc).__name__}: {exc}"))
+                error=cause))
             with t.lock:
                 t.active = None
         else:
             if epoch.span is not None:
                 epoch.span.event(
                     "epoch_retry", attempt=epoch.failures,
-                    cause=f"{type(exc).__name__}: {exc}"[:200])
+                    cause=cause[:200])
             get_registry().counter(
                 "mastic_session_retries_total",
                 tenant=t.spec.name).inc()
@@ -1453,9 +1572,10 @@ class CollectorService:
                           deadline: Optional[Deadline] = None) -> bool:
         """Drive the scheduler until no epoch work remains.  Returns
         False when `deadline` expired first (remaining work stays
-        queued — snapshot and resume, or keep stepping)."""
+        queued — snapshot and resume, or keep stepping); under a mesh, on
+        rank 0's clock."""
         while self.step():
-            if deadline is not None and deadline.expired():
+            if deadline is not None and self.expired(deadline):
                 return False
         return True
 

@@ -1,10 +1,11 @@
 """Rank programs for `parallel.launch.spawn`: what each rank of a report
 mesh runs for the multichip tool (`tools/multichip.py`), the north-star
-tool (`tools/northstar.py --mesh`) and the CPU tests.  Each takes the
-mesh and one `case` dict of picklable inputs (scalar reports, bytes,
-numpy arrays; the instantiation as its class name and arguments), or
-for `northstar` the tool's parsed command line, and returns a picklable
-summary, the same on every rank.
+and serve tools (`--mesh`) and the CPU tests.  Each takes the mesh and
+one `case` dict of picklable inputs (scalar reports, bytes, numpy
+arrays; the instantiation as its class name and arguments), or for
+`northstar` and `serve` the tool's parsed command line, and returns a
+picklable summary, the same on every rank (`serve`: rank 0's line is
+the tool's).
 
 `run_all` runs several cases in one group, so that one spawn serves a
 whole suite; `force` clears aggregator 0's `ok` for one report at one
@@ -164,6 +165,68 @@ def northstar(mesh, args) -> dict:
     from ..tools.northstar import collection
 
     return collection(args, mesh)
+
+
+def serve(mesh, args) -> dict:
+    """The serve tool's service on this rank (`args` its parsed command
+    line, `tools.serve --mesh`): the rank's JSON line (rank 0's is the
+    tool's)."""
+    from ..tools.serve import run
+
+    return run(args, mesh.device, mesh)
+
+
+def service(mesh, case: dict) -> dict:
+    """A `CollectorService` on the mesh (or, with `mesh` None, in this
+    process on `case["device"]`): tenants `case["tenants"]` (TenantSpec
+    fields) under `case["config"]` (ServiceConfig fields); each tenant's
+    `case["uploads"]` (upload blobs) submitted and one epoch cut, on
+    every rank, or on rank 0 alone with `lead_admits`; then stepped
+    until drained.  With `split` (quanta) and `snapshot` (a path), rank 0
+    writes `to_bytes` after that many quanta (every rank takes it: it
+    gathers the carries) and every rank continues in a service restored
+    from that one file.  With `expire` = (tenant, levels), rank 0 alone
+    finds that tenant's epoch deadline expired once it has completed
+    that many levels.  Returns each tenant's epoch records without their
+    wall times, and the quanta stepped."""
+    from ..drivers.service import CollectorService, ServiceConfig, TenantSpec
+    from ..drivers.session import Deadline
+    from ..tools.serve import strip_wall
+
+    device = mesh.device if mesh is not None else case["device"]
+    lead = mesh is None or mesh.rank == 0
+    specs = [TenantSpec(**t) for t in case["tenants"]]
+    svc = CollectorService(specs, config=ServiceConfig(**case["config"]),
+                           mesh=mesh, device=device)
+    if lead or not case.get("lead_admits"):
+        for (name, blobs) in case["uploads"].items():
+            for blob in blobs:
+                svc.submit(name, blob)
+            svc.begin_epoch(name)
+    (quanta, more) = (0, True)
+    while more:
+        if quanta == case.get("split"):
+            blob = svc.to_bytes()
+            if lead:
+                with open(case["snapshot"], "wb") as f:
+                    f.write(blob)
+            if mesh is not None:
+                mesh.broadcast(None)   # the file is written
+            with open(case["snapshot"], "rb") as f:
+                svc = CollectorService.from_bytes(
+                    f.read(), config=ServiceConfig(**case["config"]),
+                    mesh=mesh, device=device)
+        more = svc.step()
+        quanta += 1
+        if lead and case.get("expire") is not None:
+            (name, levels) = case["expire"]
+            epoch = svc.tenants[name].active
+            if epoch is not None and epoch.run is not None \
+                    and epoch.run.rounds_completed() >= levels:
+                epoch.deadline = Deadline(0.0)
+    return {"records": {name: strip_wall(t["epochs"]) for (name, t)
+                        in svc.metrics()["tenants"].items()},
+            "quanta": quanta}
 
 
 def modules(mesh, case: Optional[dict] = None) -> list:

@@ -26,6 +26,11 @@ CUDA tensors (one card per rank), gloo takes CPU tensors, and under
 gloo the shares and masks (kilobytes) are staged through host memory.
 The choice is made by the backend's name, never by catching an error.
 
+A decision no rank can take from the round's data (a clock, a failure,
+what an HTTP door admitted) is rank 0's: `ReportMesh.broadcast` sends
+its value, and `gather_objects` collects every rank's (the collector
+service's scheduler takes both, `drivers/service.py`).
+
 `place_reports` keeps this rank's rows of a batch, a carry or the round
 keys; `gather_rows` puts all ranks' rows back together; `gather_round`
 is a round's whole exchange.  `sharded_gen`, `sharded_prep` and
@@ -96,6 +101,20 @@ class ReportMesh:
         out = [torch.empty_like(t) for _ in range(self.shape["reports"])]
         dist.all_gather(out, t)
         return [x.cpu() for x in out]
+
+    def broadcast(self, obj):
+        """Rank 0's `obj` (any picklable value; the others pass anything)
+        on every rank: how rank 0's decisions reach the others."""
+        box = [obj if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's `obj` (picklable), in rank order, on every
+        rank."""
+        out = [None] * self.shape["reports"]
+        dist.all_gather_object(out, obj)
+        return out
 
 
 def make_mesh(n_devices: Optional[int] = None, nodes_axis: int = 1,

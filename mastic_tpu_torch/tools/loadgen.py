@@ -18,6 +18,13 @@ Modes:
   self-hosting (response-side accounting only: the endpoint's own
   /metrics has the server side);
 
+* ``--wal-bench``: the cost of durability, the same HTTP admission
+  (``--wal-reports`` uploads over ``--wal-workers`` keep-alive clients)
+  under snapshot-before-ack, a WAL fsynced per record and a WAL with
+  2 ms group commit (`measure_wal_modes`); one JSON line with each
+  mode's rate and fsync waits, and a FAIL unless group commit admits at
+  least 5x the snapshot-before-ack rate;
+
 * ``--smoke``: four phases:
 
   1. **slo**: 10^5 simulated clients (zipf popularity, distinct
@@ -483,6 +490,247 @@ def run_upload_drill(args, tmp: str) -> dict:
             "bit_identical": True}
 
 
+class _SnapshotSettler:
+    """The snapshot-before-ack durability discipline as a persist
+    callback, the WAL bench's baseline: an ack is released only after a
+    FULL service snapshot (serialize + fsync + rename + fsync(dir))
+    covering it lands.  Generously batched — one settle releases every
+    waiter that arrived while the previous snapshot was writing, the
+    exact analogue of the WAL's group commit — so the measured gap is
+    the cost of serializing O(state) per settle vs appending
+    O(record)."""
+
+    def __init__(self, svc, path: str):
+        import threading
+
+        self.svc = svc
+        self.path = path
+        self.snapshot_bytes = 0
+        self.settles = 0
+        self._mu = threading.Lock()
+        self._waiters: list = []
+        self._closed = False
+        self._thread = threading.Thread(target=self._loop,
+                                        daemon=True,
+                                        name="snapshot-settler")
+        self._thread.start()
+
+    def persist(self, tenant: str, body: bytes) -> None:
+        import threading
+
+        ev = threading.Event()
+        with self._mu:
+            self._waiters.append(ev)
+        if not ev.wait(60.0):
+            raise RuntimeError("snapshot settle timed out")
+
+    def _loop(self) -> None:
+        from mastic_tpu_torch.drivers.wal import fsync_dir
+
+        while True:
+            with self._mu:
+                if self._closed:
+                    for ev in self._waiters:
+                        ev.set()
+                    return
+                batch = self._waiters
+                self._waiters = []
+            if not batch:
+                time.sleep(0.0005)
+                continue
+            data = self.svc.to_bytes()
+            tmp = self.path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.path)
+            fsync_dir(os.path.dirname(os.path.abspath(self.path)))
+            self.snapshot_bytes = len(data)
+            self.settles += 1
+            for ev in batch:
+                ev.set()
+
+    def close(self) -> None:
+        with self._mu:
+            self._closed = True
+        self._thread.join(timeout=10.0)
+
+
+def measure_wal_modes(device, reports: int, workers: int,
+                      replay: int = 0) -> dict:
+    """The same HTTP admission path (real sockets, `workers` keep-alive
+    clients, `reports` valid uploads to the count tenant of a service on
+    `device`) under the three persistence disciplines of the WAL bench:
+    ``snapshot_before_ack`` (`_SnapshotSettler`), ``wal_always`` (one
+    fsync a record) and ``wal_group`` (group commit, 2 ms).  Returns
+    each mode's record (the JAX bench's keys); fails unless every mode
+    acked every upload."""
+    import shutil
+    import tempfile
+    import threading
+    from http.client import HTTPConnection
+
+    from mastic_tpu_torch.drivers.wal import AdmissionWal, WalConfig
+    from mastic_tpu_torch.net.admission import NetConfig
+    from mastic_tpu_torch.net.ingest import MEDIA_TYPE, UploadFront
+
+    (_svc0, tenants) = build_service(device, bits=2, max_buffered=10 ** 6,
+                                     ingest_threads=0, ingest_queue=256)
+    pool = build_pools(tenants, 2, pool=64, replay=replay)["count"]["valid"]
+    tmp = tempfile.mkdtemp(prefix="mastic-wal-bench-")
+
+    def drive(front) -> tuple:
+        """`reports` PUTs over `workers` keep-alive connections;
+        returns (acked, wall_s).  Any non-2xx fails the bench — this
+        path must admit everything, or the rates compare nothing."""
+        next_i = [0]
+        mu = threading.Lock()
+        acked = [0]
+        errors: list = []
+
+        def worker() -> None:
+            conn = HTTPConnection("127.0.0.1", front.port,
+                                  timeout=30)
+            try:
+                while True:
+                    with mu:
+                        i = next_i[0]
+                        if i >= reports or errors:
+                            return
+                        next_i[0] = i + 1
+                    blob = pool[i % len(pool)]
+                    # A dropped keep-alive or accept-backlog reset is
+                    # the client's to retry (the un-acked upload is
+                    # at-least-once by contract); only a persistent
+                    # transport failure fails the bench.
+                    status = None
+                    for attempt in range(3):
+                        try:
+                            conn.request(
+                                "PUT", "/v1/tenants/count/reports",
+                                body=blob,
+                                headers={"Content-Type": MEDIA_TYPE})
+                            resp = conn.getresponse()
+                            resp.read()
+                            status = resp.status
+                            break
+                        except OSError:
+                            conn.close()
+                            time.sleep(0.01 * (attempt + 1))
+                            conn = HTTPConnection(
+                                "127.0.0.1", front.port, timeout=30)
+                    if status is None:
+                        errors.append(f"transport error on {i}")
+                        return
+                    if status not in (201, 202):
+                        errors.append(f"upload {i}: {status}")
+                        return
+                    with mu:
+                        acked[0] += 1
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=worker)
+                   for _ in range(workers)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        if errors:
+            fail(f"wal bench: {errors[0]}")
+        return (acked[0], wall)
+
+    def fresh_front(persist):
+        (svc, _t) = build_service(device, bits=2, max_buffered=10 ** 6,
+                                  ingest_threads=0, ingest_queue=256)
+        front = UploadFront(
+            svc, config=NetConfig(max_connections=256,
+                                  trust_forwarded=True),
+            persist=persist).start()
+        return (svc, front)
+
+    modes = {}
+    try:
+        # 1. Snapshot-before-ack.
+        (svc, front) = fresh_front(None)
+        settler = _SnapshotSettler(svc, os.path.join(tmp, "base.snap"))
+        front._persist = settler.persist
+        (acked, wall) = drive(front)
+        front.stop()
+        settler.close()
+        if acked != reports:
+            fail(f"wal bench snapshot: {acked}/{reports} acked")
+        modes["snapshot_before_ack"] = {
+            "acked": acked, "wall_s": round(wall, 3),
+            "rate_rps": round(acked / wall, 1),
+            "settles": settler.settles,
+            "snapshot_bytes_final": settler.snapshot_bytes}
+
+        # 2 + 3. The WAL disciplines.
+        for (key, cfg) in (
+                ("wal_always", WalConfig(fsync="always")),
+                ("wal_group", WalConfig(fsync="group", group_ms=2.0))):
+            wal = AdmissionWal(os.path.join(tmp, key), config=cfg)
+            (svc, front) = fresh_front(wal.append_report)
+            (acked, wall) = drive(front)
+            front.stop()
+            stats = wal.stats()
+            wal.close()
+            if acked != reports:
+                fail(f"wal bench {key}: {acked}/{reports} acked")
+            modes[key] = {
+                "acked": acked, "wall_s": round(wall, 3),
+                "rate_rps": round(acked / wall, 1),
+                "fsync": cfg.fsync,
+                "fsync_wait_ms_p50": round(
+                    stats["fsync_wait_ms_p50"], 3),
+                "fsync_wait_ms_p99": round(
+                    stats["fsync_wait_ms_p99"], 3),
+                "appends": stats["appends"],
+                "segments": stats["segments"]}
+            if key == "wal_group":
+                modes[key]["group_ms"] = 2.0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return modes
+
+
+def run_wal_bench(args) -> None:
+    """The measured cost of durability: `measure_wal_modes` at
+    `--wal-reports` uploads over `--wal-workers` clients.  Prints one
+    JSON line with the admission rate per mode, the WAL modes' p50/p99
+    fsync-wait, and the group-vs-snapshot speedup; FAILS unless group
+    commit admits at least 5x the snapshot-before-ack rate.  (It writes
+    no file of its own: the JAX package's BENCH_WAL.json is that
+    package's.)"""
+    from mastic_tpu_torch import resolve_device
+
+    t_start = time.time()
+    device = resolve_device(args.device)
+    modes = measure_wal_modes(device, args.wal_reports, args.wal_workers,
+                              replay=args.replay)
+    speedup = (modes["wal_group"]["rate_rps"]
+               / modes["snapshot_before_ack"]["rate_rps"])
+    out = {"mode": "wal-bench", "platform": device.type,
+           "reports": args.wal_reports, "workers": args.wal_workers,
+           "modes": modes,
+           "speedup_group_vs_snapshot": round(speedup, 2),
+           "wall_seconds": round(time.time() - t_start, 1),
+           "ok": True}
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    if speedup < 5.0:
+        fail(f"wal bench: group-commit admission rate is only "
+             f"{speedup:.2f}x the snapshot-before-ack baseline "
+             f"(acceptance: >= 5x)")
+
+
 def run_smoke(args) -> None:
     import tempfile
 
@@ -606,6 +854,18 @@ def main() -> None:
                         help="the self-hosted service's device "
                              "(default cuda; the kill9 drill's "
                              "children get it too)")
+    parser.add_argument("--wal-bench", action="store_true",
+                        help="measure the durability disciplines "
+                             "head to head (snapshot-before-ack vs "
+                             "WAL always vs WAL group commit) over "
+                             "the real HTTP path")
+    parser.add_argument("--wal-reports", type=int, default=20000,
+                        help="uploads per --wal-bench mode — the "
+                             "baseline's per-settle cost is O(state), "
+                             "so the measured gap grows with this")
+    parser.add_argument("--wal-workers", type=int, default=32,
+                        help="concurrent clients per --wal-bench "
+                             "mode")
     parser.add_argument("--out", type=str, default=None)
     args = parser.parse_args()
 
@@ -615,7 +875,9 @@ def main() -> None:
         resolve_device(args.device)
     except RuntimeError as exc:
         fail(str(exc))
-    if args.smoke:
+    if args.wal_bench:
+        run_wal_bench(args)
+    elif args.smoke:
         run_smoke(args)
     else:
         run_load(args)
