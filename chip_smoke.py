@@ -56,7 +56,14 @@
    and checked against the plain version (the multihot tree on its first
    BINDER_CHECK_R reports, the Histogram chunk's on every report with
    the index lists cut at both ends); K2 at 21 blocks.
-3. Drives sixteen phases, each with every launch counter set to 0 just
+   And at phase q's shapes (the node axis): K3 at the attribute round's
+   node block (10 000 reports x 32 parents, node rank 0's half of the
+   64 prefixes) and at the Count run's (8192 reports x 32 parents, the
+   binder of level 127); K1's binder sponge on the tree a rank holds
+   after the exchange (5000 reports x the round's 3332 nodes), timed
+   there and checked on every report with the index lists cut at both
+   ends of the node axis.
+3. Drives seventeen phases, each with every launch counter set to 0 just
    before and read just after; each must have launched every kernel it
    runs (K1's binder sponge and K3 count Field128 launches apart).
    Every path hands its runs the scalar reports behind its batch
@@ -76,8 +83,9 @@
       incremental runner's.
    b. Sum (weighted heavy hitters): MasticSum(256, 255), the same
       strings with weights uniform in [0, 255], through
-      `HeavyHittersRun` (the loop of `compute_heavy_hitters`) at all 256
-      levels, threshold 48 x 128;
+      `HeavyHittersRun` (the loop of `compute_heavy_hitters`) through 128
+      levels (all 256 until phase q needed the time: printed as a
+      cut), threshold 48 x 128;
       every level's weighted counts and survivors must equal numpy's.
    c. Histogram (Field128): MasticHistogram(64, 16, 4), R = 4096 reports
       over 16 planted attribute strings, buckets uniform; all 64 levels
@@ -168,9 +176,9 @@
       the card (each with `MASTIC_DEVICE_BUDGET_BYTES` at 40% of it):
       MasticCount(256) over 8192 reports (the Count recipe x2, threshold
       96; each rank shards its 4096 rows, then the batch is gathered),
-      4096 rows a rank, resident through all 256 levels (64 when
-      the smoke has run past MESH_CUT_AFTER_S before phase j, printed
-      as a cut), the heavy hitters the planted strings, then
+      4096 rows a rank, resident through 128 levels (256 until phase q
+      needed the time, printed as a cut; 64 when the smoke has run
+      past MESH_CUT_AFTER_S before phase j, printed as a cut), then
       `sharded_gen` against the rank's rows of the shard and
       `sharded_round` at level 0 against numpy; the same
       reports chunked (chunk_size 2047: every chunk pads to 2048, 1024
@@ -264,6 +272,23 @@
       cuda`, whose results must equal phase o's serve child's (the same
       default scenario); p3, `tools.serve --overlap-drill --device
       cuda`, which must print `"ok": true`.
+   q. The node axis (`parallel.install_grid_sharding`: a from-root
+      round's prefixes split over the node ranks, each walking its
+      block's subtree, the tree exchanged so that each rank checks
+      every node of its share of the reports).  q1, inside phase j's
+      two gloo ranks on a second mesh over them, reports 1 x nodes 2:
+      the resident run's last level as one `run_round` from the root
+      over its 8192 reports, the aggregates equal to the resident
+      run's; then phase e's attribute round (its reports as phase j
+      sharded them), held as phase e holds it.  q2, four gloo ranks
+      sharing the card, reports 2 x nodes 2: phase e's attribute
+      round, held the same way.  Past NODES_CUT_AFTER_S before phase j
+      q1's Count run and q2 take 4096 reports (printed as a cut).  Each
+      rank prints its walked and shared nodes, the exchange's bytes and
+      time (CUDA events around the packing, the copies through host
+      memory, the collective and the unpacking), its round time and
+      device peak beside phase e's, and its launches; every rank must
+      launch K1 (the eval-proof XOF and the binder sponge) and K3.
 4. Prints the `kernels` JSON line (every kernel and instantiation; the
    Count rows' `launches_mesh` are rank 0's launches in the gloo
    resident run, its shard of its rows included, the MasticSum rows' in
@@ -275,7 +300,10 @@
    `launches_northstar` on the Count rows are each phase-m run's
    launches, the mesh run's counted in its rank;
    `launches_mesh_service` on the Count rows are each p1 rank's
-   launches in its rounds; phase n's rows take
+   launches in its rounds; `launches_nodes` on the Count rows are each
+   q1 rank's launches in its Count run, on the MasticSum rows each q1
+   and q2 rank's in its attribute round, and phase q's own rows take
+   their `launches` from q1's rank 0; phase n's rows take
    their launches from n1 and n2), the card, each path's figures, and
    last `{"ok": true, "device": {...}}`.
    Any failure exits non-zero before that line.
@@ -315,6 +343,9 @@ THRESHOLD = 48
 # weight: it keeps the frontier near the Count path's 64).
 SUM_MAX = 255
 SUM_THRESHOLD = 48 * 128
+# Its levels: 128 of the 256 since phase q needed the time (printed as
+# a cut); the heavy hitters are held to the planted strings at 256.
+SUM_LEVELS = 128
 SUM_VALUE_LEN = 1 + 2 * SUM_MAX.bit_length()
 # The Field128 path: MasticHistogram(64, 16, 4) over 16 planted 64-bit
 # attribute strings, and the long-payload shard MasticSumVec(128, 1024,
@@ -375,8 +406,9 @@ CHUNKED_THRESHOLD = 8 * THRESHOLD
 # (the Count path's reports, MESH_NCCL_LEVELS levels, each against phase
 # a's), then gloo at 2 ranks sharing the card.  Resident: the Count
 # recipe x2 (32 planted strings x 128 reports and 4096 uniform ones,
-# threshold 48 x 2), 4096 rows a rank, all 256 levels (MESH_CUT_LEVELS
+# threshold 48 x 2), 4096 rows a rank, MESH_LEVELS levels (MESH_CUT_LEVELS
 # when the smoke has run past MESH_CUT_AFTER_S by then, printed as a
+# cut; MESH_LEVELS, 256 until phase q needed the time, printed as a
 # cut).  Chunked: the same reports at chunk_size 2047 (odd: every chunk
 # pads to 2048, 1024 rows a rank, and the tail holds 4 live rows),
 # pipelined, MESH_CHUNKED_LEVELS levels (cut from 16 to 8 for the
@@ -388,6 +420,7 @@ MESH_R = 2 * R
 MESH_THRESHOLD = 2 * THRESHOLD
 MESH_CHUNK = 2047
 MESH_CHUNKED_LEVELS = 8
+MESH_LEVELS = 128
 MESH_CUT_LEVELS = 64
 MESH_CUT_AFTER_S = 600.0
 MESH_BUDGET_SHARE = 0.4
@@ -396,7 +429,23 @@ MESH_COUNTERS = {
     "chunked": ("keccak", "keccak_binder", "level"),
     "attributes": ("keccak", "keccak_binder", "aes", "level"),
     "nccl": ("keccak", "keccak_binder", "aes", "level"),
+    "nodes": ("keccak", "keccak_binder", "level"),
 }
+# Phase q, the node axis (`parallel.install_grid_sharding`): q1 on a
+# second mesh over phase j's gloo ranks, reports 1 x nodes NODES_AXIS
+# (the Count run from the root at the resident run's last level over
+# its MESH_R reports, and phase e's attribute round); q2 on
+# NODES_Q2_RANKS gloo ranks sharing the card, reports 2 x nodes 2, phase
+# e's attribute round.  Past NODES_CUT_AFTER_S before phase j, q1's
+# Count run and q2 take NODES_CUT_R reports (printed as a cut).  Every
+# rank must launch MESH_COUNTERS["nodes"].  The Count block's K3 row is
+# timed at NODES_COUNT_PARENTS parents: node rank 0's half of the
+# resident run's 64-prefix frontier.
+NODES_AXIS = 2
+NODES_Q2_RANKS = 4
+NODES_CUT_AFTER_S = 600.0
+NODES_CUT_R = R
+NODES_COUNT_PARENTS = 2 * PLANTED // NODES_AXIS
 # Phase m, the north-star tool (`python -m mastic_tpu_torch.tools.northstar`)
 # in this process: NORTHSTAR_R MasticCount reports with the tool's three
 # planted paths, chunked in chunks of NORTHSTAR_CHUNK, resident, and over
@@ -974,6 +1023,60 @@ def check_from_root(dev: torch.device, gen: torch.Generator,
         f"({limbs} limbs, {limbs / 2 ** 32:.2f} x 2^32) with the index "
         f"lists cut to onehot rows {compare[3].tolist()} and payload rows "
         f"(par, left, right) {list(zip(*(t.tolist() for t in compare[4:7])))}"))
+    del args, compare
+    torch.cuda.empty_cache()
+    for row in rows:
+        if row["max_abs_err"]:
+            raise AssertionError(f"{row['name']} disagrees with its plain "
+                                 f"version: {row['max_abs_err']}")
+    return rows
+
+
+def check_node_shapes(dev: torch.device, gen: torch.Generator,
+                      seed: int) -> list:
+    """The kernels at phase q's shapes (the node axis), each row under
+    its own name: K3 at the attribute round's node block (10 000 reports
+    x the widest depth of node rank 0's block, 32 of the 64 prefixes)
+    and at the Count run's (MESH_R reports x NODES_COUNT_PARENTS
+    parents, the binder of level MESH_LEVELS - 1); K1's binder sponge on
+    the tree a rank holds after the exchange of the attribute round at
+    reports 1 x nodes 2 (5000 reports x the round's 3332 nodes), timed
+    there and checked on every report with the index lists cut to a few
+    rows at both ends of the node axis (`_end_rows`: the plain sponge
+    absorbs its ~2000 rate blocks one by one, ~17 s on the full lists
+    on an H100's host)."""
+    from mastic_tpu_torch import hash_attribute
+    from mastic_tpu_torch.backend.mastic import MasticSum
+    from mastic_tpu_torch.backend.schedule import LevelSchedule, node_blocks
+    from mastic_tpu_torch.ops.field import FIELD64
+
+    mastic = MasticSum(ATTR_BITS, SUM_MAX)
+    asked = attribute_measurements(seed)[0]
+    sched = LevelSchedule(sorted(hash_attribute(mastic, a) for a in asked),
+                          ATTR_BITS - 1, ATTR_BITS)
+    block = node_blocks(sched, NODES_AXIS)[0].sched
+    rows = [check_level(dev, gen, FIELD64, SUM_VALUE_LEN,
+                        max(block.num_children) // 2, CTX,
+                        "level_step_from_root_sum_node_block",
+                        reports=ATTR_R, binder_len=4 + ATTR_BITS // 8),
+            check_level(dev, gen, FIELD64, 2, NODES_COUNT_PARENTS, CTX,
+                        "level_step_from_root_count_node_block",
+                        reports=MESH_R, binder_len=4 + MESH_LEVELS // 8)]
+    for row in rows:
+        print(f"K3 ({row['name']}): whole call {row['ms']:.4f} ms, kernels "
+              f"{row['device_ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
+              f"{row['shape']}, max_abs_err {row['max_abs_err']}")
+    args = flat_binder_inputs(dev, gen, sched, ATTR_R // NODES_AXIS,
+                              FIELD64, SUM_VALUE_LEN, MasticSum.ID)
+    compare = _end_rows(args, onehot=8, payload=3)
+    rows.append(_flat_binder_row(
+        "keccak_binder_sponge_from_root_sum_exchanged", args, compare,
+        PAYLOAD_ELEM_OPS,
+        f"on the same {ATTR_R // NODES_AXIS} reports x "
+        f"{sched.total_nodes} nodes with the index lists cut to onehot "
+        f"rows {compare[3].tolist()} and payload rows (par, left, right) "
+        f"{list(zip(*(t.tolist() for t in compare[4:7])))}"))
     del args, compare
     torch.cuda.empty_cache()
     for row in rows:
@@ -1671,9 +1774,11 @@ def _marshal_matches(dev: torch.device, bm, batch, reports, lanes) -> None:
 
 
 def sum_path(dev: torch.device, seed: int) -> dict:
-    """Weighted heavy hitters: MasticSum(256, 255) at full depth through
-    HeavyHittersRun, one step a level (compute_heavy_hitters' loop);
-    every level's weighted counts and survivors against numpy."""
+    """Weighted heavy hitters: MasticSum(256, 255) through
+    HeavyHittersRun for SUM_LEVELS levels, one step a level
+    (compute_heavy_hitters' loop); every level's weighted counts and
+    survivors against numpy, and at full depth the heavy hitters
+    against the planted strings."""
     from mastic_tpu_torch.backend.mastic import BatchedMastic, MasticSum
     from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
     from mastic_tpu_torch.ops import kernels
@@ -1693,7 +1798,7 @@ def sum_path(dev: torch.device, seed: int) -> dict:
     excluded = []
     t0 = time.perf_counter()
     more = True
-    while more:
+    while more and run.level < SUM_LEVELS:
         more = run.step()
         excluded.append(run.excluded())
     torch.cuda.synchronize()
@@ -1712,8 +1817,10 @@ def sum_path(dev: torch.device, seed: int) -> dict:
             raise AssertionError(f"MasticSum level {level}: survivors differ "
                                  f"from numpy's weighted heavy hitters")
     expect = sorted(tuple(bool(b) for b in p) for p in planted)
-    if len(levels) != BITS or sorted(hh) != expect:
-        raise AssertionError(f"MasticSum heavy hitters: {len(hh)} found, "
+    if len(levels) != SUM_LEVELS or (SUM_LEVELS == BITS
+                                     and sorted(hh) != expect):
+        raise AssertionError(f"MasticSum: {len(levels)} levels, "
+                             f"{len(hh)} heavy hitters found, "
                              f"{len(expect)} planted")
     planted_weight = min(
         int(weights[(alphas == p).all(axis=1)].sum()) for p in planted)
@@ -2964,12 +3071,15 @@ def mesh_sharded_fns(mesh, bm, meas: list, nonces: torch.Tensor,
             "level0": got}
 
 
-def mesh_gloo_rank(mesh, seed: int, levels: int) -> dict:
+def mesh_gloo_rank(mesh, seed: int, levels: int, nodes_r: int) -> dict:
     """Phase j over gloo, this rank of MESH_RANKS sharing the card: the
     resident run, the chunked run and the attribute round (see
     MESH_R); every level against numpy, the chunked frontier equal to
     the resident run's, the attribute round held as phase e holds
-    it."""
+    it.  Phase q1 on a second mesh over the same ranks, reports 1 x
+    nodes NODES_AXIS: the resident run's last level from the root over
+    its first `nodes_r` reports after the resident run, and the
+    attribute round after phase j's."""
     import os
 
     from mastic_tpu_torch import AttributeMetricsRun, HostReportStore
@@ -2977,8 +3087,10 @@ def mesh_gloo_rank(mesh, seed: int, levels: int) -> dict:
     from mastic_tpu_torch.drivers.chunked import memory_envelope
     from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun
     from mastic_tpu_torch.ops import kernels
+    from mastic_tpu_torch.parallel import make_mesh
 
     dev = mesh.device
+    nodes_mesh = make_mesh(MESH_RANKS, nodes_axis=NODES_AXIS, device=dev)
     budget = int(MESH_BUDGET_SHARE
                  * torch.cuda.get_device_properties(dev).total_memory)
     os.environ["MASTIC_DEVICE_BUDGET_BYTES"] = str(budget)
@@ -3014,7 +3126,12 @@ def mesh_gloo_rank(mesh, seed: int, levels: int) -> dict:
         "max_width": run.runner.max_width,
         "peak": torch.cuda.max_memory_allocated(dev),
         "launches": dict(kernels.launches)}
+    (last, excluded) = (run.level_results[-1], run.excluded())
     del run
+    torch.cuda.empty_cache()
+    out["nodes_count"] = nodes_count(nodes_mesh, mastic, batch, ~excluded,
+                                     reports, vk, last, alphas, weights,
+                                     nodes_r)
     out["sharded"] = mesh_sharded_fns(mesh, bm, meas, nonces, rand, batch,
                                       shard_ok, alphas, weights)
 
@@ -3078,26 +3195,159 @@ def mesh_gloo_rank(mesh, seed: int, levels: int) -> dict:
         "rejected_eval_proof": m.rejected_eval_proof,
         "rejected_weight_check": m.rejected_weight_check,
         "launches": dict(kernels.launches)}
+    del run, handle
+    torch.cuda.empty_cache()
+    out["nodes_attributes"] = nodes_attributes(nodes_mesh, inputs)
     return out
 
 
+def _split_stats(bm) -> dict:
+    """The round's exchanges (`GridSplit.summary`, one a prep) summed
+    over its two preps: this rank's walked nodes of the round's, those
+    a lower node rank walks too, bytes each way and the time on the
+    card (CUDA events) and on the host's clock, whole and in its three
+    phases (packing and the copies to host memory, the collective, the
+    copies back and unpacking)."""
+    entries = bm.vidpf.constrain_state.summary()
+    first = entries[0]
+    return {"nodes": first["nodes"], "shared": first["shared"],
+            "total": first["total"], "preps": len(entries),
+            "bytes_sent": sum(e["bytes_sent"] for e in entries),
+            "bytes_received": sum(e["bytes_received"] for e in entries),
+            "exchange_ms": sum(e["device_ms"] for e in entries),
+            **{key: sum(e[key] for e in entries) for key in (
+                "wall_ms", "to_wire_ms", "collective_ms", "from_wire_ms")}}
+
+
+def nodes_count(nodes_mesh, mastic, batch, valid: np.ndarray, reports, vk,
+                last: tuple, alphas: np.ndarray, weights: np.ndarray,
+                num: int) -> dict:
+    """Phase q1's Count run: the resident run's last level (`last` =
+    (prefixes, counts)) as one `run_round` from the root over the first
+    `num` reports, split over the node axis; its aggregates must equal
+    the resident run's (numpy's over those reports, when cut)."""
+    from mastic_tpu_torch.backend.mastic import BatchedMastic
+    from mastic_tpu_torch.drivers.heavy_hitters import run_round
+    from mastic_tpu_torch.ops import kernels
+    from mastic_tpu_torch.parallel import install_grid_sharding
+    from mastic_tpu_torch.parallel.mesh import tree_map
+
+    dev = nodes_mesh.device
+    (prefixes, counts) = last
+    level = len(prefixes[0]) - 1
+    want = (counts if num == len(valid)
+            else plaintext_counts(alphas[:num], weights[:num], valid[:num],
+                                  prefixes))
+    if num < len(valid):
+        batch = tree_map(lambda t: t[:num].contiguous(), batch)
+    bm = BatchedMastic(mastic)
+    install_grid_sharding(bm, nodes_mesh)
+    metrics: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = run_round(bm, vk, CTX, (level, tuple(prefixes), False), batch,
+                    valid=torch.as_tensor(valid[:num], device=dev),
+                    metrics_out=metrics, reports=reports)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"node axis: the Count run from the root at "
+                             f"level {level} differs from the resident "
+                             f"run's")
+    _mesh_idle("nodes", kernels.launches, nodes_mesh.rank)
+    return {"level": level, "prefixes": len(prefixes), "reports": num,
+            "accepted": metrics[0].accepted, "round_s": round_s,
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": dict(kernels.launches), **_split_stats(bm)}
+
+
+def nodes_attributes(nodes_mesh, inputs: dict) -> dict:
+    """Phase e's attribute round (`attribute_inputs`) on `nodes_mesh`,
+    split over its node axis, held as phase e holds it."""
+    from mastic_tpu_torch import AttributeMetricsRun
+    from mastic_tpu_torch.ops import kernels
+    from mastic_tpu_torch.parallel import install_grid_sharding
+
+    dev = nodes_mesh.device
+    run = AttributeMetricsRun(inputs["mastic"], CTX, inputs["asked"],
+                              inputs["vk"], inputs["batch"],
+                              valid=inputs["shard_ok"], device=dev,
+                              reports=inputs["reports"], mesh=nodes_mesh)
+    install_grid_sharding(run.bm, nodes_mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    handle = run.step_begin()
+    run.step_finish(handle)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    check_attribute_round(inputs, run, handle["accept"], handle["ok"])
+    _mesh_idle("nodes", kernels.launches, nodes_mesh.rank)
+    m = run.metrics[0]
+    return {"reports": len(inputs["weights"]), "round_s": round_s,
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "mesh": m.extra["mesh"], "accepted": m.accepted,
+            "rejected_eval_proof": m.rejected_eval_proof,
+            "rejected_weight_check": m.rejected_weight_check,
+            "launches": dict(kernels.launches), **_split_stats(run.bm)}
+
+
+def cut_attribute_inputs(inputs: dict, num: int) -> dict:
+    """`attribute_inputs` cut to its first `num` reports."""
+    from mastic_tpu_torch.parallel.mesh import tree_map
+
+    out = dict(inputs)
+    out["batch"] = tree_map(lambda t: t[:num].contiguous(), inputs["batch"])
+    for key in ("shard_ok", "alphas", "weights", "in_set", "tampered"):
+        out[key] = inputs[key][:num]
+    for key in ("cw_rows", "proof_rows"):
+        out[key] = inputs[key][inputs[key] < num]
+    return out
+
+
+def nodes_q2_rank(mesh, seed: int, reports: int) -> dict:
+    """Phase q2, this rank of NODES_Q2_RANKS gloo ranks sharing the card:
+    phase e's reports sharded over the ranks and gathered, then its
+    attribute round over the first `reports` of them on a (reports 2 x
+    nodes 2) mesh, split over the node axis."""
+    from mastic_tpu_torch.parallel import make_mesh
+
+    dev = mesh.device
+    nodes_mesh = make_mesh(mesh.world, nodes_axis=NODES_AXIS, device=dev)
+    inputs = attribute_inputs(dev, seed, mesh)
+    if reports < ATTR_R:
+        inputs = cut_attribute_inputs(inputs, reports)
+    return nodes_attributes(nodes_mesh, inputs)
+
+
 def mesh_phase(elapsed_s: float, seed: int, first_levels: list) -> dict:
-    """Phase j: the NCCL rank, then the gloo ranks (see MESH_R); the
-    kernels are built already, so no rank compiles."""
+    """Phase j: the NCCL rank, then the gloo ranks (see MESH_R), phase
+    q1 among them; then phase q2's ranks.  The kernels are built
+    already, so no rank compiles."""
     from mastic_tpu_torch.drivers.chunked import _release_pinned
     from mastic_tpu_torch.parallel import spawn
 
     torch.cuda.empty_cache()
     _release_pinned()
-    levels = BITS if elapsed_s < MESH_CUT_AFTER_S else MESH_CUT_LEVELS
+    levels = MESH_LEVELS if elapsed_s < MESH_CUT_AFTER_S else MESH_CUT_LEVELS
+    nodes_cut = elapsed_s >= NODES_CUT_AFTER_S
     t0 = time.perf_counter()
     nccl = spawn(mesh_nccl_rank, 1, "nccl", "cuda", seed, first_levels)
     nccl_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    gloo = spawn(mesh_gloo_rank, MESH_RANKS, "gloo", "cuda", seed, levels)
+    gloo = spawn(mesh_gloo_rank, MESH_RANKS, "gloo", "cuda", seed, levels,
+                 NODES_CUT_R if nodes_cut else MESH_R)
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q2 = spawn(nodes_q2_rank, NODES_Q2_RANKS, "gloo", "cuda", seed,
+               NODES_CUT_R if nodes_cut else ATTR_R)
     return {"levels": levels, "nccl": nccl[0][0], "nccl_s": nccl_s,
-            "gloo": [r[0] for r in gloo],
-            "gloo_s": time.perf_counter() - t0}
+            "gloo": [r[0] for r in gloo], "gloo_s": gloo_s,
+            "nodes_cut": nodes_cut, "q2": [r[0] for r in q2],
+            "q2_s": time.perf_counter() - t0}
 
 
 def _print_mesh(mesh: dict) -> None:
@@ -3118,7 +3368,9 @@ def _print_mesh(mesh: dict) -> None:
           f"{mesh['gloo_s']:.1f} s, device budget a rank "
           f"{gloo[0]['budget']} B (MASTIC_DEVICE_BUDGET_BYTES, "
           f"{MESH_BUDGET_SHARE} of the card)")
-    if mesh["levels"] < BITS:
+    print(f"cut: the mesh resident run takes {MESH_LEVELS} of {BITS} "
+          f"levels (256 before phase q was added), for time")
+    if mesh["levels"] < MESH_LEVELS:
         print(f"cut: the mesh resident run stopped after {mesh['levels']} "
               f"of {BITS} levels, the smoke having run past "
               f"{MESH_CUT_AFTER_S:.0f} s before phase j")
@@ -3156,6 +3408,60 @@ def _print_mesh(mesh: dict) -> None:
               f"{at['rejected_weight_check']}; wall {at['wall_s']:.3f} s, "
               f"round {at['round_s']:.3f} s; mesh {json.dumps(at['mesh'])}; "
               f"launches {launches(at['launches'])}")
+
+
+def _print_nodes(mesh: dict, phase_e: dict, phase_e_peak: int) -> None:
+    """Phase q's lines: each rank's walked and shared nodes, exchange
+    bytes and times, round time and device peak (beside phase e's
+    single-rank round), and launches."""
+    def launches(d: dict) -> str:
+        return ", ".join(f"{k} {v}" for (k, v) in d.items() if v)
+
+    def line(rank: int, r: dict) -> str:
+        return (f"rank {rank}: walks {r['nodes']} of the round's "
+                f"{r['total']} nodes a report ({r['shared']} shared with a "
+                f"lower node rank); exchange over {r['preps']} preps "
+                f"{r['bytes_sent']} B sent, {r['bytes_received']} B "
+                f"received, {r['exchange_ms']:.3f} ms on the card (CUDA "
+                f"events), {r['wall_ms']:.3f} ms on the host's clock (to "
+                f"host memory {r['to_wire_ms']:.3f}, all_to_all_single "
+                f"{r['collective_ms']:.3f}, back {r['from_wire_ms']:.3f}); "
+                f"round {r['round_s']:.3f} s, device peak "
+                f"{r['peak']} B ({r['peak'] / 2 ** 30:.2f} GiB); "
+                f"launches_nodes {launches(r['launches'])}")
+
+    if mesh["nodes_cut"]:
+        print(f"cut: phase q's Count run and q2 take {NODES_CUT_R} "
+              f"reports, the smoke having run past {NODES_CUT_AFTER_S:.0f} "
+              f"s before phase j")
+    reference = (f"phase e, one rank: round {phase_e['round_s']:.3f} s, "
+                 f"device peak {phase_e_peak} B "
+                 f"({phase_e_peak / 2 ** 30:.2f} GiB)")
+    for (rank, r) in enumerate(mesh["gloo"]):
+        c = r["nodes_count"]
+        print(f"nodes q1 count, reports 1 x nodes {NODES_AXIS}: "
+              f"MasticCount({BITS}) level {c['level']} from the root, "
+              f"{c['prefixes']} prefixes, {c['reports']} reports, "
+              f"aggregates = the resident run's, {c['accepted']} accepted; "
+              + line(rank, c))
+    for (rank, r) in enumerate(mesh["gloo"]):
+        a = r["nodes_attributes"]
+        print(f"nodes q1 attributes, reports 1 x nodes {NODES_AXIS}: "
+              f"MasticSum({ATTR_BITS}, {SUM_MAX}), {a['reports']} reports, "
+              f"{ATTR_ASKED} attributes: sums = numpy's, accepted "
+              f"{a['accepted']}, rejected_eval_proof "
+              f"{a['rejected_eval_proof']}, rejected_weight_check "
+              f"{a['rejected_weight_check']}; mesh {json.dumps(a['mesh'])}; "
+              + line(rank, a) + f" ({reference})")
+    print(f"nodes q2: {NODES_Q2_RANKS} gloo ranks on one card, reports "
+          f"{NODES_Q2_RANKS // NODES_AXIS} x nodes {NODES_AXIS}, phase "
+          f"{mesh['q2_s']:.1f} s")
+    for (rank, a) in enumerate(mesh["q2"]):
+        print(f"nodes q2 attributes: {a['reports']} reports: sums = "
+              f"numpy's, accepted {a['accepted']}, rejected_eval_proof "
+              f"{a['rejected_eval_proof']}, rejected_weight_check "
+              f"{a['rejected_weight_check']}; mesh {json.dumps(a['mesh'])}; "
+              + line(rank, a) + f" ({reference})")
 
 
 def _print_launches(counts: dict, result: dict) -> None:
@@ -4436,7 +4742,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = check_kernels(dev, gen) + check_new_shapes(dev, gen) \
         + check_from_root(dev, gen, args.seed) \
-        + check_phase_n_shapes(dev, gen)
+        + check_phase_n_shapes(dev, gen) \
+        + check_node_shapes(dev, gen, args.seed)
     torch.cuda.empty_cache()
 
     # Each path with every count set to 0 just before it and read just
@@ -4499,11 +4806,18 @@ def main() -> int:
                                                     "keccak_binder_f128"),
         "keccak_binder_sponge_from_root_histogram_100k": (
             "histogram_100k", "keccak_binder_f128"),
-        "aes_fixed_key_blocks_multihot": ("multihot", "aes")}
+        "aes_fixed_key_blocks_multihot": ("multihot", "aes"),
+        # Phase q's shapes: their launches are rank 0's in q1's runs.
+        "level_step_from_root_sum_node_block": ("nodes_attributes", "level"),
+        "level_step_from_root_count_node_block": ("nodes_count", "level"),
+        "keccak_binder_sponge_from_root_sum_exchanged": (
+            "nodes_attributes", "keccak_binder")}
     for row in rows:
         (path, counter) = row_counter[row["name"]]
-        row["launches"] = counts[path][counter]
         row["launches_path"] = path
+        if path not in counts:
+            continue
+        row["launches"] = counts[path][counter]
         # The chunked phases run MasticCount's instantiation only: its
         # rows get their launches there (K2 only where a phase shards).
         if path == "count":
@@ -4545,6 +4859,20 @@ def main() -> int:
                "attributes": "attributes"}.get(row["launches_path"])
         row["launches_mesh"] = (None if run is None
                                 else gloo0[run]["launches"][counter])
+        # Phase q: each q1 rank's launches in its Count run (the Count
+        # instantiation) or attribute round (MasticSum), and each q2
+        # rank's in its attribute round.
+        run = {"count": "nodes_count", "sum": "nodes_attributes",
+               "attributes": "nodes_attributes",
+               "nodes_count": "nodes_count",
+               "nodes_attributes": "nodes_attributes"}.get(
+                   row["launches_path"])
+        if run is not None and row["launches_path"] == run:
+            row["launches"] = gloo0[run]["launches"][counter]
+        row["launches_nodes"] = None if run is None else {
+            "q1": [r[run]["launches"][counter] for r in mesh["gloo"]],
+            "q2": (None if run == "nodes_count"
+                   else [r["launches"][counter] for r in mesh["q2"]])}
 
     # Phase k, the party layer, after the mesh: leader and helper as
     # processes of their own on the card, each counting its launches.
@@ -4620,12 +4948,14 @@ def main() -> int:
                       counts["count_from_root"].items() if v))
 
     result = results["sum"]
+    print(f"cut: the sum path takes {SUM_LEVELS} of {BITS} levels (all "
+          f"{BITS} before phase q was added), for time")
     print(f"sum path: MasticSum({BITS}, {SUM_MAX}) through "
           f"HeavyHittersRun, {R} reports (weights uniform in [0, "
           f"{SUM_MAX}]), threshold {SUM_THRESHOLD}, {result['levels']} "
-          f"levels, {result['heavy_hitters']} heavy hitters = the planted "
-          f"strings (lightest planted weight {result['planted_weight']}); "
-          f"every level's weighted counts and survivors = numpy's")
+          f"levels, {result['heavy_hitters']} heavy hitters (lightest "
+          f"planted weight {result['planted_weight']}); every level's "
+          f"weighted counts and survivors = numpy's")
     print(f"sum path: rejected {result['rejected']} "
           f"({result['shard_rejected']} at sharding), XOF fallbacks spliced "
           f"{result['xof_fallbacks']}; shard "
@@ -4781,6 +5111,7 @@ def main() -> int:
     _print_phase_n(results, peaks, counts)
     _print_northstar(northstar)
     _print_mesh(mesh)
+    _print_nodes(mesh, results["attributes"], peaks["attributes"])
     _print_parties(k)
     _print_service(service)
     _print_store(store)
@@ -4790,7 +5121,8 @@ def main() -> int:
         + ", " + ", ".join(
             f"northstar {name} {r['wall_s']:.1f}"
             for (name, r) in northstar["runs"].items())
-        + f", mesh {mesh['nccl_s'] + mesh['gloo_s']:.1f}, parties "
+        + f", mesh {mesh['nccl_s'] + mesh['gloo_s']:.1f} (phase q1 among "
+        f"it), nodes q2 {mesh['q2_s']:.1f}, parties "
         + ", ".join(f"{name} {r['phase_s']:.1f}" for (name, r) in k.items())
         + f", service "
         f"{service['l1']['phase_s'] + service['l2']['wall_s']:.1f}"

@@ -478,12 +478,34 @@ class BatchedMastic:
         joint-rand seeds; peer_jr_parts: the other party's joint-rand
         parts (joint-rand circuits only); sched: the round's uploaded
         grid, built here when None.  Only the returned BatchedPrep
-        outlives the call, so one tree buffer is alive at a time."""
-        (level, _prefixes, do_weight_check) = agg_param
+        outlives the call, so one tree buffer is alive at a time.  With
+        `vidpf.constrain_state` set (`parallel.install_grid_sharding`)
+        the prep is split over a mesh's node ranks, with the same
+        result."""
         if sched is None:
             sched = self.schedule(agg_param, nonces.device)
+        split = self.vidpf.constrain_state
+        if split is not None and split.splits(nonces.shape[0]):
+            return split.prep(self, agg_id, verify_key, ctx, agg_param,
+                              nonces, cws, keys, proof_shares, seeds,
+                              peer_jr_parts, sched)
         (w_all, proof_all, out_w, ok) = self.vidpf.eval_full(
             agg_id, cws, keys, sched, ctx, nonces)
+        return self.prep_tree(agg_id, verify_key, ctx, agg_param, sched,
+                              w_all, proof_all, out_w, ok, nonces,
+                              proof_shares, seeds, peer_jr_parts)
+
+    def prep_tree(self, agg_id: int, verify_key: bytes, ctx: bytes,
+                  agg_param, sched: ScheduleInputs, w_all: torch.Tensor,
+                  proof_all: torch.Tensor, out_w: torch.Tensor,
+                  ok: torch.Tensor, nonces: torch.Tensor,
+                  proof_shares: Optional[torch.Tensor],
+                  seeds: Optional[torch.Tensor],
+                  peer_jr_parts: Optional[torch.Tensor]) -> BatchedPrep:
+        """`prep` past the walk, over an evaluated tree (`eval_full`'s
+        outputs: w_all, proof_all over the round's flat node axis, out_w,
+        ok) and the same reports' inputs."""
+        (level, _prefixes, do_weight_check) = agg_param
         (eval_proof,) = self.eval_proofs(
             (agg_id,), verify_key, ctx, (w_all[:, None],),
             (proof_all[:, None],), sched.onehot_idx, sched.payload_parent,

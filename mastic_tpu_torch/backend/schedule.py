@@ -13,9 +13,15 @@ The port keeps a round's tree in one flat node axis, depth after depth
 (`LevelSchedule.offset`), and `schedule_inputs` uploads what the round
 needs on the device, once per round: the parent gathers, every node
 binder, and kernel K1's index lists into the flat axis.
+
+`node_blocks` cuts a round's tree into the subtrees of contiguous
+blocks of its sorted prefixes, one per rank of a mesh's node axis
+(`parallel/grid.py`): each block is the tree of its own prefixes, so a
+rank walks it from the root with no other rank's nodes.
 """
 
-from typing import NamedTuple, Sequence
+from bisect import bisect_left
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,6 +114,58 @@ class LevelSchedule:
         left = np.concatenate(left) if left else np.zeros(0, np.int64)
         return (np.arange(self.total_nodes, dtype=np.int64), par, left,
                 left + 1)
+
+
+class NodeBlock(NamedTuple):
+    """One node rank's subtree of a round's tree (`node_blocks`).
+
+    sched   the LevelSchedule of the block's prefixes (None for an empty
+            block: fewer prefixes than node ranks)
+    index   (T_j,) int64: each of the block's nodes, in its own flat
+            order, as a node of the round's flat axis
+    owned   (T_j,) bool: the nodes this block answers for; a node that
+            several blocks hold (a shared ancestor's child) is owned by
+            the lowest of them, so the owned nodes of all blocks are
+            every node of the round once
+    """
+    sched: Optional[LevelSchedule]
+    index: np.ndarray
+    owned: np.ndarray
+
+    @property
+    def shared(self) -> int:
+        """The block's nodes that a lower block holds too."""
+        return int((~self.owned).sum())
+
+
+def node_blocks(sched: LevelSchedule, nodes: int) -> list:
+    """`sched`'s tree split over `nodes` node ranks: the sorted prefixes
+    cut into `nodes` contiguous blocks as even as they can be (the first
+    ones a prefix longer), each block the tree of its prefixes.  Each
+    depth's children are sorted, so a block's children at depth d are a
+    contiguous run of the round's, starting at its first prefix's
+    parent; only the shallow ancestors that blocks share are held by
+    more than one."""
+    prefixes = sorted(sched.prefixes)
+    parents = [sorted(set(p[:d] for p in prefixes))
+               for d in range(sched.level + 1)]
+    claimed = np.zeros(sched.total_nodes, bool)
+    blocks = []
+    for part in np.array_split(np.arange(len(prefixes)), nodes):
+        if not len(part):
+            empty = np.zeros(0, np.int64)
+            blocks.append(NodeBlock(None, empty, empty.astype(bool)))
+            continue
+        mine = [prefixes[i] for i in part]
+        sub = LevelSchedule(mine, sched.level, sched.bits)
+        index = np.concatenate([
+            sched.offset[d] + 2 * bisect_left(parents[d], mine[0][:d])
+            + np.arange(sub.num_children[d], dtype=np.int64)
+            for d in range(sched.level + 1)])
+        owned = ~claimed[index]
+        claimed[index] = True
+        blocks.append(NodeBlock(sub, index, owned))
+    return blocks
 
 
 class ScheduleInputs(NamedTuple):

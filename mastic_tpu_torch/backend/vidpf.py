@@ -76,6 +76,10 @@ class BatchedVidpf:
         # Convert reads a 16-byte next seed then VALUE_LEN elements.
         payload_bytes = value_len * self.spec.encoded_size
         self.convert_blocks = 1 + (payload_bytes + 15) // 16
+        # The node-axis hook: a `parallel.grid.GridSplit` splits the
+        # from-root preps over a mesh's node ranks (set by
+        # `parallel.install_grid_sharding`; None: unsplit).
+        self.constrain_state = None
 
     # -- per-report key schedules ----------------------------------
 

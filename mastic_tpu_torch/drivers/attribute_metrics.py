@@ -293,7 +293,7 @@ def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
         mesh)
     sched = bm.schedule(agg_param, device)
     shards = mesh.shape["reports"] if mesh is not None else 1
-    rank = mesh.rank if mesh is not None else 0
+    rank = mesh.report_rank if mesh is not None else 0
 
     def tile(i: int) -> tuple:
         """This rank's rows [a, b) of chunk i padded to the shard

@@ -539,7 +539,7 @@ class ChunkedIncrementalRunner:
         self.max_width = self.width
         self.mesh = mesh
         per = self._device_rows() // self._report_shards()
-        rank = mesh.rank if mesh is not None else 0
+        rank = mesh.report_rank if mesh is not None else 0
         self.tile = (rank * per, (rank + 1) * per)
         self._check_envelope(self.width)
         self.engine = IncrementalMastic(bm, self.width)

@@ -10,8 +10,13 @@ the tool's).
 `run_all` runs several cases in one group, so that one spawn serves a
 whole suite; `force` clears aggregator 0's `ok` for one report at one
 level (`IncrementalMastic.agg_rounds` wrapped, matched by the report's
-round keys, so it finds the lane on whichever rank holds it), to drive
-the XOF-rejection splice as the CPU tests and the card's smoke do.
+round keys, so it finds the lane on whichever rank holds it), or in a
+from-root walk on one node rank, to drive the XOF-rejection splice as
+the CPU tests and the card's smoke do.
+
+A case with `nodes_axis` k > 1 runs on a second mesh over the same
+ranks, `make_mesh(nodes_axis=k)`, with `install_grid_sharding` on its
+from-root rounds.
 """
 
 import dataclasses
@@ -24,9 +29,12 @@ import torch
 from ..backend import mastic as backend_mastic
 from ..backend.incremental import IncrementalMastic
 from ..drivers.attribute_metrics import AttributeMetricsRun
-from ..drivers.heavy_hitters import HeavyHittersRun
+from ..drivers.heavy_hitters import (HeavyHittersRun, run_round_collect,
+                                     run_round_stage)
 from ..ops import kernels
-from .mesh import gather_rows, sharded_gen, sharded_prep, sharded_round
+from .grid import install_grid_sharding
+from .mesh import (gather_rows, make_mesh, sharded_gen, sharded_prep,
+                   sharded_round)
 
 
 def mastic_of(spec: tuple):
@@ -41,15 +49,60 @@ def counters(m) -> dict:
             if f.name != "extra"}
 
 
+def node_mesh(mesh, case: dict):
+    """The case's mesh: `mesh` itself, or with `nodes_axis` k > 1 a
+    (world / k reports x k nodes) mesh over the same ranks."""
+    nodes = case.get("nodes_axis", 1)
+    if nodes == 1:
+        return mesh
+    return make_mesh(mesh.world, nodes_axis=nodes, device=mesh.device)
+
+
+def split_engine(mesh, case: dict):
+    """The case's BatchedMastic on `mesh`, its from-root rounds split
+    over the node axis when the mesh has one."""
+    bm = backend_mastic.BatchedMastic(mastic_of(case["mastic"]))
+    install_grid_sharding(bm, mesh)
+    return bm
+
+
+def forced_here(mesh, case: dict) -> Optional[tuple]:
+    """The case's `force`, on the node rank `force_node` only when the
+    case names one."""
+    node = case.get("force_node")
+    if node is not None and node != mesh.node_rank:
+        return None
+    return case.get("force")
+
+
 @contextmanager
 def force(bm, ctx: bytes, forced: Optional[tuple]):
     """With forced = (nonce, level): aggregator 0's `ok` is False at
     `level` on every lane whose round keys are those of `nonce` (the
-    report, and any dead lane that copies it)."""
+    report, and any dead lane that copies it).  With level None: the
+    from-root walk's `ok` (`bm.vidpf.eval_full`) is False on those
+    lanes, for both aggregators."""
     if forced is None:
         yield
         return
     (nonce, level) = forced
+    if level is None:
+        vidpf = bm.vidpf
+        real_eval = vidpf.eval_full
+
+        def eval_full(agg_id, cws, keys, sched, ctx, nonces):
+            (w, proof, out_w, ok) = real_eval(agg_id, cws, keys, sched, ctx,
+                                              nonces)
+            hit = (nonces == torch.tensor(list(nonce), dtype=torch.uint8,
+                                          device=nonces.device)).all(dim=1)
+            return (w, proof, out_w, ok & ~hit)
+
+        vidpf.eval_full = eval_full
+        try:
+            yield
+        finally:
+            del vidpf.eval_full
+        return
     (target, _conv) = bm.vidpf.roundkeys(
         ctx, torch.tensor(list(nonce), dtype=torch.uint8)[None])
     real = IncrementalMastic.agg_rounds
@@ -72,14 +125,17 @@ def force(bm, ctx: bytes, forced: Optional[tuple]):
 
 
 def heavy_hitters(mesh, case: dict) -> dict:
-    """A `HeavyHittersRun` over `case["reports"]` on the mesh: resident,
-    or chunked with `chunk_size`; resumed from `resume` (checkpoint
-    bytes) if given; checkpointed before level `split` if given; with
-    the lane `force` names forced.  Returns every level's (prefixes,
+    """A `HeavyHittersRun` over `case["reports"]` on the case's mesh
+    (`node_mesh`: the node ranks repeat their report block's work; the
+    incremental engine is not split): resident, or chunked with
+    `chunk_size`; resumed from `resume` (checkpoint bytes) if given;
+    checkpointed before level `split` if given; with the lane `force`
+    names forced.  Returns every level's (prefixes,
     aggregates), the heavy hitters, each level's counters, `mesh` and
     `pipeline` blocks and whole `extra`, the checkpoint and the final
     state (`to_bytes` after the last level)."""
     m = mastic_of(case["mastic"])
+    mesh = node_mesh(mesh, case)
     (ctx, vk, thresholds) = (case["ctx"], case["verify_key"],
                              case["thresholds"])
     kw = dict(device=mesh.device, reports=case["reports"], mesh=mesh)
@@ -105,15 +161,19 @@ def heavy_hitters(mesh, case: dict) -> dict:
 
 def attribute(mesh, case: dict) -> dict:
     """`AttributeMetricsRun` (what `aggregate_by_attribute` steps) over
-    `case["reports"]` on the mesh, chunked with `chunk_size` if given:
-    the result, the counters, the final accept and ok masks, the `mesh`
-    block and the whole `extra`."""
+    `case["reports"]` on the case's mesh (`node_mesh`, its round split
+    over the node axis), chunked with `chunk_size` if given, with the
+    lane `force` names forced: the result, the counters, the final
+    accept and ok masks, the `mesh` block and the whole `extra`."""
     m = mastic_of(case["mastic"])
+    mesh = node_mesh(mesh, case)
     run = AttributeMetricsRun(m, case["ctx"], case["attributes"],
                               case["verify_key"], device=mesh.device,
                               reports=case["reports"],
                               chunk_size=case.get("chunk_size"), mesh=mesh)
-    handle = run.step_begin()
+    install_grid_sharding(run.bm, mesh)
+    with force(run.bm, case["ctx"], forced_here(mesh, case)):
+        handle = run.step_begin()
     run.step_finish(handle)
     rec = run.metrics[0]
     return {"result": run.result(), "counters": counters(rec),
@@ -136,9 +196,11 @@ def gen(mesh, case: dict) -> dict:
 
 def prep(mesh, case: dict) -> list:
     """`sharded_prep` of the leader (aggregator 0) over the case's
-    scalar reports: its out shares, eval proofs and ok mask, every
-    rank's rows gathered, as numpy."""
-    bm = backend_mastic.BatchedMastic(mastic_of(case["mastic"]))
+    scalar reports on the case's mesh (`node_mesh`, split over the node
+    axis): its out shares, eval proofs and ok mask, every report rank's
+    rows gathered, as numpy."""
+    mesh = node_mesh(mesh, case)
+    bm = split_engine(mesh, case)
     batch = bm.marshal_reports(case["reports"], mesh.device)
     out = sharded_prep(bm, mesh, 0, case["verify_key"], case["ctx"],
                        case["agg_param"])(
@@ -149,13 +211,34 @@ def prep(mesh, case: dict) -> list:
 
 
 def round_from_root(mesh, case: dict) -> dict:
-    """`sharded_round` over the case's scalar reports: (agg_share0,
-    agg_share1, accept, ok) as numpy, the same on every rank."""
-    bm = backend_mastic.BatchedMastic(mastic_of(case["mastic"]))
+    """`sharded_round` over the case's scalar reports on the case's mesh
+    (`node_mesh`, split over the node axis): (agg_share0, agg_share1,
+    accept, ok) as numpy, the same on every rank."""
+    mesh = node_mesh(mesh, case)
+    bm = split_engine(mesh, case)
     batch = bm.marshal_reports(case["reports"], mesh.device)
     out = sharded_round(bm, mesh, case["verify_key"], case["ctx"],
                         case["agg_param"])(batch)
     return [t.numpy() for t in out]
+
+
+def run_round(mesh, case: dict) -> dict:
+    """`heavy_hitters.run_round` (its stage and collect) over the case's
+    scalar reports, its round split over the case's mesh's node axis
+    (every report rank runs the whole batch), with the lane `force`
+    names forced: the result, the counters and the round's accept and ok
+    masks (ok as the device returned it, before the splice)."""
+    mesh = node_mesh(mesh, case)
+    bm = split_engine(mesh, case)
+    batch = bm.marshal_reports(case["reports"], mesh.device)
+    with force(bm, case["ctx"], forced_here(mesh, case)):
+        handle = run_round_stage(bm, case["verify_key"], case["ctx"],
+                                 case["agg_param"], batch)
+    records: list = []
+    result = run_round_collect(bm, case["agg_param"], handle,
+                               metrics_out=records, reports=case["reports"])
+    return {"result": result, "counters": counters(records[0]),
+            "accept": handle["accept"], "ok": handle["out"][3].cpu().numpy()}
 
 
 def northstar(mesh, args) -> dict:

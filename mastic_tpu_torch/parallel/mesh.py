@@ -6,10 +6,22 @@ GSPMD turns the masked sum over the report-sharded axis into a psum.
 Here each rank is one process with one device, and every rank runs the
 same program on its own rows.  Every rank is handed the same arguments
 as the JAX call (the global reports, batch or store) and keeps only its
-rows on its device: with n ranks a tile of R rows splits into the
-contiguous blocks [rank R/n, (rank+1) R/n), in rank order.  The only
-cross-rank traffic is the round's aggregate shares, its report-axis
-verdict masks, and a checkpoint's carries, gathered when one is taken.
+rows on its device: with n report ranks a tile of R rows splits into
+the contiguous blocks [c R/n, (c+1) R/n), in report-rank order.  The
+only cross-rank traffic is the round's aggregate shares, its
+report-axis verdict masks, and a checkpoint's carries, gathered when
+one is taken.
+
+The mesh is ("reports", "nodes"), laid out as the JAX package lays its
+devices out (`devices.reshape(world // nodes, nodes)`): rank r sits at
+report coordinate r // nodes and node coordinate r % nodes.  Everything
+on the report axis (`rows`, `bounds`, `place_reports`, `gather_rows`,
+`sum_shares`, `gather_round`) works on the report coordinate and over
+the report group (the ranks of one node coordinate), so that, as with
+JAX's P("reports") replicated over "nodes", the node ranks of one
+report block repeat its work.  The node axis is used only where
+`install_grid_sharding` (`parallel/grid.py`) splits the from-root
+rounds' trees over it.
 
 Field sums cross ranks by gather, then `ops.field.field_sum` in rank
 order (`sum_shares`): the limbs are int32 values below 2^16, so an
@@ -28,8 +40,8 @@ The choice is made by the backend's name, never by catching an error.
 
 A decision no rank can take from the round's data (a clock, a failure,
 what an HTTP door admitted) is rank 0's: `ReportMesh.broadcast` sends
-its value, and `gather_objects` collects every rank's (the collector
-service's scheduler takes both, `drivers/service.py`).
+its value to every rank, and `gather_objects` collects every rank's
+(the collector service's scheduler takes both, `drivers/service.py`).
 
 `place_reports` keeps this rank's rows of a batch, a carry or the round
 keys; `gather_rows` puts all ranks' rows back together; `gather_round`
@@ -37,9 +49,8 @@ is a round's whole exchange.  `sharded_gen`, `sharded_prep` and
 `sharded_round` are the JAX package's `sharded_*_fn` over these, and
 `shard_incremental_runner` shards a resident runner.
 
-No counterpart: `install_grid_sharding` (the node axis; `make_mesh`
-refuses `nodes_axis` > 1) and `place_replicated`'s role of pinning the
-input placements of AOT-compiled programs (the port compiles none).
+No counterpart: `place_replicated`'s role of pinning the input
+placements of AOT-compiled programs (the port compiles none).
 `shard_batch` is `place_reports` of one tensor.
 """
 
@@ -54,27 +65,35 @@ from ..ops.field import field_sum
 
 
 class ReportMesh:
-    """The ranks of an initialised process group, laid along the report
-    axis.  `shape` reads as the JAX mesh's: {"reports": world, "nodes":
-    1}.  `device` is this rank's compute device; `backend` the group's
-    ("gloo" or "nccl")."""
+    """The ranks of an initialised process group on a ("reports",
+    "nodes") mesh.  `shape` reads as the JAX mesh's: {"reports": world //
+    nodes, "nodes": nodes}.  `rank` is the global rank, `report_rank` and
+    `node_rank` its coordinates; `report_group` holds the ranks of this
+    node coordinate and `node_group` those of this report coordinate
+    (None: the whole group, or no other rank).  `device` is this rank's
+    compute device; `backend` the group's ("gloo" or "nccl")."""
 
     def __init__(self, world: int, rank: int, backend: str,
-                 device: torch.device):
-        self.shape = {"reports": world, "nodes": 1}
+                 device: torch.device, nodes: int = 1,
+                 groups: tuple = (None, None)):
+        self.shape = {"reports": world // nodes, "nodes": nodes}
+        self.world = world
         self.rank = rank
+        self.report_rank = rank // nodes
+        self.node_rank = rank % nodes
+        (self.report_group, self.node_group) = groups
         self.backend = backend
         self.device = device
 
     def __repr__(self) -> str:
         return (f"ReportMesh(reports={self.shape['reports']}, "
-                f"rank={self.rank}, backend={self.backend!r}, "
-                f"device={self.device})")
+                f"nodes={self.shape['nodes']}, rank={self.rank}, "
+                f"backend={self.backend!r}, device={self.device})")
 
     def rows(self, total: int) -> int:
-        """Rows of a `total`-row tile on each rank; `total` must divide
-        evenly (a chunked round pads its chunks to the shard multiple
-        first)."""
+        """Rows of a `total`-row tile on each report rank; `total` must
+        divide evenly (a chunked round pads its chunks to the shard
+        multiple first)."""
         n = self.shape["reports"]
         if total % n != 0:
             raise ValueError(
@@ -85,7 +104,7 @@ class ReportMesh:
     def bounds(self, total: int) -> tuple:
         """This rank's rows [lo, hi) of a `total`-row tile."""
         rows = self.rows(total)
-        return (self.rank * rows, (self.rank + 1) * rows)
+        return (self.report_rank * rows, (self.report_rank + 1) * rows)
 
     def wire(self, t: torch.Tensor) -> torch.Tensor:
         """`t` where the backend's collectives take it: on this rank's
@@ -94,13 +113,46 @@ class ReportMesh:
             return t.to(self.device)
         return t.cpu()
 
-    def all_gather(self, t: torch.Tensor) -> list:
-        """Every rank's `t` (equal shapes), in rank order, in host
-        memory."""
+    def _gather(self, t: torch.Tensor, axis: str) -> list:
+        n = self.shape[axis]
+        if n == 1:
+            return [t.cpu()]
         t = self.wire(t.contiguous())
-        out = [torch.empty_like(t) for _ in range(self.shape["reports"])]
-        dist.all_gather(out, t)
+        out = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(out, t, group=(self.report_group if axis == "reports"
+                                       else self.node_group))
         return [x.cpu() for x in out]
+
+    def all_gather(self, t: torch.Tensor) -> list:
+        """Every report rank's `t` (equal shapes), in report-rank order,
+        in host memory."""
+        return self._gather(t, "reports")
+
+    def node_all_gather(self, t: torch.Tensor) -> list:
+        """Every node rank's `t` (equal shapes) of this report
+        coordinate, in node-rank order, in host memory."""
+        return self._gather(t, "nodes")
+
+    def node_all_to_all(self, sends: list, sizes: list) -> list:
+        """Bytes between the node ranks of this report coordinate:
+        sends[k] (uint8, 1-D) goes to node rank k and sizes[k] bytes come
+        from it; the slot of this rank is skipped (its part stays where
+        it is).  Returns the received buffers in node-rank order (None
+        for this rank's slot), on this rank's card for NCCL, in host
+        memory for gloo."""
+        me = self.node_rank
+        inp = torch.cat([self.wire(t) for (k, t) in enumerate(sends)
+                         if k != me])
+        splits_in = [0 if k == me else int(t.numel())
+                     for (k, t) in enumerate(sends)]
+        splits_out = [0 if k == me else n for (k, n) in enumerate(sizes)]
+        out = torch.empty(sum(splits_out), dtype=torch.uint8,
+                          device=inp.device)
+        dist.all_to_all_single(out, inp, splits_out, splits_in,
+                               group=self.node_group)
+        parts = list(torch.split(out, splits_out))
+        parts[me] = None
+        return parts
 
     def broadcast(self, obj):
         """Rank 0's `obj` (any picklable value; the others pass anything)
@@ -112,23 +164,24 @@ class ReportMesh:
     def gather_objects(self, obj) -> list:
         """Every rank's `obj` (picklable), in rank order, on every
         rank."""
-        out = [None] * self.shape["reports"]
+        out = [None] * self.world
         dist.all_gather_object(out, obj)
         return out
 
 
 def make_mesh(n_devices: Optional[int] = None, nodes_axis: int = 1,
               device=None) -> ReportMesh:
-    """The report mesh over the initialised default process group
-    (`parallel.launch.spawn` sets one up): every rank on the report
-    axis.  `n_devices`, if given, must be the world size; `device` is
-    this rank's compute device, by default its card under either
-    backend (raising with no card): the CPU only when asked for.  The
-    node axis is not sharded: `nodes_axis` > 1 raises."""
-    if nodes_axis != 1:
-        raise ValueError(
-            f"nodes_axis={nodes_axis}: the port shards the report axis "
-            f"only (the node axis is ROADMAP item 7b)")
+    """The ("reports", "nodes") mesh over the initialised default
+    process group (`parallel.launch.spawn` sets one up), `nodes_axis`
+    ranks on the node axis and the rest on reports, laid out as the JAX
+    package lays devices out.  `n_devices`, if given, must be the world
+    size, and `nodes_axis` must divide it; `device` is this rank's
+    compute device, by default its card under either backend (raising
+    with no card): the CPU only when asked for.  Every rank must make
+    the same call: the report and node groups are new process groups."""
+    if n_devices is not None and (nodes_axis < 1
+                                  or n_devices % nodes_axis != 0):
+        raise ValueError("nodes_axis must divide n_devices")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised "
                            "torch.distributed process group")
@@ -136,13 +189,27 @@ def make_mesh(n_devices: Optional[int] = None, nodes_axis: int = 1,
     if n_devices is not None and n_devices != world:
         raise ValueError(f"n_devices={n_devices}, but the process group "
                          f"has {world} ranks")
+    if nodes_axis < 1 or world % nodes_axis != 0:
+        raise ValueError("nodes_axis must divide n_devices")
     backend = dist.get_backend()
     device = resolve_device("cuda" if device is None else device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("the NCCL backend needs a CUDA device per rank")
-    return ReportMesh(world, dist.get_rank(), backend, device)
+    rank = dist.get_rank()
+    groups = (None, None)
+    if nodes_axis > 1:
+        # Every rank creates every group, in the same order.
+        reports = world // nodes_axis
+        by_node = [dist.new_group([c * nodes_axis + j
+                                   for c in range(reports)])
+                   for j in range(nodes_axis)]
+        by_report = [dist.new_group([c * nodes_axis + j
+                                     for j in range(nodes_axis)])
+                     for c in range(reports)]
+        groups = (by_node[rank % nodes_axis], by_report[rank // nodes_axis])
+    return ReportMesh(world, rank, backend, device, nodes_axis, groups)
 
 
 # -- placing and gathering rows -------------------------------------------
@@ -186,9 +253,9 @@ def place_replicated(mesh: Optional[ReportMesh], tree):
 
 def gather_rows(mesh: Optional[ReportMesh], t: torch.Tensor,
                 total: Optional[int] = None) -> torch.Tensor:
-    """All ranks' rows of `t` (leading axis = reports, equal on every
-    rank), in rank order, in host memory; rows past `total` (padding)
-    dropped.  No mesh: `t` itself, in host memory."""
+    """All report ranks' rows of `t` (leading axis = reports, equal on
+    every rank), in report-rank order, in host memory; rows past `total`
+    (padding) dropped.  No mesh: `t` itself, in host memory."""
     if mesh is None:
         out = t.cpu()
     else:
@@ -198,21 +265,22 @@ def gather_rows(mesh: Optional[ReportMesh], t: torch.Tensor,
 
 def sum_shares(mesh: Optional[ReportMesh], spec,
                shares: torch.Tensor) -> torch.Tensor:
-    """Aggregate shares (..., L, n) int32 limbs summed over the ranks,
-    in host memory: every rank's shares gathered, then `field_sum` in
-    rank order (exact mod p, and the same on every rank)."""
+    """Aggregate shares (..., L, n) int32 limbs summed over the report
+    ranks, in host memory: every report rank's shares gathered, then
+    `field_sum` in report-rank order (exact mod p, and the same on every
+    rank)."""
     if mesh is None:
         return shares.cpu()
     return field_sum(spec, torch.stack(mesh.all_gather(shares)), axis=0)
 
 
 def agree_max(mesh: Optional[ReportMesh], values: list) -> list:
-    """The element-wise largest of every rank's integers."""
+    """The element-wise largest of every rank's integers (over both
+    axes, so that every rank takes the same decision)."""
     if mesh is None:
         return list(values)
-    got = torch.stack(mesh.all_gather(torch.tensor(values,
-                                                   dtype=torch.int64)))
-    return [int(v) for v in got.max(dim=0).values]
+    got = mesh.gather_objects([int(v) for v in values])
+    return [max(column) for column in zip(*got)]
 
 
 def agree_min(mesh: Optional[ReportMesh], values: list) -> list:
@@ -224,12 +292,12 @@ class Gathered(NamedTuple):
     """One round's (or chunk's) exchange, the same on every rank.
 
     shares       (A, L, n) int32 limbs: the A aggregators' shares summed
-                 over the ranks, in host memory
-    masks        (rows, k) bool: every rank's verdict masks in rank
-                 order, padding dropped, in host memory
-    skew_ms      the spread of the ranks' arrival at the exchange
-                 (wall clock; 0.0 without a mesh)
-    share_bytes  bytes of the gathered shares (every rank's)
+                 over the report ranks, in host memory
+    masks        (rows, k) bool: every report rank's verdict masks in
+                 report-rank order, padding dropped, in host memory
+    skew_ms      the spread of the report ranks' arrival at the
+                 exchange (wall clock; 0.0 without a mesh)
+    share_bytes  bytes of the gathered shares (every report rank's)
     """
     shares: torch.Tensor
     masks: torch.Tensor
@@ -262,13 +330,14 @@ def gather_round(mesh: Optional[ReportMesh], spec, shares: torch.Tensor,
 def mesh_block(mesh: ReportMesh, device_rows: int, share_bytes: int,
                skews: list) -> dict:
     """A round's `RoundMetrics.extra["mesh"]`, with the JAX package's
-    keys: `report_shards` (ranks), `device_rows_per_chunk` (rows of one
-    chunk, or of the resident batch, padded to the shard multiple),
-    `rows_per_shard` (of those, each rank's), `psum_bytes_per_round`
-    (bytes of the aggregate shares every rank received in the round's
-    gathers: the port's counterpart of the psum), and
-    `shard_wait_skew_ms_p50` / `_max` (over the round's exchanges, the
-    spread of the ranks' arrival, on the wall clock)."""
+    keys: `report_shards` (the report axis's ranks),
+    `device_rows_per_chunk` (rows of one chunk, or of the resident
+    batch, padded to the shard multiple), `rows_per_shard` (of those,
+    each report rank's), `psum_bytes_per_round` (bytes of the aggregate
+    shares every rank received in the round's gathers: the port's
+    counterpart of the psum), and `shard_wait_skew_ms_p50` / `_max`
+    (over the round's exchanges, the spread of the report ranks'
+    arrival, on the wall clock)."""
     skews = sorted(skews)
     n = mesh.shape["reports"]
     return {"report_shards": n, "device_rows_per_chunk": device_rows,
@@ -296,7 +365,9 @@ def sharded_prep(bm, mesh: ReportMesh, agg_id: int, verify_key: bytes,
                  ctx: bytes, agg_param):
     """One aggregator's from-root prep over the mesh: fn(nonces, cws,
     keys[, proof_shares | seeds][, peer_parts]), each global, ->
-    BatchedPrep of this rank's rows."""
+    BatchedPrep of this rank's rows (with `install_grid_sharding`,
+    split over the node ranks of its report block, with the same
+    rows)."""
     def fn(nonces, cws, keys, proof_shares=None, seeds=None,
            peer_parts=None):
         (nonces, cws, keys, proof_shares, seeds, peer_parts) = \
@@ -313,10 +384,12 @@ def sharded_round(bm, mesh: ReportMesh, verify_key: bytes, ctx: bytes,
                   agg_param):
     """A whole two-aggregator round from the root over the mesh: both
     preps, every check (the FLP weight check on weight-check rounds),
-    the masked aggregates on each rank's rows, then the exchange.
-    fn(batch), the global batch, -> (agg_share0, agg_share1, accept,
-    ok): the aggregates summed over the ranks, the masks over every
-    report, all in host memory and the same on every rank."""
+    the masked aggregates on each rank's rows (with
+    `install_grid_sharding`, the preps split over the node ranks of its
+    report block), then the exchange.  fn(batch), the global batch, ->
+    (agg_share0, agg_share1, accept, ok): the aggregates summed over the
+    report ranks, the masks over every report, all in host memory and
+    the same on every rank."""
     def fn(batch):
         (agg0, agg1, accept, ok, _checks) = bm.round_device_checks(
             verify_key, ctx, agg_param, place_reports(mesh, batch))

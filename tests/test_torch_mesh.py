@@ -29,9 +29,9 @@ report 6 tampered.
 * A lane forced to the XOF fallback on rank 1 gives the unsharded run's
   result.
 * The envelope's per-shard fields have JAX's keys and row arithmetic.
-* The multichip tool passes; `nodes_axis` > 1, a resident batch that
-  does not divide over the ranks, and a mesh or tool left to its
-  default device without a card raise.
+* The multichip tool passes; a `nodes_axis` that does not divide the
+  world, a resident batch that does not divide over the ranks, and a
+  mesh or tool left to its default device without a card raise.
 * A spawned rank holds nothing of jax or mastic_tpu.
 """
 
@@ -407,14 +407,15 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
 
 
 def test_refusals(cases):
-    """nodes_axis > 1 raises, and so does a resident batch that does not
-    divide over the ranks, with the JAX package's message
-    (`mastic_tpu/parallel/mesh.py::shard_incremental_runner`), checked
+    """A nodes_axis that does not divide the world raises, and so does a
+    resident batch that does not divide over the ranks, each with the
+    JAX package's message (`mastic_tpu/parallel/mesh.py::make_mesh` and
+    `::shard_incremental_runner`), checked
     before any collective, so that a mesh object suffices here; a mesh
     on the from-root engine raises as in the JAX package, and a chunked
     runner takes its mesh at construction only."""
-    with pytest.raises(ValueError, match="nodes_axis"):
-        make_mesh(2, nodes_axis=2)
+    with pytest.raises(ValueError, match="nodes_axis must divide n_devices"):
+        make_mesh(4, nodes_axis=3)
     mesh = ReportMesh(2, 0, "gloo", torch.device("cpu"))
     reports = cases["resident"]["reports"][:9]
     msg = (r"report count 9 must be divisible by the mesh's reports axis "

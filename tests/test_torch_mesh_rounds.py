@@ -6,11 +6,12 @@ the JAX package's compiles between two test workers.
 
 The port's ranks run over gloo on the CPU, one process each
 (`parallel.launch.spawn`, the rank programs of `parallel/jobs.py`): one
-group of 2 ranks and one of 3.  The JAX package's mesh functions run on
-the 8 virtual CPU devices of tests/conftest.py, each program compiled
-once in this module; where a case is held against the port's unsharded
-function instead, that function is held against JAX's by another test
-file (named below), which keeps this module to three JAX compiles.  The
+group of 2 ranks, one of 3 and one of 4.  The JAX package's mesh
+functions run on the 8 virtual CPU devices of tests/conftest.py, each
+program compiled once in this module; where a case is held against the
+port's unsharded function instead, that function is held against JAX's
+by another test file (named below), which keeps this module to three
+JAX compiles (a fourth, JAX's node axis, under `-m slow`).  The
 reports come from both packages' scalar layers with the same nonces and
 randomness.
 
@@ -27,6 +28,21 @@ randomness.
   `make_mesh(2)`: MasticSum(2, 3) over 9 reports (one chunk, padded to
   10 rows) and 3 attributes, one tampered report attributed alike; its
   observability blocks pass JAX's `validate_extra`.
+
+The node axis (`install_grid_sharding`), on the 2-rank group as reports
+1 x nodes 2 and on the 4-rank group as reports 2 x nodes 2, is held to
+the same results: the attribute round and the weight-check round to
+JAX's (the attribute round's metric blocks through `validate_extra`),
+and test_parallel.py's level-1 round, MasticCount(3) at level 2 over
+all 8 prefixes, a round of one prefix (an empty node block), a round
+with a tampered report, and `sharded_prep` to the port's unsplit
+functions; a lane whose walk `ok` is cleared on node rank 1 only is
+False on every rank, and the splice gives the unsplit result.  On the
+4-rank group the incremental runners (resident and chunked), which the
+split leaves alone, equal the port's unsharded run.  `-m slow` holds
+the port at reports 4 x nodes 2 over 8 ranks to JAX's own node axis
+(`install_grid_sharding` and `sharded_round_fn` on `make_mesh(8,
+nodes_axis=2)`).
 """
 
 import dataclasses
@@ -42,9 +58,12 @@ import mastic_tpu_torch.backend.mastic as tbm
 from mastic_tpu.backend.mastic_jax import BatchedMastic as JBatchedMastic
 from mastic_tpu.drivers import attribute_metrics as jam
 from mastic_tpu.obs.schema import validate_extra
-from mastic_tpu.parallel import (make_mesh as jmake_mesh, shard_batch,
+from mastic_tpu.parallel import (install_grid_sharding as jinstall,
+                                 make_mesh as jmake_mesh, shard_batch,
                                  sharded_gen_fn, sharded_round_fn)
 from mastic_tpu_torch import hash_attribute
+from mastic_tpu_torch.backend.schedule import LevelSchedule, node_blocks
+from mastic_tpu_torch.drivers.heavy_hitters import HeavyHittersRun, run_round
 from mastic_tpu_torch.parallel import jobs, spawn
 
 CTX = b"mesh test"
@@ -117,9 +136,10 @@ def _jax_gen(inputs: dict, mesh) -> list:
     return [np.asarray(x) for x in list(cws) + [keys, ok]]
 
 
-def _round_case(values: list, agg_param, seed: int) -> tuple:
+def _round_case(values: list, agg_param, seed: int, tampered=None) -> tuple:
     meas = _count_meas(values)
-    (reports, jreports) = _reports(("MasticCount", (BITS,)), meas, seed)
+    (reports, jreports) = _reports(("MasticCount", (BITS,)), meas, seed,
+                                   tampered)
     return ({"mastic": ("MasticCount", (BITS,)), "ctx": CTX,
              "verify_key": VK, "agg_param": agg_param, "reports": reports},
             jreports)
@@ -134,6 +154,24 @@ ROUNDS = {
                 False), 0),
     "weight_check": ((0, ((False,), (True,)), True), 7),
 }
+# The node axis's rounds beside those two: MasticCount(3) at level 2
+# over all 8 prefixes (uneven blocks at 3 ranks, shared ancestors), one
+# prefix (node rank 1's block empty), and level 2 over 5 prefixes with
+# report 3's leader key tampered (rejected at the eval proof).
+ALL3 = tuple(tbm.MasticCount(BITS).scalar().vidpf.test_index_from_int(v, 3)
+             for v in range(8))
+SPLIT_ROUNDS = {
+    "level2_all": ((2, ALL3, False), 11, None),
+    "one_prefix": ((2, (ALL3[5],), False), 12, None),
+    "tampered": ((2, ALL3[1:6], False), 13, 3),
+}
+# The mesh shapes of the node axis: (ranks, nodes_axis).
+SHAPES = {"1x2": (2, 2), "2x2": (4, 2)}
+# The lane whose walk `ok` node rank 1 clears, in the level-2 round.
+FORCED_LANE = 2
+# Reports of the level-2 round given to a mesh whose report blocks then
+# hold fewer reports than node ranks (1 a block at 1 x 2 and 2 x 2).
+FEW = 2
 
 
 def _attr_case() -> tuple:
@@ -152,6 +190,9 @@ def cases() -> dict:
     (attr, jattr) = _attr_case()
     rounds = {name: _round_case(ROUND_VALUES, agg_param, seed)
               for (name, (agg_param, seed)) in ROUNDS.items()}
+    rounds.update({name: _round_case(ROUND_VALUES, agg_param, seed, tampered)
+                   for (name, (agg_param, seed, tampered))
+                   in SPLIT_ROUNDS.items()})
     return {"attr": attr, "jattr": jattr, "rounds": rounds,
             "gen2": _gen_inputs(8, 5), "gen3": _gen_inputs(9, 6)}
 
@@ -177,24 +218,74 @@ def jax_side(cases) -> dict:
     return out
 
 
+def _split_cases(cases: dict, nodes: int) -> list:
+    """The node axis's cases on a mesh of `nodes` node ranks: [(key, job
+    name, case)]."""
+    split = {"nodes_axis": nodes}
+    out = [(("round", name), "round_from_root", dict(case, **split))
+           for (name, (case, _j)) in cases["rounds"].items()]
+    out.append(("attr", "attribute", dict(cases["attr"], **split)))
+    out.append(("prep", "prep",
+                dict(cases["rounds"]["weight_check"][0], **split)))
+    level2 = cases["rounds"]["level2_all"][0]
+    nonce = level2["reports"][FORCED_LANE][0]
+    out.append(("forced", "run_round", dict(level2, force=(nonce, None),
+                                            force_node=1, **split)))
+    out.append(("few", "round_from_root",
+                dict(level2, reports=level2["reports"][:FEW], **split)))
+    return out
+
+
+def _hh_cases() -> list:
+    """The incremental runners on the 2 x 2 mesh: test_torch_mesh.py's
+    MasticCount(3) collection, resident and chunked (chunk_size 3: a
+    chunk padded to the report axis), with the node ranks repeating
+    their report block's work."""
+    meas = _count_meas([0b101, 0b100, 0b101, 0b001, 0b101, 0b100, 0b110,
+                        0b000])
+    (reports, _j) = _reports(("MasticCount", (BITS,)), meas, 31)
+    base = {"mastic": ("MasticCount", (BITS,)), "ctx": CTX,
+            "verify_key": VK, "thresholds": {"default": 2},
+            "reports": reports, "nodes_axis": 2}
+    return [(("hh", "resident"), "heavy_hitters", base),
+            (("hh", "chunked"), "heavy_hitters", dict(base, chunk_size=3))]
+
+
+def _spawn_group(world: int, named: list) -> dict:
+    """Run [(key, job name, case)] on one group of `world` ranks: {key:
+    every rank's result}, and the ranks' launches under "launches"."""
+    got = spawn(jobs.run_all, world, "gloo", "cpu",
+                [(name, case) for (_key, name, case) in named])
+    out = {key: [r[0][i][0] for r in got]
+           for (i, (key, _n, _c)) in enumerate(named)}
+    out["launches"] = [r[1] for r in got]
+    return out
+
+
 @pytest.fixture(scope="module")
 def port(cases) -> dict:
-    """The port's side: one group of 2 ranks and one of 3, each running
-    all its cases."""
-    two = [("gen", dict(mastic=("MasticCount", (2,)), ctx=CTX,
-                        **cases["gen2"]))]
-    two += [("round_from_root", case)
-            for (case, _j) in cases["rounds"].values()]
-    two += [("attribute", cases["attr"]),
-            ("prep", cases["rounds"]["weight_check"][0])]
-    three = [("gen", dict(mastic=("MasticCount", (2,)), ctx=CTX,
-                          **cases["gen3"]))]
-    got2 = spawn(jobs.run_all, 2, "gloo", "cpu", two)
-    got3 = spawn(jobs.run_all, 3, "gloo", "cpu", three)
-    out = {k: [r[0][i][0] for r in got2] for (i, k) in
-           enumerate(["gen"] + list(cases["rounds"]) + ["attr", "prep"])}
-    out["gen3"] = [r[0][0][0] for r in got3]
-    out["launches"] = [r[1] for r in got2 + got3]
+    """The port's side: one group of 2 ranks (the report mesh, then the
+    node axis's reports 1 x nodes 2 cases), one of 3 and one of 4 (the
+    node axis's reports 2 x nodes 2 cases), each running all its
+    cases."""
+    two = [("gen", "gen", dict(mastic=("MasticCount", (2,)), ctx=CTX,
+                               **cases["gen2"]))]
+    two += [(name, "round_from_root", cases["rounds"][name][0])
+            for name in ROUNDS]
+    two += [("attr", "attribute", cases["attr"]),
+            ("prep", "prep", cases["rounds"]["weight_check"][0])]
+    two += [(("1x2",) + (k if isinstance(k, tuple) else (k,)), name, case)
+            for (k, name, case) in _split_cases(cases, 2)]
+    three = [("gen3", "gen", dict(mastic=("MasticCount", (2,)), ctx=CTX,
+                                  **cases["gen3"]))]
+    four = [(("2x2",) + (k if isinstance(k, tuple) else (k,)), name, case)
+            for (k, name, case) in _split_cases(cases, 2) + _hh_cases()]
+    out = _spawn_group(2, two)
+    launches = out.pop("launches")
+    for group in (_spawn_group(3, three), _spawn_group(4, four)):
+        launches += group.pop("launches")
+        out.update(group)
+    out["launches"] = launches
     return out
 
 
@@ -300,3 +391,174 @@ def test_ranks_launch_no_kernel_on_the_cpu(port):
     assert not any(any(launches.values()) for launches in port["launches"])
 
 
+
+
+# -- the node axis -------------------------------------------------------
+
+@pytest.mark.parametrize("nodes", [2, 3, 5])
+def test_node_blocks_partition_the_tree(nodes):
+    """Each block's subtree is a contiguous run of every depth of the
+    round's tree with the same binders, and the owned nodes of all
+    blocks are every node once (5 ranks over 4 prefixes: an empty
+    block)."""
+    prefixes = [ALL3[i] for i in (0, 2, 3, 6)]
+    sched = LevelSchedule(prefixes, 2, BITS)
+    binders = [row for rows in sched.node_binder for row in rows]
+    owned = np.zeros(sched.total_nodes, int)
+    blocks = node_blocks(sched, nodes)
+    assert len(blocks) == nodes
+    for block in blocks:
+        owned[block.index[block.owned]] += 1
+        if block.sched is None:
+            assert block.index.size == 0
+            continue
+        mine = [row for rows in block.sched.node_binder for row in rows]
+        assert [binders[i].tolist() for i in block.index] \
+            == [row.tolist() for row in mine]
+    assert owned.tolist() == [1] * sched.total_nodes
+    assert [len(b.sched.prefixes) if b.sched else 0 for b in blocks] \
+        == [len(p) for p in np.array_split(np.arange(4), nodes)]
+
+
+def _unsplit_round(case: dict) -> list:
+    """The port's unsplit round over the whole batch (held against JAX's
+    by test_torch_from_root.py): (agg0, agg1, accept, ok) as numpy."""
+    bm = tbm.BatchedMastic(tbm.MasticCount(BITS))
+    out = bm.round_device_checks(VK, CTX, case["agg_param"],
+                                 bm.marshal_reports(case["reports"], "cpu"))
+    return [t.numpy() for t in out[:4]]
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("name", sorted(ROUNDS) + sorted(SPLIT_ROUNDS))
+def test_split_round_matches_unsplit(port, cases, shape, name):
+    """`sharded_round` with the node axis split equals the unsplit round
+    bit for bit, on every rank; the tampered report is rejected alike."""
+    got = _same_on_every_rank(port[(shape, "round", name)])
+    want = _unsplit_round(cases["rounds"][name][0])
+    for (a, b) in zip(got, want):
+        assert np.array_equal(a, b)
+    tampered = SPLIT_ROUNDS.get(name, (None, None, None))[2]
+    assert got[2].tolist() == [r != tampered for r in range(8)]
+    assert got[3].all()
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_split_weight_check_round_matches_jax(port, jax_side, shape):
+    """The weight-check round split over the node axis equals JAX's
+    sharded_round_fn on make_mesh(2)."""
+    (agg0, agg1, accept, ok) = _same_on_every_rank(
+        port[(shape, "round", "weight_check")])
+    bm = tbm.BatchedMastic(tbm.MasticCount(BITS))
+    (want_aggs, want_accept, want_ok) = jax_side["weight_check"]
+    assert [bm.agg_share_to_host(torch.from_numpy(a))
+            for a in (agg0, agg1)] == want_aggs
+    assert np.array_equal(accept, want_accept) and accept.all()
+    assert np.array_equal(ok, want_ok)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_split_attribute_round_matches_jax(port, jax_side, shape):
+    """The attribute round split over the node axis equals JAX's with
+    make_mesh(2): the result, the counters (the tampered report rejected
+    at the eval proof), and a mesh block with JAX's keys whose report
+    axis is the mesh's; its blocks pass `validate_extra`."""
+    got = _same_on_every_rank(port[(shape, "attr")])
+    (jresult, jrecord) = jax_side["attr"]
+    assert got["result"] == [(a, v) for (a, v) in jresult]
+    assert got["counters"] == _counters(jrecord)
+    assert got["accept"].tolist() == [r != ATTR_TAMPERED for r in range(9)]
+    assert set(jrecord.extra["mesh"]) <= set(got["mesh"])
+    reports = SHAPES[shape][0] // SHAPES[shape][1]
+    assert (got["mesh"]["report_shards"], got["mesh"]["rows_per_shard"]) \
+        == (reports, -(-9 // reports))
+    assert validate_extra(got["extra"]) == []
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_split_prep_gathers_the_unsplit_prep(port, cases, shape):
+    """The leader's `sharded_prep` split over the node axis, every
+    report rank's rows gathered, equals its unsplit prep."""
+    case = cases["rounds"]["weight_check"][0]
+    bm = tbm.BatchedMastic(jobs.mastic_of(case["mastic"]))
+    batch = bm.marshal_reports(case["reports"], "cpu")
+    want = bm.prep(0, VK, CTX, case["agg_param"], batch.nonces, batch.cws,
+                   batch.keys[:, 0], proof_shares=batch.leader_proofs)
+    got = _same_on_every_rank(port[(shape, "prep")])
+    for (a, b) in zip(got, (want.out_share, want.eval_proof, want.ok)):
+        assert np.array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_node_local_ok_failure(port, cases, shape):
+    """A lane whose walk `ok` node rank 1 alone clears is False on every
+    rank, and `run_round`'s splice gives the unsplit round's result."""
+    case = cases["rounds"]["level2_all"][0]
+    bm = tbm.BatchedMastic(tbm.MasticCount(BITS))
+    records: list = []
+    want = run_round(bm, VK, CTX, case["agg_param"],
+                     bm.marshal_reports(case["reports"], "cpu"),
+                     metrics_out=records, reports=case["reports"])
+    for got in port[(shape, "forced")]:
+        assert got["ok"].tolist() == [r != FORCED_LANE for r in range(8)]
+        assert got["result"] == want
+        assert got["accept"].all()
+        assert got["counters"] == dict(_counters(records[0]),
+                                       xof_fallbacks=1)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_split_round_of_fewer_reports_than_node_ranks(port, cases, shape):
+    """A report block of fewer reports than node ranks (2 reports at
+    reports 2 x nodes 2; at 1 x 2, the block of 2 splits) gives the
+    unsplit round's result."""
+    case = cases["rounds"]["level2_all"][0]
+    got = _same_on_every_rank(port[(shape, "few")])
+    want = _unsplit_round(dict(case, reports=case["reports"][:FEW]))
+    for (a, b) in zip(got, want):
+        assert np.array_equal(a, b)
+    assert got[2].all() and got[3].all()
+
+
+@pytest.mark.parametrize("mode", ["resident", "chunked"])
+def test_incremental_runners_on_a_node_mesh(port, mode):
+    """On the 2 x 2 mesh the incremental runners (not split: the node
+    ranks repeat their report block's work) equal the port's unsharded
+    run, on every rank."""
+    (_key, _name, case) = dict((k[1], (k, n, c)) for (k, n, c)
+                               in _hh_cases())[mode]
+    run = HeavyHittersRun(tbm.MasticCount(BITS), CTX, case["thresholds"],
+                          VK, device="cpu", reports=case["reports"])
+    while run.step():
+        pass
+    for got in port[("2x2", "hh", mode)]:
+        assert got["levels"] == run.level_results
+        assert got["result"] == run.result()
+        assert got["counters"] == [_counters(m) for m in run.metrics]
+        assert all(b["report_shards"] == 2 for b in got["mesh"])
+
+
+@pytest.mark.slow
+def test_node_axis_matches_jax_grid_sharding(cases):
+    """JAX's own node axis, `install_grid_sharding` and
+    `sharded_round_fn` on make_mesh(8, nodes_axis=2), over
+    test_parallel.py's level-1 round, equals the port's at reports 4 x
+    nodes 2 over 8 ranks."""
+    (case, jreports) = cases["rounds"]["level1"]
+    jbm = JBatchedMastic(jm.MasticCount(BITS))
+    mesh = jmake_mesh(8, nodes_axis=2)
+    batch = jax.tree.map(lambda x: shard_batch(mesh, x),
+                         jbm.marshal_reports(jreports))
+    jinstall(jbm, mesh)
+    try:
+        want = sharded_round_fn(jbm, mesh, VK, CTX, case["agg_param"])(batch)
+    finally:
+        jbm.vidpf.constrain_state = None
+    got = spawn(jobs.run_all, 8, "gloo", "cpu",
+                [("round_from_root", dict(case, nodes_axis=2))])
+    (agg0, agg1, accept, ok) = _same_on_every_rank([r[0][0][0] for r in got])
+    bm = tbm.BatchedMastic(tbm.MasticCount(BITS))
+    assert [bm.agg_share_to_host(torch.from_numpy(a)) for a in (agg0, agg1)] \
+        == [[x.int() for x in jbm.agg_share_to_host(a)] for a in want[:2]]
+    assert np.array_equal(accept, np.asarray(want[2])) and accept.all()
+    assert np.array_equal(ok, np.asarray(want[3]))
