@@ -1,0 +1,9 @@
+"""attr.device_idle_pct: the share of the traced window in which no
+kernel, copy or memset ran on the card (the union of their
+intervals)."""
+
+from portbench import layer
+
+
+def read(ctx: dict):
+    return layer.idle_pct(ctx, "attribute_metrics")
