@@ -21,6 +21,7 @@ from .. import resolve_device
 from ..flp.circuits import (Count, Histogram, MultihotCountVec, Sum,
                             SumVec)
 from ..flp.flp import BatchedFlp
+from ..obs import trace as obs_trace
 from ..ops.binder import binder_checks
 from ..ops.field import field_sum, spec_for
 from ..scalar import mastic as scalar_mastic
@@ -330,23 +331,26 @@ class BatchedMastic:
                             device="cuda") -> tuple:
         """[(alpha path, weight)] -> (alphas (R, BITS) bool, betas (R,
         VALUE_LEN, n) plain limbs with the counter 1 first), on
-        `device`."""
+        `device`; the span `shard.encode`."""
         device = resolve_device(device)
         num = len(measurements)
-        alphas = np.zeros((num, self.m.bits), bool)
-        # Every circuit's encoding is below 2^64 (bits, one-hot entries,
-        # weights); a larger value would raise here, not wrap.
-        values = np.zeros((num, self.m.value_len), np.uint64)
-        values[:, 0] = 1
-        for (r, (alpha, weight)) in enumerate(measurements):
-            alphas[r] = alpha
-            values[r, 1:] = self.m.valid.encode(weight)
-        betas = np.zeros((num, self.m.value_len, self.spec.num_limbs),
-                         np.int32)
-        for i in range(4):
-            betas[..., i] = (values >> np.uint64(16 * i)) & np.uint64(0xFFFF)
-        return (torch.as_tensor(alphas, device=device),
-                torch.as_tensor(betas, device=device))
+        with obs_trace.get_tracer().span("shard.encode", reports=num):
+            alphas = np.zeros((num, self.m.bits), bool)
+            # Every circuit's encoding is below 2^64 (bits, one-hot
+            # entries, weights); a larger value would raise here, not
+            # wrap.
+            values = np.zeros((num, self.m.value_len), np.uint64)
+            values[:, 0] = 1
+            for (r, (alpha, weight)) in enumerate(measurements):
+                alphas[r] = alpha
+                values[r, 1:] = self.m.valid.encode(weight)
+            betas = np.zeros((num, self.m.value_len, self.spec.num_limbs),
+                             np.int32)
+            for i in range(4):
+                betas[..., i] = ((values >> np.uint64(16 * i))
+                                 & np.uint64(0xFFFF))
+            return (torch.as_tensor(alphas, device=device),
+                    torch.as_tensor(betas, device=device))
 
     def shard_device(self, ctx: bytes, alphas: torch.Tensor,
                      betas: torch.Tensor, nonces: torch.Tensor,
@@ -356,42 +360,47 @@ class BatchedMastic:
         alphas (R, BITS) bool; betas (R, VALUE_LEN, n) plain limbs;
         nonces (R, 16); rand (R, RAND_SIZE) uint8, split as the scalar
         layer splits it.  Returns (ReportBatch, ok): lanes where XOF
-        rejection sampling fired carry garbage."""
-        use_jr = self.m.valid.JOINT_RAND_LEN > 0
-        vs = self.m.VIDPF_RAND_SIZE
-        vidpf_rand = rand[:, :vs]
-        prove_seed = rand[:, vs:vs + SEED_SIZE].contiguous()
-        helper_seed = rand[:, vs + SEED_SIZE:vs + 2 * SEED_SIZE].contiguous()
-        leader_seed = (rand[:, vs + 2 * SEED_SIZE:vs + 3 * SEED_SIZE]
-                       .contiguous() if use_jr else None)
+        rejection sampling fired carry garbage.  Its enqueueing is the
+        span `shard.device`."""
+        with obs_trace.get_tracer().span("shard.device",
+                                         reports=int(alphas.shape[0])):
+            use_jr = self.m.valid.JOINT_RAND_LEN > 0
+            vs = self.m.VIDPF_RAND_SIZE
+            vidpf_rand = rand[:, :vs]
+            prove_seed = rand[:, vs:vs + SEED_SIZE].contiguous()
+            helper_seed = (rand[:, vs + SEED_SIZE:vs + 2 * SEED_SIZE]
+                           .contiguous())
+            leader_seed = (rand[:, vs + 2 * SEED_SIZE:vs + 3 * SEED_SIZE]
+                           .contiguous() if use_jr else None)
 
-        (cws, keys, ok) = self.vidpf.gen(alphas, betas, ctx, nonces,
-                                         vidpf_rand)
-        joint_rand = None
-        peer_parts: tuple = (None, None)
-        if use_jr:
-            parts = []
-            for (agg_id, seed) in ((0, leader_seed), (1, helper_seed)):
-                (share, bok) = self.vidpf.get_beta_share(
-                    agg_id, cws, keys[:, agg_id], ctx, nonces)
-                ok = ok & bok
-                parts.append(self.joint_rand_part(ctx, seed, share[..., 1:, :],
-                                                  nonces))
-            (joint_rand, jok) = self.joint_rand(
-                ctx, self.joint_rand_seed(ctx, parts[0], parts[1]))
-            ok = ok & jok
-            # Each party's input share carries the peer's part.
-            peer_parts = (parts[1], parts[0])
+            (cws, keys, ok) = self.vidpf.gen(alphas, betas, ctx, nonces,
+                                             vidpf_rand)
+            joint_rand = None
+            peer_parts: tuple = (None, None)
+            if use_jr:
+                parts = []
+                for (agg_id, seed) in ((0, leader_seed), (1, helper_seed)):
+                    (share, bok) = self.vidpf.get_beta_share(
+                        agg_id, cws, keys[:, agg_id], ctx, nonces)
+                    ok = ok & bok
+                    parts.append(self.joint_rand_part(
+                        ctx, seed, share[..., 1:, :], nonces))
+                (joint_rand, jok) = self.joint_rand(
+                    ctx, self.joint_rand_seed(ctx, parts[0], parts[1]))
+                ok = ok & jok
+                # Each party's input share carries the peer's part.
+                peer_parts = (parts[1], parts[0])
 
-        (prove_rand, pok) = self.prove_rand(ctx, prove_seed)
-        proof = self.bflp.prove(betas[..., 1:, :], prove_rand, joint_rand)
-        (helper_share, hok) = self.helper_proof_share(ctx, helper_seed)
-        leader_proofs = self.spec.sub(proof, helper_share)
-        batch = ReportBatch(nonces=nonces, cws=cws, keys=keys,
-                            leader_proofs=leader_proofs,
-                            helper_seeds=helper_seed,
-                            leader_seeds=leader_seed, peer_parts=peer_parts)
-        return (batch, ok & pok & hok)
+            (prove_rand, pok) = self.prove_rand(ctx, prove_seed)
+            proof = self.bflp.prove(betas[..., 1:, :], prove_rand, joint_rand)
+            (helper_share, hok) = self.helper_proof_share(ctx, helper_seed)
+            leader_proofs = self.spec.sub(proof, helper_share)
+            batch = ReportBatch(nonces=nonces, cws=cws, keys=keys,
+                                leader_proofs=leader_proofs,
+                                helper_seeds=helper_seed,
+                                leader_seeds=leader_seed,
+                                peer_parts=peer_parts)
+            return (batch, ok & pok & hok)
 
     # -- the FLP weight check --------------------------------------
 
@@ -504,20 +513,26 @@ class BatchedMastic:
                   peer_jr_parts: Optional[torch.Tensor]) -> BatchedPrep:
         """`prep` past the walk, over an evaluated tree (`eval_full`'s
         outputs: w_all, proof_all over the round's flat node axis, out_w,
-        ok) and the same reports' inputs."""
+        ok) and the same reports' inputs.  The eval proof's enqueueing
+        is the span `prep.eval_proof`, the weight check's
+        `prep.weight_check`."""
         (level, _prefixes, do_weight_check) = agg_param
-        (eval_proof,) = self.eval_proofs(
-            (agg_id,), verify_key, ctx, (w_all[:, None],),
-            (proof_all[:, None],), sched.onehot_idx, sched.payload_parent,
-            sched.payload_left, sched.payload_right)
+        tracer = obs_trace.get_tracer()
+        with tracer.span("prep.eval_proof", agg_id=agg_id):
+            (eval_proof,) = self.eval_proofs(
+                (agg_id,), verify_key, ctx, (w_all[:, None],),
+                (proof_all[:, None],), sched.onehot_idx,
+                sched.payload_parent, sched.payload_left,
+                sched.payload_right)
         (verifier, jr_part, jr_seed) = (None, None, None)
         if do_weight_check:
-            beta_share = self.spec.add(w_all[:, 0], w_all[:, 1])
-            if agg_id == 1:
-                beta_share = self.spec.neg(beta_share)
-            (verifier, jr_part, jr_seed, wok) = self._weight_check(
-                agg_id, verify_key, ctx, level, nonces, beta_share,
-                proof_shares, seeds, peer_jr_parts)
+            with tracer.span("prep.weight_check", agg_id=agg_id):
+                beta_share = self.spec.add(w_all[:, 0], w_all[:, 1])
+                if agg_id == 1:
+                    beta_share = self.spec.neg(beta_share)
+                (verifier, jr_part, jr_seed, wok) = self._weight_check(
+                    agg_id, verify_key, ctx, level, nonces, beta_share,
+                    proof_shares, seeds, peer_jr_parts)
             ok = ok & wok
         return BatchedPrep(out_share=self.out_share(out_w),
                            eval_proof=eval_proof, verifier=verifier,
@@ -584,17 +599,19 @@ class BatchedMastic:
         through the scalar layer).  Lanes with `ok` False, and lanes
         whose `valid` is False (e.g. the shard's own sampling fired),
         are left out of both aggregates.  sched: the round's uploaded
-        grid, built here when None."""
+        grid, built here when None.  The checks and aggregates after the
+        preps are the span `round.checks`."""
         (_level, _prefixes, do_weight_check) = agg_param
         (p0, p1) = self.prep_both(verify_key, ctx, agg_param, batch, sched)
-        checks = self.accept_checks(p0, p1, do_weight_check)
-        accept = all_checks(checks)
-        ok = p0.ok & p1.ok
-        keep = accept & ok
-        if valid is not None:
-            keep = keep & valid
-        agg0 = self.aggregate(p0.out_share, keep)
-        agg1 = self.aggregate(p1.out_share, keep)
+        with obs_trace.get_tracer().span("round.checks"):
+            checks = self.accept_checks(p0, p1, do_weight_check)
+            accept = all_checks(checks)
+            ok = p0.ok & p1.ok
+            keep = accept & ok
+            if valid is not None:
+                keep = keep & valid
+            agg0 = self.aggregate(p0.out_share, keep)
+            agg1 = self.aggregate(p1.out_share, keep)
         return (agg0, agg1, accept, ok, checks)
 
     def aggregate(self, out_share: torch.Tensor,

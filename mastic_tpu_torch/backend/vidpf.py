@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..obs import trace as obs_trace
 from ..ops.field import FIELD64, FieldSpec
 from ..ops.keccak import turbo_shake128_dynamic
 from ..ops.level import level_step
@@ -251,36 +252,38 @@ class BatchedVidpf:
         Returns (w (R, T, VALUE_LEN, n) unnegated payloads, proof (R, T,
         32) node proofs, both over the T = total_nodes nodes in BFS
         order; out_w (R, P, VALUE_LEN, n) payload shares in the caller's
-        prefix order, negated for aggregator 1; ok (R,))."""
-        (ext_rk, conv_rk) = self.roundkeys(ctx, nonces)
-        num_reports = keys.shape[0]
-        dev = keys.device
-        total = sched.total_nodes
-        w_all = torch.empty((num_reports, total, self.VALUE_LEN,
-                             self.spec.num_limbs), dtype=torch.int32,
-                            device=dev)
-        proof_all = torch.empty((num_reports, total, PROOF_SIZE), dtype=_U8,
+        prefix order, negated for aggregator 1; ok (R,)).  The walk's
+        enqueueing is the span `vidpf.eval_full`."""
+        with obs_trace.get_tracer().span("vidpf.eval_full", agg_id=agg_id):
+            (ext_rk, conv_rk) = self.roundkeys(ctx, nonces)
+            num_reports = keys.shape[0]
+            dev = keys.device
+            total = sched.total_nodes
+            w_all = torch.empty((num_reports, total, self.VALUE_LEN,
+                                 self.spec.num_limbs), dtype=torch.int32,
                                 device=dev)
-        state = self.root_state(agg_id, keys)
-        ok = torch.ones(num_reports, dtype=torch.bool, device=dev)
-        for d in range(sched.level + 1):
-            if d:
-                pidx = sched.parents(d)
-                state = EvalState(seed=state.seed[:, pidx],
-                                  ctrl=state.ctrl[:, pidx], w=None,
-                                  proof=None)
-            cw_slice = (cws.seed[:, d], cws.ctrl[:, d], cws.w[:, d],
-                        cws.proof[:, d])
-            (lo, hi) = sched.offset[d:d + 2]
-            (state, step_ok) = self.eval_step(
-                ext_rk, conv_rk, state, cw_slice, ctx,
-                sched.node_binder[lo:hi], sched.binder_len[d])
-            ok = ok & step_ok
-            w_all[:, lo:hi] = state.w
-            proof_all[:, lo:hi] = state.proof
-        out_w = state.w[:, sched.out_index]
-        if agg_id == 1:
-            out_w = self.spec.neg(out_w)
+            proof_all = torch.empty((num_reports, total, PROOF_SIZE),
+                                    dtype=_U8, device=dev)
+            state = self.root_state(agg_id, keys)
+            ok = torch.ones(num_reports, dtype=torch.bool, device=dev)
+            for d in range(sched.level + 1):
+                if d:
+                    pidx = sched.parents(d)
+                    state = EvalState(seed=state.seed[:, pidx],
+                                      ctrl=state.ctrl[:, pidx], w=None,
+                                      proof=None)
+                cw_slice = (cws.seed[:, d], cws.ctrl[:, d], cws.w[:, d],
+                            cws.proof[:, d])
+                (lo, hi) = sched.offset[d:d + 2]
+                (state, step_ok) = self.eval_step(
+                    ext_rk, conv_rk, state, cw_slice, ctx,
+                    sched.node_binder[lo:hi], sched.binder_len[d])
+                ok = ok & step_ok
+                w_all[:, lo:hi] = state.w
+                proof_all[:, lo:hi] = state.proof
+            out_w = state.w[:, sched.out_index]
+            if agg_id == 1:
+                out_w = self.spec.neg(out_w)
         return (w_all, proof_all, out_w, ok)
 
     def get_beta_share(self, agg_id: int, cws: BatchedCorrectionWords,

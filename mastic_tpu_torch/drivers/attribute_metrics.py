@@ -275,8 +275,9 @@ def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
     the card, then the downloads; the chunk's shares and masks cross
     the ranks in the collect.  The per-chunk verdicts and aggregate
     shares are folded on the host, and `finalize_round` (the metrics
-    record and the splice) runs once over every report.  Returns the
-    round's handle: the result, and its final accept and ok masks."""
+    record and the splice; the span `round.finalize`) runs once over
+    every report.  Returns the round's handle: the result, and its final
+    accept and ok masks."""
     mark = artifacts.stats_mark()
     (level, prefixes, _wc) = agg_param
     num = store.num_reports if store is not None else len(reports)
@@ -353,10 +354,12 @@ def _run_round_chunked(bm: BatchedMastic, verify_key: bytes, ctx: bytes,
     timeline = cr.run(stage, collect)
     nodes = LevelSchedule(prefixes, level, bm.m.bits).total_nodes
     records: list = []
-    result = finalize_round(bm, verify_key, ctx, agg_param, reports, ok_all,
-                            accept_all, checks_all, cr.agg_shares,
-                            padded_width=nodes, nodes_evaluated=nodes,
-                            metrics_out=records, valid=valid_all, mark=mark)
+    with obs_trace.get_tracer().span("round.finalize"):
+        result = finalize_round(bm, verify_key, ctx, agg_param, reports,
+                                ok_all, accept_all, checks_all, cr.agg_shares,
+                                padded_width=nodes, nodes_evaluated=nodes,
+                                metrics_out=records, valid=valid_all,
+                                mark=mark)
     records[0].extra.update({"chunk_size": chunk_size, "chunks": timeline,
                              "pipeline": cr.pipeline_block()})
     if mesh is not None:

@@ -42,6 +42,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..obs import trace as obs_trace
+
 
 class CopyStreams:
     """The streams of a chunked round on the card: the compute stream
@@ -164,18 +166,24 @@ def run_chunks(num_chunks: int, stage: Callable, collect: Callable,
     function's `before_last_collect` hook, where it warms the next
     round's programs, has no use here.)
 
+    Each stage and collect is a span, `chunk.stage` and
+    `chunk.collect` with the chunk's index, under the caller's
+    current span (a round's).
+
     Returns (timeline, wall_ms): per chunk a record with the stage and
     collect timestamps (ms since the loop started), the merged phases
     and its host_syncs, and the loop's wall time."""
     timeline: list = [None] * num_chunks
     t0 = time.perf_counter()
+    tracer = obs_trace.get_tracer()
 
     def now_ms() -> float:
         return (time.perf_counter() - t0) * 1e3
 
     def do_stage(i: int):
         start = now_ms()
-        (handle, phases) = stage(i)
+        with tracer.span("chunk.stage", chunk=i):
+            (handle, phases) = stage(i)
         timeline[i] = {
             "chunk": i,
             "stage_start_ms": round(start, 3),
@@ -188,7 +196,8 @@ def run_chunks(num_chunks: int, stage: Callable, collect: Callable,
     def do_collect(i: int, handle) -> None:
         rec = timeline[i]
         rec["collect_start_ms"] = round(now_ms(), 3)
-        rec["phases"].update(collect(i, handle))
+        with tracer.span("chunk.collect", chunk=i):
+            rec["phases"].update(collect(i, handle))
         rec["collect_end_ms"] = round(now_ms(), 3)
         # collect() waits exactly once (the chunk's download event).
         rec["host_syncs"] = 1
@@ -278,11 +287,13 @@ class ChunkedRound:
         and the chunk's masks over its live reports (numpy (hi - lo, k))
         handed to `fold`.  Returns the chunk's phases: the JAX package's
         (`download_ms` is the wait-to-host interval) and `gather_ms`,
-        the exchange (no mesh: next to nothing)."""
+        the exchange (no mesh: next to nothing).  The wait is the span
+        `collect.wait`."""
         from ..parallel.mesh import gather_round
 
         t0 = time.perf_counter()
-        self.xfers[i].wait()
+        with obs_trace.get_tracer().span("collect.wait", chunk=i):
+            self.xfers[i].wait()
         t_wait = time.perf_counter()
         del handle["device"]
         (shares, masks) = (handle["shares"].cpu(), handle["masks"].cpu())

@@ -11,6 +11,10 @@ the runtime imposes:
   is set, so tracing is always on;
 * **bounded memory** — finished spans land in a ring buffer
   (default 4096); eviction is counted (`dropped()`), never silent;
+* **one clock with the device trace** — the epoch is read on the wall
+  clock too (`epoch_wall_ns`, `time.time_ns`), and `wall_ns` turns a
+  span's `t_start_ms` into wall nanoseconds, the clock of a
+  `torch.profiler` trace's device events;
 * **thread-aware** — the active-span stack is thread-local (the
   statusz server thread must not adopt the scheduler's spans), while
   the ring and the JSONL sink are lock-protected so any thread may
@@ -25,7 +29,8 @@ Span records (`Span.as_dict`, the JSONL line) carry:
     name, span_id, parent_id, t_start_ms, duration_ms, attrs, events
 
 where `t_start_ms` is milliseconds on the tracer's monotonic epoch
-(comparable within one process) and each event is
+(comparable within one process; `Tracer.wall_ns` places it on the
+wall clock) and each event is
 `{"name", "t_ms", "attrs"}`.  `read_jsonl` / `build_tree` reconstruct
 the hierarchy for tests and offline diffing — bench runs and the live
 service emit the same schema, so their traces diff directly.
@@ -38,8 +43,13 @@ import time
 from collections import deque
 from typing import Iterator, Optional
 
-# Ring capacity: at the north-star shape one epoch is ~256 rounds of
-# ~a few chunks, so 4096 finished spans hold several epochs.
+# Ring capacity.  A chunked round from the root leaves 2 spans and 10 a
+# chunk (`chunk.stage` with both aggregators' `vidpf.eval_full`,
+# `prep.eval_proof` and `prep.weight_check` and `round.checks`,
+# `chunk.collect` with `collect.wait`): a 100 000-report
+# attribute job in 7 chunks leaves 72, so 4096 hold ~55 jobs.  A chunked
+# incremental round leaves 1 and 3 a chunk: a 256-level collection in 8
+# chunks leaves 6400, and the ring keeps its last ~160 rounds.
 DEFAULT_CAPACITY = 4096
 
 
@@ -159,7 +169,10 @@ class Tracer:
         self._finished = 0
         self._seq = 0
         self._local = threading.local()
+        # The epoch on both clocks, read back to back: spans are timed
+        # on the monotonic one, and placed on the wall clock by it.
         self._epoch = time.perf_counter()
+        self.epoch_wall_ns = time.time_ns()
         # The JSONL sink: explicit arg wins; otherwise the env lever,
         # read once at construction (configure() rebuilds the
         # singleton, so a long-lived process CAN be re-aimed).
@@ -172,6 +185,12 @@ class Tracer:
 
     def now_ms(self) -> float:
         return (time.perf_counter() - self._epoch) * 1e3
+
+    def wall_ns(self, t_ms: float) -> int:
+        """A time on this tracer's clock (a span's `t_start_ms`, or its
+        end, `t_start_ms + duration_ms`) in wall-clock nanoseconds
+        (`time.time_ns`)."""
+        return self.epoch_wall_ns + round(t_ms * 1e6)
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)

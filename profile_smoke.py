@@ -1,7 +1,6 @@
 """Where the round time of chip_smoke.py's collection goes, by phase.
 
-    python3 profile_smoke.py [--seed N] [--levels L]
-                             [--path count|sum|attributes]
+    python3 profile_smoke.py [--seed N] [--levels L] [--path count|sum]
 
 Runs chip_smoke.py's main path (MasticCount(256), 4096 reports, the same
 measurements from --seed), or with `--path sum` its weighted
@@ -26,28 +25,15 @@ the node proofs and the rest of `gen`), `prove_rand` with
 after a one-level pass of the same path, which loads every kernel.
 
 Then it traces two of the deepest levels with torch.profiler and prints
-the card's busy share of their wall time and the top device operations.
+their wall time and the top device operations (the card's busy share
+is `python3 -m portbench.run --trace 1`'s, a union of intervals).
 On the Count path it then times the two ways to launch K1's binder sponge over two
 aggregators' level-255 carries: both in one launch (the main path's)
 and one launch per aggregator.  Last it times K2 over growing grids
 (4096 reports, 2 blocks, 1 to 64 seeds a report): the whole
 `fixed_key_blocks` call by CUDA events, its kernel's device time, and
 the planes entry's device time at the same columns (no round-key or
-seed transposes), beside the bound.
-
-`--path attributes` profiles chip_smoke.py's attribute-metrics path
-instead (MasticSum(32, 255), 10 000 reports, 64 attributes, one
-weight-checked round from the root): after a first pass that loads
-every kernel, it traces one round with torch.profiler (no timers) for
-the card's busy share of the round's wall time and the top device
-operations, then runs the path again with a synchronising timer around
-each phase of the round: the host schedule and its uploads,
-`eval_full` (kernel K3 at every depth and the copies into the flat
-tree), the level steps alone, the binder sponge (kernel K1), the eval
-proofs, the query-rand XOF, the weight check, the truncation, the
-FLP decide with the other accept checks, the masked aggregation and
-the collect (the sync, the metrics record, the unshard).  Needs a
-CUDA card.
+seed transposes), beside the bound.  Needs a CUDA card.
 """
 
 import argparse
@@ -56,11 +42,10 @@ import sys
 import time
 
 import torch
-from torch.autograd import DeviceType
 
 import chip_smoke
 from mastic_tpu_torch.backend import incremental, mastic, vidpf
-from mastic_tpu_torch.drivers import attribute_metrics, heavy_hitters
+from mastic_tpu_torch.drivers import heavy_hitters
 from mastic_tpu_torch.flp import flp
 from mastic_tpu_torch.ops import binder, kernels
 
@@ -185,116 +170,17 @@ def print_shard(secs: dict, shard_s: float) -> None:
     print(f"    rest of shard_device: {rest:.4f} s")
 
 
-def _busy(prof) -> float:
-    """Device seconds of the kernel rows of a trace (an operator row
-    repeats its kernels' device time)."""
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation) / 1e6
-
-
-def profile_attributes(seed: int) -> None:
-    """The attribute-metrics round by phase, and the card's busy share
-    of it (see the module docstring)."""
-    dev = torch.device("cuda")
-    # Printed in this order: the round, then its phases as they run.
-    secs = dict.fromkeys((
-        "round (step_begin + step_finish)", "schedule + uploads (host)",
-        "eval_full (K3 every depth + copies)", "  of which K3 level steps",
-        "binder sponge (K1)", "eval proofs (K1 + counter + XOF)",
-        "query-rand XOF", "weight check (XOFs + FLP query)",
-        "truncate (out shares)", "accept checks (FLP decide)",
-        "masked aggregation", "collect (sync, metrics, unshard)"), 0.0)
-    state = {"timing": False, "trace": False}
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            if not state["timing"]:
-                return fn(*a, **k)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            secs[name] += time.perf_counter() - t0
-            return out
-        return wrapper
-
-    bm = mastic.BatchedMastic
-    bm.schedule = timed("schedule + uploads (host)", bm.schedule)
-    vidpf.BatchedVidpf.eval_full = timed(
-        "eval_full (K3 every depth + copies)", vidpf.BatchedVidpf.eval_full)
-    vidpf.level_step = timed("  of which K3 level steps", vidpf.level_step)
-    mastic.binder_checks = timed("binder sponge (K1)", mastic.binder_checks)
-    bm.eval_proofs = timed("eval proofs (K1 + counter + XOF)",
-                           bm.eval_proofs)
-    bm.query_rand = timed("query-rand XOF", bm.query_rand)
-    bm._weight_check = timed("weight check (XOFs + FLP query)",
-                             bm._weight_check)
-    bm.truncate = timed("truncate (out shares)", bm.truncate)
-    bm.accept_checks = timed("accept checks (FLP decide)", bm.accept_checks)
-    bm.aggregate = timed("masked aggregation", bm.aggregate)
-    attribute_metrics.run_round_collect = timed(
-        "collect (sync, metrics, unshard)",
-        attribute_metrics.run_round_collect)
-    run_cls = attribute_metrics.AttributeMetricsRun
-    (begin, finish) = (run_cls.step_begin, run_cls.step_finish)
-    trace = {}
-
-    def step_begin(self):
-        if state["trace"]:
-            trace["prof"] = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            trace["prof"].__enter__()
-            trace["t0"] = time.perf_counter()
-        return timed("round (step_begin + step_finish)", begin)(self)
-
-    def step_finish(self, handle):
-        out = timed("round (step_begin + step_finish)", finish)(self, handle)
-        if state["trace"]:
-            torch.cuda.synchronize()
-            trace["wall"] = time.perf_counter() - trace["t0"]
-            trace["prof"].__exit__(None, None, None)
-        return out
-
-    run_cls.step_begin = step_begin
-    run_cls.step_finish = step_finish
-    kernels.build()
-    chip_smoke.attributes_path(dev, seed)
-    state["trace"] = True
-    result = chip_smoke.attributes_path(dev, seed)
-    state["trace"] = False
-    busy = _busy(trace["prof"])
-    print(f"attribute round (untimed, traced): wall {trace['wall']:.3f} s, "
-          f"device busy {busy:.3f} s ({100 * busy / trace['wall']:.1f}%); "
-          f"the path's round {result['round_s']:.3f} s")
-    print(trace["prof"].key_averages().table(sort_by="self_cuda_time_total",
-                                             row_limit=15))
-    trace.clear()
-    state["timing"] = True
-    result = chip_smoke.attributes_path(dev, seed)
-    print(f"attribute round by phase (synchronising timers; the round took "
-          f"{result['round_s']:.3f} s with them, the shard "
-          f"{result['shard_s']:.3f} s):")
-    for (name, value) in secs.items():
-        print(f"  {name}: {value:.4f} s")
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--levels", type=int, default=chip_smoke.BITS)
-    parser.add_argument("--path", choices=("count", "sum", "attributes"),
-                        default="count")
+    parser.add_argument("--path", choices=("count", "sum"), default="count")
     args = parser.parse_args()
     if args.path == "sum":
         args.levels = chip_smoke.BITS
     if not torch.cuda.is_available():
         print("profile_smoke: no CUDA card", file=sys.stderr)
         return 2
-    if args.path == "attributes":
-        profile_attributes(args.seed)
-        return 0
     deep_from = args.levels * 3 // 4
     traced = (args.levels - 4, args.levels - 2)
     total = collections.defaultdict(float)
@@ -375,9 +261,7 @@ def main() -> int:
         print(f"{name}: all levels {secs:.3f} s, levels {deep_from}-"
               f"{args.levels - 1} {deep[name]:.3f} s")
     averages = trace["prof"].key_averages()
-    busy = _busy(trace["prof"])
-    print(f"levels {traced[0]}-{traced[1] - 1}: wall {trace['wall']:.3f} s, "
-          f"device busy {busy:.3f} s ({100 * busy / trace['wall']:.1f}%)")
+    print(f"levels {traced[0]}-{traced[1] - 1}: wall {trace['wall']:.3f} s")
     print(averages.table(sort_by="self_cuda_time_total", row_limit=15))
     del result, averages, trace
     torch.cuda.empty_cache()
