@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py [--seed N] [--levels L]
 
-1. Builds the three hand-written kernels from mastic_tpu_torch/csrc/
-   (one nvcc per source, in parallel, into build/kernels/<hash>/) and
+1. Builds the four hand-written kernel libraries from
+   mastic_tpu_torch/csrc/ (one nvcc per source, in parallel, into
+   build/kernels/<hash>/) and
    prints nvcc's time, the libraries and ptxas's register/spill lines.
 2. Holds each kernel bit-exact against its plain PyTorch version on the
    card at the main path's shapes, and times both: K1 (Keccak) as the
@@ -36,7 +37,10 @@
    MasticSum(256, 255)'s 17-element Field64 rows at depth 64 (timed
    alone at depth 256, where the plain version does not fit the card)
    and on two Field128 carries at the Histogram path's last level
-   (values >= p planted in both); K2 at 10, 18 and 1026 blocks.
+   (values >= p planted in both); K2 at 10, 18 and 1026 blocks.  The
+   field kernel (csrc/field.cu): mul, add and sub at the Field128
+   weight check's shapes and a Field64 one (FIELD_ROWS), each against
+   the plain limb code on the card with values >= p planted.
    And at the from-root shapes: K3 at the attribute round's 10 000
    reports (not a multiple of 32) x 64 parents; K1's binder sponge on
    that round's flat tree (one aggregator, the schedule's index lists,
@@ -476,21 +480,26 @@ HIST100K_WIDTH = 32
 BINDER_CHECK_R = 128
 # The launch counters each path must reach (ops/kernels.py): K1's
 # in-place sponge and its binder sponge (per field), K2's fixed-key
-# entry, K3 (per field).  The from-root cross-check of the Count path
-# runs no shard, so no K2.
+# entry, K3 and the field kernel (per field).  The from-root
+# cross-check of the Count path runs no shard, so no K2.
 PATH_COUNTERS = {
-    "count": ("keccak", "keccak_binder", "aes", "level"),
-    "count_from_root": ("keccak", "keccak_binder", "level"),
-    "sum": ("keccak", "keccak_binder", "aes", "level"),
-    "histogram": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
-    "sumvec": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
-    "attributes": ("keccak", "keccak_binder", "aes", "level"),
-    "attributes_splice": ("keccak", "keccak_binder", "level"),
-    "resident_checkpoint": ("keccak", "keccak_binder", "aes", "level"),
-    "count_chunked": ("keccak", "keccak_binder", "aes", "level"),
-    "chunked_checkpoint": ("keccak", "keccak_binder", "level"),
-    "multihot": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
-    "histogram_100k": ("keccak", "keccak_binder_f128", "aes", "level_f128"),
+    "count": ("keccak", "keccak_binder", "aes", "level", "field"),
+    "count_from_root": ("keccak", "keccak_binder", "level", "field"),
+    "sum": ("keccak", "keccak_binder", "aes", "level", "field"),
+    "histogram": ("keccak", "keccak_binder_f128", "aes", "level_f128",
+                  "field_f128"),
+    "sumvec": ("keccak", "keccak_binder_f128", "aes", "level_f128",
+               "field_f128"),
+    "attributes": ("keccak", "keccak_binder", "aes", "level", "field"),
+    "attributes_splice": ("keccak", "keccak_binder", "level", "field"),
+    "resident_checkpoint": ("keccak", "keccak_binder", "aes", "level",
+                            "field"),
+    "count_chunked": ("keccak", "keccak_binder", "aes", "level", "field"),
+    "chunked_checkpoint": ("keccak", "keccak_binder", "level", "field"),
+    "multihot": ("keccak", "keccak_binder_f128", "aes", "level_f128",
+                 "field_f128"),
+    "histogram_100k": ("keccak", "keccak_binder_f128", "aes", "level_f128",
+                       "field_f128"),
 }
 # Phase k, the party layer: the lanes whose upload blobs are held
 # against the scalar encoder in k1, and where the party processes'
@@ -890,6 +899,57 @@ def _aes_row(dev: torch.device, gen: torch.Generator, blocks: int,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "shape": f"fixed_key_blocks, {R} reports x 2 seeds x "
                      f"{blocks} blocks"}
+
+
+# The field kernel's rows (field, name, batch shape, the path whose
+# launches the row reports): the Field128 weight check's shapes at the
+# Histogram 100k round's chunk of 15 360 reports (the wires (R, arity 8,
+# p 8) and the size-2p NTT's rows (R, 16)), and the MasticSum(32, 255)
+# attribute round's wires (10 000 x 2 x 32) for Field64.
+FIELD_ROWS = (("field128", "wires", (15_360, 8, 8), "histogram_100k"),
+              ("field128", "ntt", (15_360, 16), "histogram_100k"),
+              ("field64", "wires", (10_000, 2, 32), "attributes"))
+FIELD_OPS = ("mul", "add", "sub")
+
+
+def check_field(dev: torch.device, gen: torch.Generator) -> list:
+    """The field kernel (csrc/field.cu) at the weight check's shapes,
+    each of add, sub and mul against the plain limb code on the card
+    (`spec.plain`), bit for bit on limbs with values >= p among them:
+    the whole call (CUDA events), the kernel (profiler), the plain
+    version and the bytes bound (two operands read, one written)."""
+    from mastic_tpu_torch.ops.field import FIELD64, FIELD128
+
+    specs = {"field64": FIELD64, "field128": FIELD128}
+    rows = []
+    for (field, label, shape, _path) in FIELD_ROWS:
+        spec = specs[field]
+        (a, b) = (field_values(spec, shape, dev, gen),
+                  field_values(spec, shape, dev, gen))
+        for op in FIELD_OPS:
+            (fn, plain) = (getattr(spec, op), getattr(spec.plain, op))
+            err = _max_err([fn(a, b)], [plain(a, b)])
+            ms = _time(lambda: fn(a, b), 50)
+            device_ms = _device_ms(lambda: fn(a, b), ("field_kernel",),
+                                   50)["field_kernel"]
+            plain_ms = _time(lambda: plain(a, b), 3)
+            (bound, by) = _bound(3.0 * a.numel() * 4, 0.0)
+            print(f"field {op} {field} at {shape}: whole call {ms:.4f} ms, "
+                  f"kernel {device_ms:.4f} ms (plain {plain_ms:.3f} ms, "
+                  f"bound {bound:.4f} ms by {by}), max_abs_err {err}")
+            rows.append({
+                "name": f"field_{op}_{field}_{label}", "route": "cuda",
+                "source": "mastic_tpu_torch/csrc/field.cu",
+                "replaces": "none (mastic_tpu/ops/field_jax.py, fused by "
+                            "XLA)",
+                "max_abs_err": err, "kernel_ms": ms, "ms": ms,
+                "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "shape": f"{op}, {shape} x {spec.num_limbs} limbs"})
+            if err:
+                raise AssertionError(f"the field kernel's {op} disagrees "
+                                     f"with the plain version at {shape}")
+    return rows
 
 
 def flat_binder_inputs(dev: torch.device, gen: torch.Generator, sched,
@@ -4741,6 +4801,7 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = check_kernels(dev, gen) + check_new_shapes(dev, gen) \
+        + check_field(dev, gen) \
         + check_from_root(dev, gen, args.seed) \
         + check_phase_n_shapes(dev, gen) \
         + check_node_shapes(dev, gen, args.seed)
@@ -4812,6 +4873,10 @@ def main() -> int:
         "level_step_from_root_count_node_block": ("nodes_count", "level"),
         "keccak_binder_sponge_from_root_sum_exchanged": (
             "nodes_attributes", "keccak_binder")}
+    for (field, label, _shape, path) in FIELD_ROWS:
+        for op in FIELD_OPS:
+            row_counter[f"field_{op}_{field}_{label}"] = (
+                path, "field_f128" if field == "field128" else "field")
     for row in rows:
         (path, counter) = row_counter[row["name"]]
         row["launches_path"] = path

@@ -213,7 +213,7 @@ class BatchedMastic:
         else:
             return ("gather", np.array(gather, np.int64))
         mont = np.zeros((valid.OUTPUT_LEN, meas_len, self.spec.num_limbs),
-                        np.int64)
+                        np.int32)
         for (o, row) in enumerate(matrix):
             for (j, x) in enumerate(row):
                 mont[o, j] = self.spec.to_mont_host(x)

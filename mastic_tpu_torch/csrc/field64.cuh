@@ -1,8 +1,8 @@
 // Field64 arithmetic on whole 64-bit words as device code, shared by
-// level.cu (kernel K3's payload correction) and keccak.cu (kernel K1's
-// payload check).  Each function equals the JAX package's limb code
-// (mastic_tpu/ops/field_jax.py FieldSpec.add / sub) bit for bit on every
-// 64-bit input, including inputs >= p.
+// level.cu (kernel K3's payload correction), keccak.cu (kernel K1's
+// payload check) and field.cu (the field kernel).  Each function equals the
+// JAX package's limb code (mastic_tpu/ops/field_jax.py FieldSpec.add / sub /
+// mul) bit for bit on every 64-bit input, including inputs >= p.
 #pragma once
 #include <cstdint>
 
@@ -21,6 +21,26 @@ __device__ __forceinline__ uint64_t f64_add(uint64_t a, uint64_t b) {
 __device__ __forceinline__ uint64_t f64_sub(uint64_t a, uint64_t b) {
   const uint64_t d = a - b;
   return a < b ? d + F64_P : d;
+}
+
+// -p^-1 mod 2^64, the REDC quotient constant for R = 2^64.
+constexpr uint64_t F64_PINV_NEG = 0xFFFFFFFEFFFFFFFFull;
+
+// The Montgomery product a b / 2^64 mod p.  The limb code reduces 16 bits at
+// a time, but the quotient m = -ab p^-1 mod R is unique, so one REDC on the
+// whole word gives the same (ab + mp) / R < R + p, and the same single
+// conditional subtraction of p on that 65-bit value gives the same bits on
+// every input, values >= p included.
+__device__ __forceinline__ uint64_t f64_mont_mul(uint64_t a, uint64_t b) {
+  const uint64_t t_lo = a * b;
+  const uint64_t t_hi = __umul64hi(a, b);
+  const uint64_t m = t_lo * F64_PINV_NEG;
+  const uint64_t mp_hi = __umul64hi(m, F64_P);
+  // t_lo + m p mod 2^64 is 0: a carry out of the low word unless t_lo is 0.
+  const uint64_t h = t_hi + mp_hi;
+  const uint64_t r = h + (t_lo != 0 ? 1ull : 0ull);
+  const bool top = h < t_hi || r < h;
+  return (top || r >= F64_P) ? r - F64_P : r;
 }
 
 // Four 16-bit limbs (int32 carriers, little-endian) as one word.

@@ -1,10 +1,10 @@
 """The kernel store (port of `mastic_tpu/drivers/artifacts.py`): the
-three CUDA kernel libraries, sealed into a directory that a fresh
+four CUDA kernel libraries, sealed into a directory that a fresh
 process on the card loads without nvcc.
 
 The JAX package stores compiled XLA round programs; the port's build
-products are the three nvcc libraries of `ops/kernels.py` (keccak, aes,
-level), generic over shape and instantiation, so the store holds one
+products are the four nvcc libraries of `ops/kernels.py` (keccak, aes,
+level, field), generic over shape and instantiation, so the store holds one
 entry per library:
 
 * **what is stored** -- under the key (name, `kernels._digest()`,
@@ -158,6 +158,15 @@ def _level_case(rng: np.random.Generator, spec, value_len: int) -> dict:
     }
 
 
+def _limb_pair(rng: np.random.Generator, spec) -> dict:
+    """Two operands of raw 16-bit limbs (values >= p among them, the
+    first row all ones) for the field kernel."""
+    (a, b) = rng.integers(0, 1 << 16, (2, 37, 3, spec.num_limbs),
+                          dtype=np.int64).astype(np.int32)
+    a[0] = 0xFFFF
+    return {"a": a, "b": b}
+
+
 def probe_inputs(fn: str, seed: int = _PROBE_SEED) -> dict:
     """The probe inputs of one exported function, made from `seed` with
     numpy: small shapes with ragged edges (batches that are not a
@@ -183,6 +192,9 @@ def probe_inputs(fn: str, seed: int = _PROBE_SEED) -> dict:
     if fn == "level_step":
         return {"f64": _level_case(rng, FIELD64, 2),
                 "f128": _level_case(rng, FIELD128, 1)}
+    if fn == "field_op":
+        return {key: _limb_pair(rng, spec) for (key, spec) in (
+            ("f64", FIELD64), ("f128", FIELD128))}
     raise KeyError(fn)
 
 
@@ -240,6 +252,15 @@ def probe_outputs(fn: str, inputs: dict, device) -> list:
                 t(case["ext_rk"]), t(case["conv_rk"]), t(case["parent_seed"]),
                 t(case["parent_ctrl"]), cw, case["prefix"],
                 t(case["node_binder"]), case["binder_len"]))
+        return out
+    if fn == "field_op":
+        out = []
+        for (spec, case) in ((FIELD64, inputs["f64"]),
+                             (FIELD128, inputs["f128"])):
+            (a, b) = (t(case["a"]), t(case["b"]))
+            out.extend([spec.add(a, b), spec.sub(a[:, :1], b),
+                        spec.mul(a, b), spec.to_mont(a[1:]),
+                        spec.neg(b[:, 0::2])])
         return out
     raise KeyError(fn)
 

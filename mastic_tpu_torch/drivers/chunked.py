@@ -722,11 +722,13 @@ class ChunkedIncrementalRunner:
                  for (h, d) in zip(hc, dc)]
                 + [(None, shares), (None, masks)])
             # Every device tensor of the chunk stays referenced until
-            # collect() has waited for the downloads.
+            # collect() has waited for the downloads: the round keys too,
+            # or the next chunk's upload could take their memory on the
+            # upload stream while this chunk's level steps still read them.
             handle = {"shares": host[8], "masks": host[9], "names": names,
-                      "device": (batch, carries, c0, c1, out0, out1,
-                                 keep_dev, keep, ok, shares, masks,
-                                 checks)}
+                      "device": (batch, carries, ext_rk, conv_rk, c0, c1,
+                                 out0, out1, keep_dev, keep, ok, shares,
+                                 masks, checks)}
             return (handle, {"upload_ms": _ms(t0, t_up),
                              "dispatch_ms": _ms(t_up, time.perf_counter())})
 

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import kernels
 from ..ops.field import FieldSpec, field_sum, spec_for
 from ..ops.ntt import ntt_plan, poly_eval_mont, pow_static, power_chain
 from ..scalar.common import next_power_of_2
@@ -105,8 +106,9 @@ class BatchedFlp:
             raise ValueError("this circuit needs joint randomness")
         c = self.chunk_length
         meas_ext = torch.cat([meas, meas.new_zeros(batch + (1, n))], dim=-2)
-        gathered = meas_ext[..., torch.as_tensor(self.chunk_idx,
-                                                 device=meas.device), :]
+        idx = self.chunk_idx
+        gathered = meas_ext[..., kernels.const_array(
+            idx.tobytes(), idx.dtype.str, idx.shape, meas.device), :]
         r_pow = power_chain(spec, joint_rand, c)       # (..., C, c, n)
         even = spec.mul(r_pow, gathered)
         shares_inv = self._mont_const(self._shares_inv(num_shares))
@@ -163,7 +165,7 @@ class BatchedFlp:
                              (2 * self.p - self.coeff_len, coeffs.shape[-1]))
         ], dim=-2)
         evals = self.ntt_2p(padded)
-        return evals[..., [2 * k for k in range(1, self.calls + 1)], :]
+        return evals[..., 2:2 * self.calls + 1:2, :]
 
     def _gadget_eval(self, x: torch.Tensor) -> torch.Tensor:
         """The bare gadget on Montgomery inputs x (..., arity, n)."""
@@ -213,7 +215,9 @@ class BatchedFlp:
         gp_at_t = poly_eval_mont(spec, coeffs, t)
         verifier = torch.cat([v[..., None, :], wire_at_t,
                               gp_at_t[..., None, :]], dim=-2)
-        one = torch.as_tensor(spec.ONE_MONT, device=t.device)
+        one = kernels.const_array(spec.ONE_MONT.tobytes(),
+                                  spec.ONE_MONT.dtype.str, spec.ONE_MONT.shape,
+                                  t.device)
         ok = ~torch.all(pow_static(spec, t, self.p) == one, dim=-1)
         return (spec.from_mont(verifier), ok)
 

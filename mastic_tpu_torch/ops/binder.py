@@ -56,8 +56,10 @@ def binder_checks_plain(spec, ws: tuple, proofs: tuple,
                         onehot_idx: torch.Tensor, par: torch.Tensor,
                         left: torch.Tensor, right: torch.Tensor,
                         prefix_onehot: bytes, prefix_payload: bytes) -> tuple:
-    """The plain version: gather the rows, FieldSpec's limb arithmetic,
-    serialise, and the plain sponge behind the prefix."""
+    """The plain version: gather the rows, the plain limb arithmetic
+    (`spec.plain`, on the card too), serialise, and the plain sponge
+    behind the prefix."""
+    spec = spec.plain
     (onehot, payload) = ([], [])
     for (w_all, proof_all) in zip(ws, proofs):
         (num_reports, bits, width, value_len, n) = w_all.shape

@@ -3,12 +3,24 @@ Montgomery multiplication (port of `mastic_tpu/ops/field_jax.py`).
 
 Layout as in the JAX package: shape (..., n), little-endian limb order,
 n = 4 for Field64 and 8 for Field128, limb values < 2^16.  Limbs cross
-function boundaries as int32 and are computed in int64, where a
-16x16-bit product and every column sum fit exactly (at n = 8 a column
-sums at most 2n + 2 halves of products, below 2^21), so each step below
-is the JAX package's uint32 step with the same values.  Elements the
-FLP multiplies live in the Montgomery domain; payloads stay plain.
+function boundaries as int32.  Elements the FLP multiplies live in the
+Montgomery domain; payloads stay plain.
+
+`FieldSpec.add` / `sub` / `neg` / `mul` / `to_mont` / `from_mont` on a
+CUDA tensor launch the field kernel (`csrc/field.cu`), one launch an
+operation, counted as "field" (Field64) or "field_f128" (Field128) in
+`kernels.launches`; on any other device they run the plain version,
+`PlainField`'s limb code (every spec's `plain`).  The plain version
+computes in int64, where a 16x16-bit product and every column sum fit
+exactly (at n = 8 a column sums at most 2n + 2 halves of products,
+below 2^21), so each of its steps is the JAX package's uint32 step with
+the same values; the kernel gives the same bits on every input, limbs
+that encode values >= p included.  The plain versions of K1 and K3
+(`ops/binder.py`, `ops/level.py`) call `spec.plain` on the card too, so
+that holding a kernel against its plain version never runs `csrc/`.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -20,9 +32,9 @@ from .bits import I32, I64
 _MASK16 = 0xFFFF
 
 
-class FieldSpec:
+class PlainField:
     """Constants for one prime field, precomputed on the host with
-    Python bignums."""
+    Python bignums, and the plain limb code on any device."""
 
     def __init__(self, modulus: int, encoded_size: int, gen_order: int):
         self.modulus = modulus
@@ -37,6 +49,7 @@ class FieldSpec:
         self.P = [int(x) for x in self.int_to_limbs(modulus)]
         self.R2_LIMBS = self.int_to_limbs(self.R2)
         self.ONE_MONT = self.int_to_limbs(self.R % modulus)
+        self.plain = self
 
     # -- host-side converters (Python bignum) -----------------------
 
@@ -61,7 +74,8 @@ class FieldSpec:
             # A host constant, uploaded once per device (a blocking copy
             # each call would synchronize the stream).
             a = np.ascontiguousarray(x, np.int64)
-            x = kernels.const_int64(a.tobytes(), a.shape, like.device)
+            x = kernels.const_array(a.tobytes(), a.dtype.str, a.shape,
+                                    like.device)
         x = x.to(I64)
         return [x[..., i] for i in range(x.shape[-1])]
 
@@ -175,7 +189,128 @@ class FieldSpec:
             plain.shape[:-1] + (self.encoded_size,))
 
 
-def field_sum(spec: FieldSpec, x: torch.Tensor, axis: int) -> torch.Tensor:
+# The field kernel's operations (csrc/field.cu FieldOp) and the most
+# batch dimensions it indexes once merged.
+_OPS = {"add": 0, "sub": 1, "mul": 2}
+_MAX_DIMS = 8
+
+
+def _broadcast(x: tuple, y: tuple) -> tuple:
+    """The broadcast of two shapes (torch.broadcast_shapes, without its
+    symbolic-shape machinery: this runs at every field operation)."""
+    n = max(len(x), len(y))
+    (x, y) = ((1,) * (n - len(x)) + x, (1,) * (n - len(y)) + y)
+    out = []
+    for (i, j) in zip(x, y):
+        if i != j and 1 not in (i, j):
+            raise ValueError(f"field kernel: shapes {x} and {y} do not "
+                             f"broadcast")
+        out.append(j if i == 1 else i)
+    return tuple(out)
+
+
+def _strides(t: torch.Tensor, shape: tuple) -> tuple:
+    """t's element strides over the broadcast `shape`: 0 where t is
+    broadcast."""
+    pad = len(shape) - t.dim()
+    return (0,) * pad + tuple(0 if size == 1 else stride for (size, stride)
+                              in zip(t.shape, t.stride()))
+
+
+def _merge_dims(shape: tuple, sa: tuple, sb: tuple) -> tuple:
+    """Drop size-1 batch dimensions and merge neighbours that both
+    operands step through alike (outer stride = inner stride x inner
+    size): the fewest dimensions the kernel divides by."""
+    dims = [[n, x, y] for (n, x, y) in zip(shape, sa, sb) if n != 1]
+    merged = []
+    for d in dims:
+        if merged and merged[-1][1] == d[1] * d[0] and \
+                merged[-1][2] == d[2] * d[0]:
+            merged[-1] = [merged[-1][0] * d[0], d[1], d[2]]
+        else:
+            merged.append(d)
+    return tuple(zip(*merged)) if merged else ((), (), ())
+
+
+class FieldSpec(PlainField):
+    """One prime field: the plain limb code off the card (`plain`), the
+    field kernel on it."""
+
+    def __init__(self, modulus: int, encoded_size: int, gen_order: int):
+        super().__init__(modulus, encoded_size, gen_order)
+        self.plain = PlainField(modulus, encoded_size, gen_order)
+        self.counter = "field" if self.num_limbs == 4 else "field_f128"
+        self.ZERO = np.zeros(self.num_limbs, np.int32)
+
+    def _operand(self, x, device: torch.device) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            if x.dtype != I32:
+                raise ValueError(f"field kernel: expected int32 limbs, got "
+                                 f"{x.dtype}")
+            return x
+        # A host constant, uploaded once per device (a blocking copy each
+        # call would synchronize the stream).
+        a = np.ascontiguousarray(x, np.int32)
+        return kernels.const_array(a.tobytes(), a.dtype.str, a.shape, device)
+
+    def _kernel(self, op: str, a, b) -> torch.Tensor:
+        """One launch of the field kernel: `op` over the broadcast of a
+        and b (tensors on one card or host constants), a fresh int32
+        (..., n) tensor."""
+        like = a if isinstance(a, torch.Tensor) else b
+        (a, b) = (self._operand(a, like.device), self._operand(b, like.device))
+        n = self.num_limbs
+        if a.shape[-1:] != (n,) or b.shape[-1:] != (n,):
+            raise ValueError(f"field kernel: expected (..., {n}) limbs, got "
+                             f"{tuple(a.shape)} and {tuple(b.shape)}")
+        shape = _broadcast(tuple(a.shape), tuple(b.shape))
+        out = torch.empty(shape, dtype=I32, device=like.device)
+        if out.numel() == 0:
+            return out
+        (sa, sb) = (_strides(a, shape), _strides(b, shape))
+        (la, lb) = (sa[-1], sb[-1])
+        (dims, sa, sb) = _merge_dims(shape[:-1], sa[:-1], sb[:-1])
+        if len(dims) > _MAX_DIMS:
+            raise ValueError(f"field kernel: {len(dims)} batch dimensions "
+                             f"after merging, at most {_MAX_DIMS}")
+        vec = (la == lb == 1 and a.data_ptr() % 16 == 0
+               and b.data_ptr() % 16 == 0
+               and all(s % 4 == 0 for s in sa + sb))
+        pad = (0,) * (_MAX_DIMS - len(dims))
+        meta = (ctypes.c_longlong * (4 + 3 * _MAX_DIMS))(
+            out.numel() // n, len(dims), la, lb, *dims, *pad, *sa, *pad,
+            *sb, *pad)
+        kernels.launch("field", "field_op", a.data_ptr(), b.data_ptr(),
+                       out.data_ptr(), ctypes.addressof(meta), _OPS[op], n,
+                       int(vec), kernels.stream_ptr(like.device),
+                       counter=self.counter)
+        return out
+
+    def _either(self, op: str, a, b) -> torch.Tensor:
+        """The kernel where the tensor operand lies on a card, else the
+        plain version."""
+        like = a if isinstance(a, torch.Tensor) else b
+        if like.device.type == "cuda":
+            return self._kernel(op, a, b)
+        return getattr(self.plain, op)(a, b)
+
+    def add(self, a, b) -> torch.Tensor:
+        return self._either("add", a, b)
+
+    def sub(self, a, b) -> torch.Tensor:
+        return self._either("sub", a, b)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        if a.device.type == "cuda":
+            return self._kernel("sub", self.ZERO, a)
+        return self.plain.neg(a)
+
+    def mul(self, a, b) -> torch.Tensor:
+        """Montgomery product: mont(x)*mont(y) -> mont(x*y)."""
+        return self._either("mul", a, b)
+
+
+def field_sum(spec: PlainField, x: torch.Tensor, axis: int) -> torch.Tensor:
     """Exact modular sum along `axis` by pairwise tree reduction."""
     x = torch.movedim(x, axis, 0)
     n = x.shape[0]

@@ -1,13 +1,13 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Each source in `csrc/` that holds kernels (`keccak.cu`, `aes.cu`,
-`level.cu`) compiles on its own into a shared library with a plain C
+`level.cu`, `field.cu`) compiles on its own into a shared library with a plain C
 interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
 
-All three nvcc processes start together at the first use of any
+All four nvcc processes start together at the first use of any
 kernel, into `build/kernels/<hash>/` at the repository root, where
 <hash> covers every source, header and flag, so an edited source
 rebuilds and an unchanged one is reused.  ptxas's register, spill and
@@ -36,7 +36,8 @@ and "keccak_binder_f128" on Field128 ones; "keccak" counts the in-place
 sponge and "keccak_permute" the bare permutation.  K2's fixed-key entry
 (the one `fixed_key_blocks` launches) counts as "aes", its planes entry
 as "aes_planes".  K3 counts as "level" on Field64 payloads and
-"level_f128" on Field128 ones.
+"level_f128" on Field128 ones.  The field kernel counts as "field" on
+Field64 limbs and "field_f128" on Field128 ones.
 """
 
 import contextlib
@@ -55,7 +56,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("keccak", "aes", "level")
+SOURCES = ("keccak", "aes", "level", "field")
 # Every header in csrc/, so that a new or renamed one changes the hash.
 HEADERS = tuple(sorted(path.name for path in CSRC.glob("*.cuh")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -81,11 +82,14 @@ SIGNATURES = {
         "level_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                        _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    "field": {
+        "field_op": (_P, _P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 launches = {name: 0 for name in SOURCES + ("keccak_permute", "keccak_binder",
                                            "aes_planes", "keccak_binder_f128",
-                                           "level_f128")}
+                                           "level_f128", "field_f128")}
 build_info: dict = {}
 stats = {"inline_compiles": 0, "artifact_hits": 0, "artifact_load_ms": 0.0,
          "store": None}
@@ -257,11 +261,12 @@ def const_bytes(data: bytes, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=1024)
-def const_int64(data: bytes, shape: tuple,
+def const_array(data: bytes, dtype: str, shape: tuple,
                 device: torch.device) -> torch.Tensor:
-    """A constant int64 array (its bytes and shape) on `device`,
-    uploaded once, as `const_bytes`.  Callers only read it."""
-    return torch.from_numpy(np.frombuffer(data, np.int64).reshape(
+    """A constant numpy array (its bytes, dtype and shape) on `device`,
+    uploaded once, as `const_bytes`: index maps and the field kernel's
+    host operands.  Callers only read it."""
+    return torch.from_numpy(np.frombuffer(data, dtype).reshape(
         shape).copy()).to(device)
 
 

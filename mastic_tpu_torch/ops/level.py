@@ -52,7 +52,9 @@ def level_core(spec: FieldSpec, convert_blocks: int, value_len: int,
     multiple of 32 with zero lanes.  Returns (next_seed (R, 2N, 16), ct
     (R, 2N) bool, w plain limbs (R, 2N, VL, n), ok (R, 2N)); children
     interleave (left0, right0, left1, ...), i.e. lexicographic order.
-    It runs the AES on its plain version: this is K3's plain version."""
+    It runs the AES and the field on their plain versions (`spec.plain`,
+    on the card too): this is K3's plain version."""
+    spec = spec.plain
     (seed_cw, ctrl_cw, w_cw, _proof_cw) = cw_slice
     (num_reports, num_parents) = parent_ctrl.shape
     pad = (-num_reports) % 32

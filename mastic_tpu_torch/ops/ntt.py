@@ -8,6 +8,7 @@ host-precomputed Montgomery-domain twiddles."""
 import numpy as np
 import torch
 
+from . import kernels
 from .field import FieldSpec
 
 
@@ -50,7 +51,11 @@ class NttPlan:
         """Transform (..., size, n) Montgomery limbs along axis -2."""
         spec = self.spec
         assert x.shape[-2] == self.size
-        x = x[..., torch.as_tensor(self.perm, device=x.device), :]
+        # The permutation is uploaded once per device (kernels.const_array):
+        # a copy from pageable memory each call would wait for the stream.
+        perm = self.perm
+        x = x[..., kernels.const_array(perm.tobytes(), perm.dtype.str,
+                                       perm.shape, x.device), :]
         m = 1
         for tw in self.stage_twiddles:
             x = x.reshape(x.shape[:-2] + (self.size // (2 * m), 2 * m,

@@ -1,5 +1,5 @@
 """Kernel-store baker (port of `tools/bake.py`; run as `python -m
-mastic_tpu_torch.tools.bake`): build the three kernel libraries with
+mastic_tpu_torch.tools.bake`): build the four kernel libraries with
 nvcc, hold every exported function against its plain version on the
 card, and seal them into a kernel store (`drivers/artifacts.py`) that a
 process on a machine without nvcc loads.
@@ -22,7 +22,7 @@ each from a temporary copy of the package (no `build/kernels/` to
 reuse): (i) without a store, so nvcc runs inline; (ii) the same copy
 again, reusing the build directory (i) left, which has no gates; (iii)
 with `--artifact-dir` and nvcc taken off PATH and out of CUDA_HOME.
-It asserts (iii) made no inline build and three store hits, that no
+It asserts (iii) made no inline build and four store hits, that no
 round of (iii) reports an inline build, and that (iii)'s results and
 per-round counters equal (i)'s, and prints each child's time from its
 spawn to the end of its first round.
@@ -59,7 +59,7 @@ def nvcc_release(nvcc: str) -> str:
 
 
 def bake(out: str, device) -> dict:
-    """Build, check and seal the three libraries into the store at
+    """Build, check and seal the four libraries into the store at
     `out`.  Returns the bake's record."""
     from mastic_tpu_torch.drivers import artifacts
     from mastic_tpu_torch.ops import kernels

@@ -51,3 +51,7 @@ def pytest_configure(config):
         "markers",
         "slow: heavy differential/adversarial/driver suites (excluded "
         "from the fast CI tier; run with -m slow or no filter)")
+    config.addinivalue_line(
+        "markers",
+        "card: needs a CUDA card (a hand-written kernel with no CPU mode); "
+        "skips without one")

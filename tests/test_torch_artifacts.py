@@ -189,7 +189,7 @@ def test_foreign_source_digest_is_a_miss(tmp_path, gates):
     assert store.entry(foreign) is not None
     assert store.load(artifacts.library_key("level")) is None
     assert store.outcome(artifacts.library_key("level")) == artifacts.MISS
-    assert store.preload() == {"miss": 3}
+    assert store.preload() == {"miss": len(kernels.SOURCES)}
     assert gates == []
 
 
@@ -309,6 +309,14 @@ def _plain_outputs(fn: str, inp: dict) -> list:
         return [aes128_encrypt_bitsliced_plain(
             bitslice_keys(rk).contiguous(),
             bitslice_pack(_t(inp["blocks"])).contiguous())]
+    if fn == "field_op":
+        out = []
+        for (spec, case) in ((FIELD64, inp["f64"]), (FIELD128, inp["f128"])):
+            (a, b, plain) = (_t(case["a"]), _t(case["b"]), spec.plain)
+            out.extend([plain.add(a, b), plain.sub(a[:, :1], b),
+                        plain.mul(a, b), plain.to_mont(a[1:]),
+                        plain.neg(b[:, 0::2])])
+        return out
     out = []
     for (spec, case) in ((FIELD64, inp["f64"]), (FIELD128, inp["f128"])):
         cw = tuple(_t(case[k]) for k in ("seed_cw", "ctrl_cw", "w_cw",
@@ -442,8 +450,8 @@ def test_bake_seals_the_plain_versions_digests(fake_build):
     library with the plain versions' digests, its bytes, nvcc's release
     and ptxas's report."""
     rec = bake_tool.bake(str(fake_build), "cpu")
-    assert rec["entries"] == 3 and set(rec["libraries"]) == set(
-        kernels.SOURCES)
+    assert rec["entries"] == len(kernels.SOURCES)
+    assert set(rec["libraries"]) == set(kernels.SOURCES)
     store = artifacts.ArtifactStore(str(fake_build))
     for name in kernels.SOURCES:
         entry = store.entry(artifacts.library_key(name))
@@ -536,8 +544,8 @@ def test_failed_gate_builds_inline(loader, monkeypatch):
     """A library that fails its gate is built with nvcc in this process,
     in one nvcc run with every other library that fails, and loaded from
     the build's own path; the libraries that pass are the store's."""
-    for name in kernels.SOURCES:
-        (store, key) = _sealed(loader, name)
+    sealed = {name: _sealed(loader, name) for name in kernels.SOURCES}
+    (store, key) = sealed["level"]
     (loader / store.entry(key)["blob"]).write_bytes(b"swapped")
     built = []
 
@@ -556,8 +564,9 @@ def test_failed_gate_builds_inline(loader, monkeypatch):
     assert [kernels._libs[n].name for n in ("keccak", "aes")] == [
         "keccak", "aes"]
     block = artifacts.round_block(mark)
-    assert (block["inline_compiles"], block["hits"]) == (1, 2)
-    assert (_loads("corrupt"), _loads("hit")) == (2, 4)
+    served = len(kernels.SOURCES) - 1
+    assert (block["inline_compiles"], block["hits"]) == (1, served)
+    assert (_loads("corrupt"), _loads("hit")) == (2, 2 * served)
     os.unlink(loader / artifacts.MANIFEST_NAME)
     monkeypatch.setattr(kernels, "_libs", {})
     monkeypatch.setattr(artifacts, "_stores", {})
